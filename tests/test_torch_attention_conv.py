@@ -44,6 +44,8 @@ def test_attention_matches_jax(route, cd):
 
 
 def test_attention_no_padding_mask_and_dropout_raises():
+    """No key-padding mask; a dropout rate outside [0, 1) raises (train-mode
+    dropout itself runs since the training slice, test_torch_backward.py)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1))
     ctx = port_attn.mha_dense_bth(q, k, v, NH, 0.2, 0.0, torch.float32)
     # changing a late frame's key changes every query's output: no mask
@@ -51,8 +53,9 @@ def test_attention_no_padding_mask_and_dropout_raises():
     k2[:, -1] += 1.0
     ctx2 = port_attn.mha_dense_bth(q, k2, v, NH, 0.2, 0.0, torch.float32)
     assert torch.all((ctx2 - ctx).abs().amax(dim=-1) > 0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_attn.mha_fused_bth(q, k, v, NH, 0.2, 0.1, torch.float32)
+    for fn in (port_attn.mha_fused_bth, port_attn.mha_dense_bth):
+        with pytest.raises(ValueError, match="dropout rate"):
+            fn(q, k, v, NH, 0.2, 1.0, torch.float32)
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])

@@ -41,7 +41,10 @@ def _env():
 def test_port_and_chip_smoke_import_without_jax_or_pydantic():
     modules = _port_modules()
     assert {"wav2vec2forbrain_tpu_torch.ops.kernels", "wav2vec2forbrain_tpu_torch.predict",
-            "wav2vec2forbrain_tpu_torch.bridge"} <= set(modules)
+            "wav2vec2forbrain_tpu_torch.bridge", "wav2vec2forbrain_tpu_torch.ops.hash_dropout",
+            "wav2vec2forbrain_tpu_torch.models.seeds", "wav2vec2forbrain_tpu_torch.train.optim",
+            "wav2vec2forbrain_tpu_torch.train.steps", "wav2vec2forbrain_tpu_torch.train.train_loop",
+            "wav2vec2forbrain_tpu_torch.profile_train", "wav2vec2forbrain_tpu_torch.tree"} <= set(modules)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}

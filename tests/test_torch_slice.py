@@ -150,9 +150,12 @@ def test_bf16_compute_matches_jax_loosely():
 
 
 def test_train_mode_raises_until_the_training_slice(f32_run):
+    """Train mode runs since the training slice, but only with its seed
+    streams: without a ForwardRng the forward refuses (the JAX package
+    likewise asserts a dropout rng in train mode)."""
     _, _, (tp, ts, tspec) = f32_run
     b = to_device(_batch(0, SENTENCES[:3]), "cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="train mode needs a ForwardRng"):
         port_assembly.forward(tp, ts, tspec, b.input, b.day_idxs, b.input_lens, train=True)
 
 

@@ -7,6 +7,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace w2vb {
 
@@ -43,6 +44,31 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Stateless attention dropout, the hash of the JAX package's
+// ops/pallas_attention.py::_keep_mask / _mix (and xla_attention.py::
+// hash_keep_mask): a murmur3 finalizer over (seed, batch row, head, q row,
+// k col) with the same constants. uint32 arithmetic wraps as in XLA.
+__device__ __forceinline__ uint32_t murmur_finalize(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t attn_mix(uint32_t seed, uint32_t row, uint32_t head) {
+  return seed * 0x27D4EB2Fu + row * 0x165667B1u + head * 0x9E3779B9u;
+}
+
+// keep (true) or drop query row r, key column c: the 24 high bits of the
+// hash as an exact f32 uniform in [0, 1), compared with keep_prob in f32
+__device__ __forceinline__ bool attn_keep(uint32_t mix, uint32_t r, uint32_t c, float keep_prob) {
+  const uint32_t x = murmur_finalize(mix + r * 0x9E3779B9u + c * 0x85EBCA6Bu);
+  const float u = static_cast<float>(static_cast<int>(x >> 8)) * (1.0f / 16777216.0f);
+  return u < keep_prob;
 }
 
 // Blocks that need more than the 48 KB default opt in to the larger

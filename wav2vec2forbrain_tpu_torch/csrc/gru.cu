@@ -29,6 +29,33 @@
 // Any H whose shared memory (16 * kBatch * H bytes) fits takes this kernel.
 // Splitting W_hh across a thread-block cluster (distributed shared memory)
 // is the next step for speed.
+//
+// Backward (replaces ::_bwd_impl, the Pallas kernel _bwd_kernel): reverse-
+// time BPTT from the saved ys. Per step t, going down:
+//   hprev = ys[t-1] (h0 at t = 0); gh and the gates recomputed as above
+//   dh = dh_carry + g[t]
+//   dgr, dgz, dgn -> dgi[t];  dgh = [dgr, dgz, dgn * r]
+//   dh_carry = dh * z + dgh_cd @ W_hh_cd^T
+// and, summed over all steps and batch rows,
+//   dW_hh = sum hprev_cd^T dgh_cd   (H x 3H per direction),  db_hh = sum dgh
+// The JAX kernel keeps dW_hh (2 x 256 x 768 f32 = 1.5 MiB at H = 256)
+// resident across the reverse loop; no H100 block can hold that, and a
+// rank-kBatch update of a global partial at every step would move ~90 x
+// 1.5 MiB per block. So the backward is three launches:
+//  1. the recurrence, with the forward's layout (one block per direction
+//     and kBatch batch rows, W_hh read from L2, hprev and the dh carry in
+//     shared memory; the product with W_hh^T reads a transposed copy of
+//     W_hh so that the reads stay coalesced across threads). It writes dgi
+//     and dgh (T, 2, B, 3H) to device memory and dh0 at the end. Two block
+//     barriers per step.
+//  2. dW_hh as a tiled shared-memory product over the T * B rows (2848 at
+//     the slice's shape): one block per 64 x 64 output tile and direction,
+//     32-row chunks of hprev and dgh staged in shared memory (rounded to the
+//     compute dtype, as the JAX `_mm` rounds them), 4 x 4 outputs per
+//     thread. Each output is summed by one thread in a fixed order: no
+//     atomics, deterministic.
+//  3. db_hh: one thread per column sums dgh over the rows in order.
+// cuBLAS is not used: the JAX kernel computes dW_hh in its own body.
 #include "common.cuh"
 
 namespace {
@@ -125,6 +152,225 @@ int launch(const float* gi, const void* w_hh, const float* b_hh, const float* h0
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename W>
+__global__ void gru_bwd_kernel(const float* __restrict__ gi, const W* __restrict__ w_hh,
+                               const W* __restrict__ w_t, const float* __restrict__ b_hh,
+                               const float* __restrict__ h0, const float* __restrict__ ys,
+                               const float* __restrict__ g, float* __restrict__ dgi,
+                               float* __restrict__ dgh, float* __restrict__ dh0, int T, int ND,
+                               int B, int H) {
+  constexpr bool cd_bf16 = sizeof(W) == 2;
+  extern __shared__ float sm[];
+  const int H3 = 3 * H;
+  float* hp = sm;                   // [kBatch][H] hprev, f32
+  float* hpc = hp + kBatch * H;     // [kBatch][H] hprev rounded to the compute dtype
+  float* dhs = hpc + kBatch * H;    // [kBatch][H] dh carry, f32
+  float* dghc = dhs + kBatch * H;   // [kBatch][3H] dgh rounded to the compute dtype
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * kBatch;
+  const int nb = min(kBatch, B - b0);
+  const W* w = w_hh + (size_t)d * H * H3;
+  const W* wt = w_t + (size_t)d * H3 * H;
+  const float* bh = b_hh + (size_t)d * H3;
+
+  // hprev of step t: ys[t-1], or h0 at t = 0
+  auto load_hprev = [&](int t) {
+    for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) {
+      const int bb = i / H;
+      const int j = i - bb * H;
+      float v = 0.f;
+      if (bb < nb)
+        v = t > 0 ? ys[(((size_t)(t - 1) * ND + d) * B + b0 + bb) * H + j]
+                  : h0[((size_t)d * B + b0 + bb) * H + j];
+      hp[i] = v;
+      hpc[i] = w2vb::round_cd(v, cd_bf16);
+    }
+  };
+  for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) dhs[i] = 0.f;
+  load_hprev(T - 1);
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t row0 = ((size_t)t * ND + d) * B + b0;
+    for (int i = threadIdx.x; i < H; i += blockDim.x) {
+      float a0[kBatch], a1[kBatch], a2[kBatch];
+#pragma unroll
+      for (int bb = 0; bb < kBatch; ++bb) a0[bb] = a1[bb] = a2[bb] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < H; ++j) {
+        const W* wr = w + (size_t)j * H3;
+        const float w0 = w2vb::to_f32(wr[i]);
+        const float w1 = w2vb::to_f32(wr[H + i]);
+        const float w2 = w2vb::to_f32(wr[2 * H + i]);
+#pragma unroll
+        for (int bb = 0; bb < kBatch; ++bb) {
+          const float hv = hpc[bb * H + j];
+          a0[bb] = fmaf(hv, w0, a0[bb]);
+          a1[bb] = fmaf(hv, w1, a1[bb]);
+          a2[bb] = fmaf(hv, w2, a2[bb]);
+        }
+      }
+      const float br = bh[i], bz = bh[H + i], bn = bh[2 * H + i];
+#pragma unroll
+      for (int bb = 0; bb < kBatch; ++bb) {
+        float* dc = dghc + bb * H3;
+        if (bb < nb) {
+          const float* gr = gi + (row0 + bb) * H3;
+          const float gh_n = a2[bb] + bn;
+          const float r = w2vb::sigmoidf(gr[i] + (a0[bb] + br));
+          const float z = w2vb::sigmoidf(gr[H + i] + (a1[bb] + bz));
+          const float n = tanhf(gr[2 * H + i] + r * gh_n);
+          const float dh = dhs[bb * H + i] + g[(row0 + bb) * H + i];
+          const float dn = dh * (1.f - z);
+          const float dzv = dh * (hp[bb * H + i] - n);
+          const float dgn = dn * (1.f - n * n);
+          const float dr = dgn * gh_n;
+          const float dgz = dzv * z * (1.f - z);
+          const float dgr = dr * r * (1.f - r);
+          const float dghn = dgn * r;
+          float* o = dgi + (row0 + bb) * H3;
+          o[i] = dgr;
+          o[H + i] = dgz;
+          o[2 * H + i] = dgn;
+          float* oh = dgh + (row0 + bb) * H3;
+          oh[i] = dgr;
+          oh[H + i] = dgz;
+          oh[2 * H + i] = dghn;
+          dc[i] = w2vb::round_cd(dgr, cd_bf16);
+          dc[H + i] = w2vb::round_cd(dgz, cd_bf16);
+          dc[2 * H + i] = w2vb::round_cd(dghn, cd_bf16);
+          dhs[bb * H + i] = dh * z;  // the carry's first term; only this thread touches it
+        } else {
+          dc[i] = dc[H + i] = dc[2 * H + i] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+    // dh_carry = dh * z + dgh_cd @ W_hh_cd^T (W^T row j is contiguous over i)
+    for (int i = threadIdx.x; i < H; i += blockDim.x) {
+      float acc[kBatch];
+#pragma unroll
+      for (int bb = 0; bb < kBatch; ++bb) acc[bb] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < H3; ++j) {
+        const float wv = w2vb::to_f32(wt[(size_t)j * H + i]);
+#pragma unroll
+        for (int bb = 0; bb < kBatch; ++bb) acc[bb] = fmaf(dghc[bb * H3 + j], wv, acc[bb]);
+      }
+#pragma unroll
+      for (int bb = 0; bb < kBatch; ++bb) dhs[bb * H + i] += acc[bb];
+    }
+    if (t > 0) load_hprev(t - 1);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) {
+    const int bb = i / H;
+    if (bb < nb) dh0[((size_t)d * B + b0 + bb) * H + (i - bb * H)] = dhs[i];
+  }
+}
+
+constexpr int kTile = 64;   // dW output tile (rows of H x columns of 3H)
+constexpr int kChunk = 32;  // T*B rows staged per step
+
+// dw[d] = sum over rows (t, b) of hprev_cd[t, d, b, :]^T dgh_cd[t, d, b, :]
+__global__ void gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ ys,
+                              const float* __restrict__ dgh, float* __restrict__ dw, int T,
+                              int ND, int B, int H, bool cd_bf16) {
+  __shared__ float as[kChunk][kTile];  // hprev rows, columns i0 ..
+  __shared__ float bs[kChunk][kTile];  // dgh rows, columns j0 ..
+  const int H3 = 3 * H;
+  const int j0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.y * kTile;
+  const int d = blockIdx.z;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int R = T * B;
+  float acc[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+
+  for (int r0 = 0; r0 < R; r0 += kChunk) {
+    for (int e = threadIdx.x; e < kChunk * kTile; e += blockDim.x) {
+      const int rr = e / kTile;
+      const int cc = e - rr * kTile;
+      const int r = r0 + rr;
+      float av = 0.f, bv = 0.f;
+      if (r < R) {
+        const int t = r / B;
+        const int bb = r - t * B;
+        const int i = i0 + cc;
+        const int j = j0 + cc;
+        if (i < H)
+          av = t > 0 ? ys[(((size_t)(t - 1) * ND + d) * B + bb) * H + i]
+                     : h0[((size_t)d * B + bb) * H + i];
+        if (j < H3) bv = dgh[(((size_t)t * ND + d) * B + bb) * H3 + j];
+      }
+      as[rr][cc] = w2vb::round_cd(av, cd_bf16);
+      bs[rr][cc] = w2vb::round_cd(bv, cd_bf16);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < kChunk; ++rr) {
+      float a[4], b[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = as[rr][ty * 4 + m];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) b[n] = bs[rr][tx + 16 * n];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int i = i0 + ty * 4 + m;
+    if (i >= H) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int j = j0 + tx + 16 * n;
+      if (j < H3) dw[((size_t)d * H + i) * H3 + j] = acc[m][n];
+    }
+  }
+}
+
+// db[d, j] = sum over rows (t, b) of dgh[t, d, b, j], f32, rows in order
+__global__ void gru_db_kernel(const float* __restrict__ dgh, float* __restrict__ db, int T, int ND,
+                              int B, int H3) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int d = blockIdx.y;
+  if (j >= H3) return;
+  float acc = 0.f;
+  for (int t = 0; t < T; ++t)
+    for (int bb = 0; bb < B; ++bb) acc += dgh[(((size_t)t * ND + d) * B + bb) * H3 + j];
+  db[(size_t)d * H3 + j] = acc;
+}
+
+template <typename W>
+int launch_bwd(const float* gi, const void* w_hh, const void* w_t, const float* b_hh,
+               const float* h0, const float* ys, const float* g, float* dgi, float* dgh,
+               float* dw, float* db, float* dh0, int T, int ND, int B, int H, cudaStream_t s) {
+  const size_t smem = (size_t)6 * kBatch * H * sizeof(float);
+  cudaError_t e = w2vb::allow_smem(gru_bwd_kernel<W>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((B + kBatch - 1) / kBatch, ND);
+  const int threads = H < 512 ? ((H + 31) / 32) * 32 : 512;
+  gru_bwd_kernel<W><<<grid, threads, smem, s>>>(gi, static_cast<const W*>(w_hh),
+                                                static_cast<const W*>(w_t), b_hh, h0, ys, g, dgi,
+                                                dgh, dh0, T, ND, B, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 gdw((3 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, ND);
+  gru_dw_kernel<<<gdw, 256, 0, s>>>(h0, ys, dgh, dw, T, ND, B, H, sizeof(W) == 2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 gdb((3 * H + 255) / 256, ND);
+  gru_db_kernel<<<gdb, 256, 0, s>>>(dgh, db, T, ND, B, 3 * H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // w_bf16: W_hh is bf16 (compute dtype bfloat16) rather than f32.
@@ -134,4 +380,18 @@ extern "C" int w2vb_gru_fwd(const float* gi, const void* w_hh, int w_bf16, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_bf16) return launch<__nv_bfloat16>(gi, w_hh, b_hh, h0, ys, T, ND, B, H, s);
   return launch<float>(gi, w_hh, b_hh, h0, ys, T, ND, B, H, s);
+}
+
+// Backward: w_hh (ND, H, 3H) and w_t = its transpose (ND, 3H, H), both in
+// the compute dtype (w_bf16); dgh is a (T, ND, B, 3H) f32 scratch; dw (ND,
+// H, 3H), db (ND, 3H) and dh0 (ND, B, H) f32.
+extern "C" int w2vb_gru_bwd(const float* gi, const void* w_hh, const void* w_t, int w_bf16,
+                            const float* b_hh, const float* h0, const float* ys, const float* g,
+                            float* dgi, float* dgh, float* dw, float* db, float* dh0, int T,
+                            int ND, int B, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_bf16)
+    return launch_bwd<__nv_bfloat16>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND,
+                                     B, H, s);
+  return launch_bwd<float>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, s);
 }

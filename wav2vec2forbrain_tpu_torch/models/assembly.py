@@ -1,5 +1,5 @@
-"""B2P2T brain encoder + Wav2Vec2-Conformer model assembly, eval mode
-(counterpart of wav2vec2forbrain_tpu/models/assembly.py).
+"""B2P2T brain encoder + Wav2Vec2-Conformer model assembly (counterpart of
+wav2vec2forbrain_tpu/models/assembly.py).
 
 Parameters are nested dicts of tensors with the JAX package's structure and
 key names, so they cross the bridge (bridge.py) unchanged:
@@ -10,8 +10,10 @@ key names, so they cross the bridge (bridge.py) unchanged:
     }
     state  = {"encoder": {"layers": [{"batch_norm": {"mean", "var"}}, ...]}}
 
-Only the conformer family and eval mode are ported so far; the wav2vec2-base
-family and the aux head wait for later slices.
+Only the conformer family is ported so far (eval and train mode, the aux
+head and the extras); the wav2vec2-base family waits for a later slice.
+Train mode takes its dropout seeds and LayerDrop decisions from a
+ForwardRng (models/seeds.py): the GRU, encoder and head streams.
 """
 
 from dataclasses import dataclass
@@ -20,9 +22,9 @@ from typing import Optional, Tuple
 import torch
 
 from wav2vec2forbrain_tpu_torch.models.conformer import (
-    TRAINING_SLICE,
     ConformerEncoderConfig,
     apply_conformer_encoder,
+    dropout_site,
     init_conformer_encoder_params,
     init_conformer_state,
 )
@@ -35,14 +37,16 @@ from wav2vec2forbrain_tpu_torch.models.preprocessing import (
     in_size_after_preprocessing,
     init_preproc_params,
 )
+from wav2vec2forbrain_tpu_torch.models.seeds import ForwardRng
 from wav2vec2forbrain_tpu_torch.ops.ctc import ctc_loss
 from wav2vec2forbrain_tpu_torch.ops.preproc import apply_preproc_fused
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+from wav2vec2forbrain_tpu_torch.tree import tree_map
 
 
 @dataclass
 class ModelSpec:
-    """Static model description (the JAX ModelSpec's fields this slice uses).
+    """Static model description (the JAX ModelSpec's fields the port uses).
 
     The defaults are b2p2t_gru+w2v_conformer at full width: biGRU 2 x 256,
     FC to 1024, Wav2Vec2-Conformer-RoPE-large (24 layers, d=1024, 16 heads,
@@ -57,6 +61,7 @@ class ModelSpec:
     gru_bidirectional: bool = True
     gru_num_layers: int = 2
     gru_bias: bool = True
+    gru_dropout: float = 0.0
     gru_learnable_initial_state: bool = False
     fc_hidden_sizes: Tuple[int, ...] = ()
     fc_activation: str = "gelu"
@@ -67,6 +72,11 @@ class ModelSpec:
     compute_dtype: torch.dtype = torch.float32
     # dtype of the encoder's activation stream (block inputs/outputs)
     activation_dtype: torch.dtype = torch.float32
+    # optional intermediate CTC head on the pre-encoder brain latents: the
+    # loss becomes ctc + additional_loss_weight * (aux | aux^2)
+    aux_head_vocab_size: Optional[int] = None
+    additional_loss_weight: float = 1.0
+    additional_loss_squared: bool = False
 
     def __post_init__(self):
         if self.conformer_cfg is None:
@@ -100,6 +110,8 @@ def init_model_params(generator: torch.Generator, spec: ModelSpec, device) -> Tu
             "lm_head": init_linear(generator, cfg.hidden_size, cfg.vocab_size, device),
         },
     }
+    if spec.aux_head_vocab_size is not None:
+        params["aux_head"] = init_linear(generator, spec.latent_size, spec.aux_head_vocab_size, device)
     return params, {"encoder": init_conformer_state(cfg, device)}
 
 
@@ -110,11 +122,19 @@ def forward(
     x: torch.Tensor,
     day_idxs: torch.Tensor,
     input_lens: torch.Tensor,
+    rng: Optional[ForwardRng] = None,
     train: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, dict]:
-    """Batch (B, T, 256) -> (logits (B, T', vocab) f32, logit_lens (B,), state)."""
-    if train:
-        raise NotImplementedError(TRAINING_SLICE)
+    return_extras: bool = False,
+):
+    """Batch (B, T, 256) -> (logits (B, T', vocab) f32, logit_lens (B,),
+    new_state), plus an extras dict when return_extras: "hidden_states"
+    (what the lm_head projects, after the final dropout), "latents" (the
+    pre-encoder brain latents) and, with an aux head, "aux_logits".
+
+    Train mode needs rng, a ForwardRng whose gru / enc / head streams seed
+    the GRU's inter-layer dropout, the encoder and the head's final dropout."""
+    if train and rng is None:
+        raise ValueError("forward: train mode needs a ForwardRng of seed streams (models/seeds.py)")
     cd = spec.compute_dtype
     x = x.float()
     taps = gaussian_kernel(GAUSS_KERNEL_SIZE, spec.gaussian_smooth_width, x.device)
@@ -131,15 +151,27 @@ def forward(
         spec.gru_bidirectional,
         spec.gru_learnable_initial_state,
         compute_dtype=cd,
+        dropout=spec.gru_dropout,
+        train=train,
+        stream=rng.gru if rng is not None else None,
     )
     latents = apply_fc(params["brain"]["fc"], h, spec.fc_activation, cd)
     enc_in = latents.to(spec.activation_dtype)
+    cfg = spec.conformer_cfg
     hidden, new_enc_state = apply_conformer_encoder(
-        params["w2v"]["encoder"], state["encoder"], enc_in, spec.conformer_cfg,
-        train=False, compute_dtype=cd,
+        params["w2v"]["encoder"], state["encoder"], enc_in, cfg,
+        train=train, compute_dtype=cd, stream=rng.enc if rng is not None else None,
     )
+    # ForCTC head: final dropout + vocab projection
+    hidden = dropout_site(rng.head if rng is not None else None, hidden, cfg.final_dropout, train)
     logits = apply_linear(params["w2v"]["lm_head"], hidden, cd)
-    return logits.float(), out_lens, {"encoder": new_enc_state}
+    new_state = {"encoder": new_enc_state}
+    if not return_extras:
+        return logits.float(), out_lens, new_state
+    extras = {"hidden_states": hidden.float(), "latents": latents.float()}
+    if spec.aux_head_vocab_size is not None:
+        extras["aux_logits"] = apply_linear(params["aux_head"], latents, cd).float()
+    return logits.float(), out_lens, new_state, extras
 
 
 def forward_with_loss(
@@ -151,15 +183,68 @@ def forward_with_loss(
     input_lens: torch.Tensor,
     targets: Optional[torch.Tensor],
     target_lens: Optional[torch.Tensor],
+    rng: Optional[ForwardRng] = None,
     train: bool = False,
     sample_mask: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
 ) -> dict:
-    """{logits, logit_lens, loss (None without targets), state, metrics}."""
-    logits, logit_lens, new_state = forward(params, state, spec, x, day_idxs, input_lens, train)
+    """{logits, logit_lens, loss (None without targets), state, metrics}
+    (+ hidden_states with return_hidden). With an aux head the loss is the
+    combined ctc + w * (aux | aux^2) and metrics carries ctc_loss,
+    intermediate_loss (intermediate_loss_squared) and combined_loss, the JAX
+    package's names; without one, metrics is {}."""
+    aux_on = spec.aux_head_vocab_size is not None
+    fwd = forward(
+        params, state, spec, x, day_idxs, input_lens, rng, train,
+        return_extras=aux_on or return_hidden,
+    )
+    logits, logit_lens, new_state = fwd[:3]
+    extras = fwd[3] if len(fwd) > 3 else {}
     loss = None
+    metrics = {}
     if targets is not None:
         loss = ctc_loss(
             logits, logit_lens, targets, target_lens, spec.ctc_loss_reduction,
             sample_mask=sample_mask,
         )
-    return dict(logits=logits, logit_lens=logit_lens, loss=loss, state=new_state, metrics={})
+        if aux_on:
+            aux_loss = ctc_loss(
+                extras["aux_logits"], logit_lens, targets, target_lens,
+                spec.ctc_loss_reduction, sample_mask=sample_mask,
+            )
+            metrics["ctc_loss"] = loss
+            metrics["intermediate_loss"] = aux_loss
+            aux_term = aux_loss**2 if spec.additional_loss_squared else aux_loss
+            if spec.additional_loss_squared:
+                metrics["intermediate_loss_squared"] = aux_term
+            loss = loss + aux_term * spec.additional_loss_weight
+            metrics["combined_loss"] = loss
+    out = dict(logits=logits, logit_lens=logit_lens, loss=loss, state=new_state, metrics=metrics)
+    if return_hidden:
+        out["hidden_states"] = extras["hidden_states"]
+    return out
+
+
+# --- optimizer param labeling -------------------------------------------------
+
+
+def _label_tree(tree, label):
+    return tree_map(lambda _: label, tree)
+
+
+def param_labels(params: dict, unfreeze_strategy: str) -> dict:
+    """Tree of "brain" / "w2v" / "frozen" labels with params' structure:
+    the dead inp_layers parity weights are always frozen; under
+    unfreeze_strategy "brain_encoder" the whole w2v subtree (lm_head
+    included) is frozen; an aux head trains with the brain group."""
+    brain = params["brain"]
+    labels_brain = {k: _label_tree(v, "brain") for k, v in brain.items() if k != "preproc"}
+    labels_brain["preproc"] = {
+        k: _label_tree(v, "frozen" if k == "inp_layers" else "brain")
+        for k, v in brain["preproc"].items()
+    }
+    w2v_label = "w2v" if unfreeze_strategy == "brain_encoder+w2v" else "frozen"
+    labels = {"brain": labels_brain, "w2v": _label_tree(params["w2v"], w2v_label)}
+    if "aux_head" in params:
+        labels["aux_head"] = _label_tree(params["aux_head"], "brain")
+    return labels

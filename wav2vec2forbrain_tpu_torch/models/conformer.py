@@ -1,44 +1,43 @@
-"""Wav2Vec2-Conformer encoder with rotary position embeddings, eval mode
-(counterpart of wav2vec2forbrain_tpu/models/conformer.py).
+"""Wav2Vec2-Conformer encoder with rotary position embeddings (counterpart
+of wav2vec2forbrain_tpu/models/conformer.py, unscanned layer list).
 
 Per block (macaron):
     x = x + 0.5 * ffn1(LN(x))
-    x = x + attn_rope(LN(x))
+    x = x + dropout(attn_rope(LN(x)))
     x = x + conv_module(x)      # LN -> pw-conv(GLU) -> dw-conv -> BN -> act -> pw-conv
     x = LN(x + 0.5 * ffn2(LN(x)))
 then a final encoder LayerNorm. RoPE rotates the *hidden states* before the
-q/k projections (the HF quirk the JAX package keeps). BatchNorm uses its
-running statistics. Dtypes follow the JAX package: matmuls contract in the
-compute dtype with f32 results, block outputs ride the activation-stream
-dtype (x.dtype), norms run in f32.
+q/k projections (the HF quirk the JAX package keeps). Dtypes follow the JAX
+package: matmuls contract in the compute dtype with f32 results, block
+outputs ride the activation-stream dtype (x.dtype), norms run in f32.
 
-Training (dropout, LayerDrop, BatchNorm batch statistics) comes with the
-training slice: `train=True` raises.
+Train mode, as the JAX package: hash dropout at the seven sites of a layer
+(each FFN half's activation and output, the attention probabilities inside
+the attention op, the attention output, the conv module's output) and on
+the encoder input, seeded in that order from the forward's encoder
+SeedStream (models/seeds.py); BatchNorm on batch statistics; LayerDrop.
 """
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from wav2vec2forbrain_tpu_torch.models.activations import ACT2FN
 from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, init_linear, matmul_f32, uniform
+from wav2vec2forbrain_tpu_torch.models.seeds import SeedStream
 from wav2vec2forbrain_tpu_torch.models.wav2vec2 import _layer_norm
 from wav2vec2forbrain_tpu_torch.ops.attention import attention
 from wav2vec2forbrain_tpu_torch.ops.conv_glu import depthwise_conv_same, glu_dwconv
+from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
-
-TRAINING_SLICE = (
-    "train=True: dropout, LayerDrop and BatchNorm batch statistics come with "
-    "the port's training slice; this slice runs the eval-mode forward only"
-)
 
 
 @dataclass
 class ConformerEncoderConfig:
-    """The JAX ConformerEncoderConfig's fields the eval forward reads (the
-    dropout, LayerDrop and BatchNorm-momentum fields come with training)."""
+    """The JAX ConformerEncoderConfig's fields the forward reads, with the
+    JAX defaults."""
 
     hidden_size: int = 1024
     num_hidden_layers: int = 24
@@ -47,12 +46,19 @@ class ConformerEncoderConfig:
     # HF config default; the released rope-large-960h-ft checkpoint's
     # config.json specifies "swish" (see rope_large_960h())
     hidden_act: str = "gelu"
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    conformer_conv_dropout: float = 0.1
+    final_dropout: float = 0.1
+    layerdrop: float = 0.1
     layer_norm_eps: float = 1e-5
     conv_depthwise_kernel_size: int = 31
     rotary_embedding_base: int = 10000
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     vocab_size: int = 32
+    batch_norm_momentum: float = 0.1
     batch_norm_eps: float = 1e-5
 
     @classmethod
@@ -190,14 +196,35 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, num_hea
 # --- blocks -----------------------------------------------------------------------
 
 
-def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype):
+def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+    """One dropout site: a hash mask keyed on the stream's next seed."""
+    if not train or rate <= 0.0:
+        return x
+    return hash_dropout(x, stream.seed(), rate)
+
+
+def sites_per_layer(cfg: ConformerEncoderConfig) -> int:
+    """Seeds one train-mode layer draws: the FFN halves' activation and
+    hidden dropouts, the attention probabilities and output, the conv module."""
+    rates = (
+        cfg.activation_dropout, cfg.hidden_dropout,
+        cfg.attention_dropout, cfg.attention_dropout,
+        cfg.conformer_conv_dropout,
+        cfg.activation_dropout, cfg.hidden_dropout,
+    )
+    return sum(r > 0.0 for r in rates)
+
+
+def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
     sd = x.dtype
     y = apply_linear(p["intermediate_dense"], x, compute_dtype, out_dtype=sd)
     y = ACT2FN[cfg.hidden_act](y)
-    return apply_linear(p["output_dense"], y, compute_dtype, out_dtype=sd)
+    y = dropout_site(stream, y, cfg.activation_dropout, train)
+    y = apply_linear(p["output_dense"], y, compute_dtype, out_dtype=sd)
+    return dropout_site(stream, y, cfg.hidden_dropout, train)
 
 
-def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype):
+def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False):
     heads = cfg.num_attention_heads
     cd = compute_dtype or x.dtype
     sd = x.dtype
@@ -205,18 +232,37 @@ def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, comput
     q = apply_linear(p["linear_q"], qk_states, cd, out_dtype=sd)
     k = apply_linear(p["linear_k"], qk_states, cd, out_dtype=sd)
     v = apply_linear(p["linear_v"], x, cd, out_dtype=sd)
-    ctx = attention(q, k, v, heads, cd)
+    rate = cfg.attention_dropout if train else 0.0
+    ctx = attention(q, k, v, heads, cd, rate, stream.seed() if rate > 0.0 else 0)
     return apply_linear(p["linear_out"], ctx, cd, out_dtype=sd)
 
 
-def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig):
-    """Eval BatchNorm over channels of (B, T, C) with the running stats:
-    normalise in f32, emit in x's dtype."""
-    y = (x - state["mean"]) * torch.rsqrt(state["var"] + cfg.batch_norm_eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig, train: bool = False):
+    """BatchNorm over channels of (B, T, C), torch semantics: train mode
+    normalises with the biased batch variance over (B, T), pad frames
+    included, and moves the running stats by the momentum with the unbiased
+    variance; eval mode uses the running stats. Normalises in f32, emits in
+    x's dtype. Returns (y, new_state)."""
+    if train:
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 1))
+        var = x32.var(dim=(0, 1), unbiased=False)
+        n = x.shape[0] * x.shape[1]
+        unbiased = var * n / max(n - 1, 1)
+        m = cfg.batch_norm_momentum
+        new_state = {
+            "mean": (1 - m) * state["mean"] + m * mean.detach(),
+            "var": (1 - m) * state["var"] + m * unbiased.detach(),
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + cfg.batch_norm_eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype), new_state
 
 
-def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtype):
+def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
+    """Returns (y, new_state) with new_state = {"batch_norm": ...}."""
     cd = compute_dtype or x.dtype
     sd = x.dtype
     y = _layer_norm(p["layer_norm"], x, cfg.layer_norm_eps)
@@ -229,32 +275,35 @@ def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtyp
         a, gate = y.float().chunk(2, dim=-1)
         y = (a * torch.sigmoid(gate)).to(sd)
         y = depthwise_conv_same(y.to(cd), w_dw.to(cd)).to(cd).to(sd)
-    y = _batch_norm(p["batch_norm"], state["batch_norm"], y, cfg)
+    y, new_bn = _batch_norm(p["batch_norm"], state["batch_norm"], y, cfg, train)
     y = ACT2FN[cfg.hidden_act](y)
-    return matmul_f32(y.to(cd), p["pointwise_conv2"]["kernel"].to(cd)).to(sd)
+    y = matmul_f32(y.to(cd), p["pointwise_conv2"]["kernel"].to(cd)).to(sd)
+    return dropout_site(stream, y, cfg.conformer_conv_dropout, train), {"batch_norm": new_bn}
 
 
-def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype):
+def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False):
+    """One macaron block. Returns (x, new_state)."""
     eps = cfg.layer_norm_eps
     residual = x
     y = _layer_norm(p["ffn1_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype)
+    y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train)
     x = y * 0.5 + residual
 
     residual = x
     y = _layer_norm(p["self_attn_layer_norm"], x, eps)
-    y = conformer_self_attention(p["self_attn"], y, cfg, cos, sin, compute_dtype)
+    y = conformer_self_attention(p["self_attn"], y, cfg, cos, sin, compute_dtype, stream, train)
+    y = dropout_site(stream, y, cfg.attention_dropout, train)
     x = residual + y
 
     residual = x
-    y = conformer_conv_module(p["conv_module"], state, x, cfg, compute_dtype)
+    y, new_state = conformer_conv_module(p["conv_module"], state, x, cfg, compute_dtype, stream, train)
     x = residual + y
 
     residual = x
     y = _layer_norm(p["ffn2_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype)
+    y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train)
     x = y * 0.5 + residual
-    return _layer_norm(p["final_layer_norm"], x, eps)
+    return _layer_norm(p["final_layer_norm"], x, eps), new_state
 
 
 def apply_conformer_encoder(
@@ -264,12 +313,28 @@ def apply_conformer_encoder(
     cfg: ConformerEncoderConfig,
     train: bool = False,
     compute_dtype=None,
+    stream: Optional[SeedStream] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Full encoder, eval mode. Returns (hidden (B, T, H), state unchanged)."""
-    if train:
-        raise NotImplementedError(TRAINING_SLICE)
+    """Full encoder. Returns (hidden (B, T, H), new_state).
+
+    Train mode needs `stream` (the forward's encoder stream): the input
+    dropout's seed, then the LayerDrop decisions, then every layer's sites
+    in order. A layer that LayerDrop skips is not computed, but it consumes
+    its sites' seeds and keeps its BatchNorm state, as the JAX forward
+    computes it and where-masks both out."""
+    if train and stream is None:
+        raise ValueError("apply_conformer_encoder: train mode needs a seed stream (models/seeds.py)")
+    x = dropout_site(stream, x, cfg.hidden_dropout, train)
     head = cfg.hidden_size // cfg.num_attention_heads
     cos, sin = rotary_cos_sin(x.shape[1], head, cfg.rotary_embedding_base, x.device)
-    for p_layer, s_layer in zip(params["layers"], state["layers"]):
-        x = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype)
-    return _layer_norm(params["layer_norm"], x, cfg.layer_norm_eps), state
+    n_layers = len(params["layers"])
+    drop = stream.layerdrop_mask(n_layers, cfg.layerdrop) if train and cfg.layerdrop > 0.0 else [False] * n_layers
+    new_states = []
+    for p_layer, s_layer, dropped in zip(params["layers"], state["layers"], drop):
+        if dropped:
+            stream.skip(sites_per_layer(cfg))
+            new_states.append(s_layer)
+            continue
+        x, new_s = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, stream, train)
+        new_states.append(new_s)
+    return _layer_norm(params["layer_norm"], x, cfg.layer_norm_eps), {"layers": new_states}

@@ -18,18 +18,45 @@ def uniform(generator, shape, bound, device) -> torch.Tensor:
     return u * (2.0 * bound) - bound
 
 
+class _MatmulF32(torch.autograd.Function):
+    """2-D a @ b of compute-dtype CUDA operands with an f32 result.
+
+    torch.mm's out_dtype has no autograd formula, so the backward is written
+    out: both products in the operands' dtype with f32 accumulation (g
+    rounded to it first, as a bf16 tensor-core GEMM takes it), each result
+    rounded to its operand's dtype, as JAX's transpose of a dot_general
+    with preferred_element_type=f32 converts it back."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b contracted in the operands' dtype with an f32 result (JAX's
     `preferred_element_type=float32`). b is 2-D (in, out).
 
     A bf16 torch.matmul returns bf16, so a bf16 product is taken with an f32
     output explicitly: on CUDA through torch.mm's out_dtype (bf16 tensor-core
-    GEMM, f32 accumulate and f32 store); elsewhere by upcasting the
-    bf16-valued operands to f32, which gives exact products and f32 sums."""
+    GEMM, f32 accumulate and f32 store; differentiable through _MatmulF32);
+    elsewhere by upcasting the bf16-valued operands to f32, which gives
+    exact products and f32 sums."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 

@@ -1,4 +1,4 @@
-"""Stacked (bi)GRU, eval mode (counterpart of wav2vec2forbrain_tpu/models/gru.py).
+"""Stacked (bi)GRU (counterpart of wav2vec2forbrain_tpu/models/gru.py).
 
 Gate math and weight layout follow torch (gates r, z, n; b_hh inside
 r * (...)); kernels are stored transposed like the JAX package: w_ih (in,
@@ -9,7 +9,10 @@ GRU) and the JAX package do.
 
 A bidirectional layer's recurrence runs through ops/gru.py (the CUDA kernel
 on CUDA tensors) when the kernel policy routes "gru" there, else through its
-plain version. The unidirectional path stays plain.
+plain version. The unidirectional path stays plain. In train mode the
+inter-layer dropout (not after the last layer, as torch nn.GRU) is hash
+dropout seeded from the forward's GRU SeedStream (models/seeds.py).
+Gradients reach a learnable h0 through its broadcast to the batch.
 """
 
 import math
@@ -17,6 +20,7 @@ import math
 import torch
 
 from wav2vec2forbrain_tpu_torch.models.fc import matmul_f32, uniform
+from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
 from wav2vec2forbrain_tpu_torch.ops.gru import gru_recurrence, gru_recurrence_plain
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
@@ -109,9 +113,12 @@ def apply_gru(
     bidirectional: bool = True,
     use_learnable_initial_state: bool = False,
     compute_dtype=None,
+    dropout: float = 0.0,
+    train: bool = False,
+    stream=None,
 ) -> torch.Tensor:
-    """Full stacked (bi)GRU in eval mode (no inter-layer dropout).
-    x: (B, T, in) -> (B, T, H * num_directions)."""
+    """Full stacked (bi)GRU. x: (B, T, in) -> (B, T, H * num_directions).
+    Train mode with dropout > 0 needs `stream` (a SeedStream)."""
     b = x.shape[0]
     num_directions = 2 if bidirectional else 1
     h0_all = params["hidden_start"] if use_learnable_initial_state else None
@@ -129,4 +136,8 @@ def apply_gru(
             out = bigru_layer(dirs, out, h0, compute_dtype, use_kernel)
         else:
             out = _gru_direction(dirs[0], out, h0[0], compute_dtype)
+        if train and dropout > 0.0 and layer < num_layers - 1:
+            if stream is None:
+                raise ValueError("apply_gru: train-mode dropout needs a seed stream (models/seeds.py)")
+            out = hash_dropout(out, stream.seed(), dropout)
     return out

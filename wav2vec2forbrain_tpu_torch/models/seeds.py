@@ -1,0 +1,124 @@
+"""Where train mode's randomness comes from: dropout seeds, LayerDrop
+decisions and the augmentation noise.
+
+The JAX package draws every dropout site's int32 seed and the LayerDrop
+uniforms from a `jax.random` key chain (ops/hash_dropout.py::
+dropout_with_rng, ops/pallas_attention.py::mha_with_rng,
+models/wav2vec2.py::layerdrop_mask), which torch cannot reproduce. The port
+draws the same things in the same site order from explicit generators
+instead, or replays a sequence that a test supplies:
+
+- `SeedStream`: one chain of sites. `seed()` gives the next site's seed in
+  [0, 2^31 - 1), `layerdrop_mask(n, rate)` the next LayerDrop decisions.
+- `ForwardRng`: the forward's three streams, kept apart as the JAX forward
+  splits its key into gru_rng, enc_rng and head_rng
+  (models/assembly.py::forward), so each can be replayed on its own.
+- `StepRng`: a train step's source: a `ForwardRng` per step and the
+  white-noise / constant-offset augmentation noise on the batch's device.
+
+Seeds and LayerDrop uniforms come from CPU generators: drawing them never
+waits on the card.
+"""
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import torch
+
+INT32_MAX = 2**31 - 1
+
+
+class SeedStream:
+    """One stream of dropout seeds and LayerDrop decisions.
+
+    Either from a CPU torch.Generator, or a replay of `seeds` (one int per
+    site, in site order) and `layerdrop` (one sequence of n bools per
+    layerdrop_mask call); a replay that runs out raises."""
+
+    def __init__(
+        self,
+        generator: Optional[torch.Generator] = None,
+        seeds: Optional[Sequence[int]] = None,
+        layerdrop: Optional[Sequence[Sequence[bool]]] = None,
+    ):
+        if (generator is None) == (seeds is None and layerdrop is None):
+            raise ValueError("SeedStream: give a generator or a replay (seeds / layerdrop), not both")
+        self._gen = generator
+        self._seeds = None if seeds is None else [int(s) for s in seeds]
+        self._layerdrop = None if layerdrop is None else [list(map(bool, m)) for m in layerdrop]
+        self.n_seeds = 0  # seeds handed out so far
+        self.layerdrop_drawn: List[List[bool]] = []  # every LayerDrop mask handed out
+
+    def seed(self) -> int:
+        if self._gen is not None:
+            s = int(torch.randint(0, INT32_MAX, (), generator=self._gen))
+        else:
+            if self._seeds is None or self.n_seeds >= len(self._seeds):
+                raise RuntimeError(f"SeedStream replay ran out of seeds after {self.n_seeds}")
+            s = self._seeds[self.n_seeds]
+        self.n_seeds += 1
+        return s
+
+    def skip(self, n: int) -> None:
+        """Advance past n sites (a layer that LayerDrop skips consumes its
+        sites' seeds, as the JAX forward computes it and masks it out)."""
+        for _ in range(n):
+            self.seed()
+
+    def layerdrop_mask(self, n: int, rate: float) -> List[bool]:
+        """n decisions, True = skip the layer (u < rate, u ~ U[0, 1))."""
+        if self._gen is not None:
+            mask = (torch.rand(n, generator=self._gen) < rate).tolist()
+        else:
+            i = len(self.layerdrop_drawn)
+            if self._layerdrop is None or i >= len(self._layerdrop):
+                raise RuntimeError("SeedStream replay has no LayerDrop mask left")
+            mask = self._layerdrop[i]
+            if len(mask) != n:
+                raise ValueError(f"replayed LayerDrop mask has {len(mask)} entries, the encoder {n} layers")
+        self.layerdrop_drawn.append(mask)
+        return mask
+
+
+class ForwardRng(NamedTuple):
+    """The forward's three streams (JAX: gru_rng, enc_rng, head_rng)."""
+
+    gru: SeedStream
+    enc: SeedStream
+    head: SeedStream
+
+
+def _sub_generator(parent: torch.Generator) -> torch.Generator:
+    return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=parent)))
+
+
+def forward_rng(generator: torch.Generator) -> ForwardRng:
+    """Three independent streams, each seeded from `generator` (CPU)."""
+    return ForwardRng(*(SeedStream(_sub_generator(generator)) for _ in range(3)))
+
+
+class StepRng:
+    """A train step's random source.
+
+    seed: seeds a CPU generator (dropout seeds, LayerDrop) and a generator
+    on `device` (augmentation noise). replay: a list of ForwardRng, one per
+    step, handed out in order instead of generated ones (tests)."""
+
+    def __init__(self, seed: int = 0, device="cpu", replay: Optional[List[ForwardRng]] = None):
+        self._host = torch.Generator().manual_seed(int(seed))
+        self._device = torch.Generator(device=device).manual_seed(int(seed))
+        self._replay = None if replay is None else list(replay)
+        self.forwards: List[ForwardRng] = []  # every ForwardRng handed out, in order
+
+    def next_forward(self) -> ForwardRng:
+        if self._replay is not None:
+            if not self._replay:
+                raise RuntimeError("StepRng replay ran out of steps")
+            fr = self._replay.pop(0)
+        else:
+            fr = forward_rng(self._host)
+        self.forwards.append(fr)
+        return fr
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """f32 N(0, 1) noise of `shape` on the device generator."""
+        return torch.randn(shape, generator=self._device, device=device, dtype=torch.float32)

@@ -1,14 +1,21 @@
-"""Multi-head attention on (B, T, H*D) operands, eval mode: CUDA kernel
-wrapper and the plain dense version (counterparts of
+"""Multi-head attention on (B, T, H*D) operands with train-mode hash
+dropout: the CUDA kernels' wrapper and the plain versions (counterparts of
 wav2vec2forbrain_tpu/ops/pallas_attention.py::mha_fused_bth and
-wav2vec2forbrain_tpu/ops/xla_attention.py::mha_dense_bth, at dropout rate 0).
+wav2vec2forbrain_tpu/ops/xla_attention.py::mha_dense_bth).
 
+Forward, per (batch, head):
     s = (q_cd . k_cd^T) * scale   f32 accumulation
     p = softmax(s, -1)            f32, whole row
+    p = p * mask * (1/keep)       train only; mask = hash_keep_mask(seed, ...)
     o = p_cd . v_cd               f32 accumulation, emitted in q's dtype
+Backward (the Pallas `_bwd_kernel`), recomputing p and the mask:
+    dv = pd_cd^T . g_cd;  dp = (g_cd . v_cd^T) * mask * (1/keep)
+    ds = p * (dp - sum(dp * p, -1));  dq = ds_cd . k_cd * scale;
+    dk = ds_cd^T . q_cd * scale       all emitted in q's dtype
 There is no key-padding mask: like the JAX path, queries attend over pad
-frames too. Train-mode hash dropout and the backward come with the training
-slice; a nonzero rate raises here.
+frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
+the kernel, the plain versions and the JAX package all drop the same
+probabilities.
 """
 
 import math
@@ -16,50 +23,92 @@ import math
 import torch
 
 from wav2vec2forbrain_tpu_torch.ops import kernels
+from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_keep_mask
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 _MAX_SMEM = 227 * 1024
-_WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in csrc/attention.cu
+_WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the forward kernel
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout (train mode) comes with the training slice; "
-            "the port runs eval-mode attention only"
-        )
-
-
-def mha_dense_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype):
-    """Plain dense attention: q/k/v (B, T, H*D) -> ctx (B, T, H*D) in q.dtype."""
-    _no_dropout(dropout_rate)
-    b, t, hd = q.shape
+def _heads(x, num_heads, cd):
+    """(B, T, H*D) -> (B*H, T, D) f32 holding compute-dtype values."""
+    b, t, hd = x.shape
     d = hd // num_heads
+    x = x.to(cd).float().reshape(b, t, num_heads, d)
+    return x.permute(0, 2, 1, 3).reshape(b * num_heads, t, d)
+
+
+def _unheads(x, b, num_heads, dtype):
+    """(B*H, T, D) f32 -> (B, T, H*D) in dtype."""
+    _, t, d = x.shape
+    return x.reshape(b, num_heads, t, d).permute(0, 2, 1, 3).reshape(b, t, num_heads * d).to(dtype)
+
+
+def _scaled_mask(seed, b, num_heads, t, rate, device):
+    """(mask (B*H, T, T) of 0/1, 1/keep), or None at rate 0."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention: dropout rate {rate} outside [0, 1)")
+    if rate == 0.0:
+        return None
+    keep = hash_keep_mask(seed, (b, num_heads, t, t), 1.0 - rate, device)
+    return keep.reshape(b * num_heads, t, t), 1.0 / (1.0 - rate)
+
+
+def mha_dense_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0):
+    """Plain dense attention: q/k/v (B, T, H*D) -> ctx (B, T, H*D) in
+    q.dtype; seed is used only when dropout_rate > 0."""
+    b, t, _ = q.shape
     cd = compute_dtype
-
-    def heads(x):  # (B, T, H*D) -> (B*H, T, D), values rounded to the compute dtype
-        x = x.to(cd).float().reshape(b, t, num_heads, d)
-        return x.permute(0, 2, 1, 3).reshape(b * num_heads, t, d)
-
-    s = torch.bmm(heads(q), heads(k).transpose(1, 2)) * scale
+    s = torch.bmm(_heads(q, num_heads, cd), _heads(k, num_heads, cd).transpose(1, 2)) * scale
     p = torch.softmax(s, dim=-1)
-    ctx = torch.bmm(p.to(cd).float(), heads(v))
-    ctx = ctx.reshape(b, num_heads, t, d).permute(0, 2, 1, 3).reshape(b, t, hd)
-    return ctx.to(q.dtype)
+    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device)
+    if masked is not None:
+        p = p * masked[0] * masked[1]
+    ctx = torch.bmm(p.to(cd).float(), _heads(v, num_heads, cd))
+    return _unheads(ctx, b, num_heads, q.dtype)
 
 
-def mha_fused_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype):
-    """Same contract as mha_dense_bth, through the kernel on CUDA."""
-    if not q.is_cuda:
-        return mha_dense_bth(q, k, v, num_heads, scale, dropout_rate, compute_dtype)
-    _no_dropout(dropout_rate)
+def mha_bwd_plain(q, k, v, g, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0):
+    """Plain version of the backward kernel: (dq, dk, dv), each (B, T, H*D)
+    in q.dtype, for the upstream gradient g of the context."""
+    b, t, _ = q.shape
+    cd = compute_dtype
+    qh, kh, vh = (_heads(x, num_heads, cd) for x in (q, k, v))
+    gh = _heads(g.to(q.dtype), num_heads, cd)
+    p = torch.softmax(torch.bmm(qh, kh.transpose(1, 2)) * scale, dim=-1)
+    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device)
+    mask = None if masked is None else masked[0] * masked[1]
+    pd = p if mask is None else p * mask
+    dv = torch.bmm(pd.to(cd).float().transpose(1, 2), gh)
+    dp = torch.bmm(gh, vh.transpose(1, 2))
+    if mask is not None:
+        dp = dp * mask
+    ds = (p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))).to(cd).float()
+    dq = torch.bmm(ds, kh) * scale
+    dk = torch.bmm(ds.transpose(1, 2), qh) * scale
+    return tuple(_unheads(x, b, num_heads, q.dtype) for x in (dq, dk, dv))
+
+
+def _check(name, q, k, v, num_heads, compute_dtype):
     b, t, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape or hd % num_heads:
-        raise ValueError(f"mha_fused_bth: q/k/v shapes {q.shape}, {k.shape}, {v.shape}")
+        raise ValueError(f"{name}: q/k/v shapes {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"mha_fused_bth: q/k/v must share a float32 or bfloat16 dtype")
+        raise ValueError(f"{name}: q/k/v must share a float32 or bfloat16 dtype")
     if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mha_fused_bth: compute dtype {compute_dtype} not supported")
+        raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
+
+
+def _dropout_args(dropout_rate, seed):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"attention: dropout rate {dropout_rate} outside [0, 1)")
+    keep = 1.0 - dropout_rate
+    return int(seed), float(keep), float(1.0 / keep)
+
+
+def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
+    _check("mha_fused_bth", q, k, v, num_heads, compute_dtype)
+    b, t, hd = q.shape
     d = hd // num_heads
     smem = (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4
     if smem > _MAX_SMEM:
@@ -71,16 +120,69 @@ def mha_fused_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, co
         code = lib.w2vb_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-            b, t, num_heads, d, float(scale), kernels.stream_of(q),
+            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
+            kernels.stream_of(q),
         )
     kernels.check("attention", code)
     kernels.LAUNCHES["attention"] += 1
     return o
 
 
-def attention(q, k, v, num_heads: int, compute_dtype):
-    """Model-side entry (counterpart of mha_with_rng in eval mode): the
-    kernel when the policy routes "attention" to it, else the dense version."""
+def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed):
+    _check("mha_fused_bth backward", q, k, v, num_heads, compute_dtype)
+    b, t, hd = q.shape
+    d = hd // num_heads
+    smem = (4 * t * (d + 1) + 2 * t * (t + 1)) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"mha_fused_bth backward: T={t}, D={d} needs {smem} B of shared memory (> 227 KB)")
+    g = g.to(q.dtype).contiguous()
+    kernels.require_cuda("mha_fused_bth backward", q, k, v, g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = kernels.lib()
+    with torch.cuda.device(q.device):
+        code = lib.w2vb_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
+            kernels.stream_of(q),
+        )
+    kernels.check("attention_bwd", code)
+    kernels.LAUNCHES["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (num_heads, scale, dropout_rate, compute_dtype, seed)
+        if q.is_cuda:
+            return _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed)
+        return mha_dense_bth(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        fn = _bwd_kernel if q.is_cuda else mha_bwd_plain
+        dq, dk, dv = fn(q, k, v, g, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def mha_fused_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0):
+    """Same contract as mha_dense_bth; differentiable. On CUDA tensors the
+    forward and backward kernels run (or raise); on CPU tensors their plain
+    versions (mha_dense_bth, mha_bwd_plain)."""
+    return _FusedAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), num_heads, float(scale),
+        float(dropout_rate), compute_dtype, int(seed),
+    )
+
+
+def attention(q, k, v, num_heads: int, compute_dtype, dropout_rate: float = 0.0, seed: int = 0):
+    """Model-side entry (counterpart of mha_with_rng): the kernels when the
+    policy routes "attention" to them, else the dense version. Pass
+    dropout_rate 0 in eval mode."""
     scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     fn = mha_fused_bth if kernel_enabled("attention") else mha_dense_bth
-    return fn(q, k, v, num_heads, scale, 0.0, compute_dtype)
+    return fn(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed)

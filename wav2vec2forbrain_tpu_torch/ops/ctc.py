@@ -3,11 +3,18 @@ wav2vec2forbrain_tpu/ops/ctc.py).
 
 torch's F.ctc_loss on log_softmax (blank 0, reduction "none") gives the
 per-sample negative log-likelihood; the two pieces the JAX wrapper adds are
-written out here rather than left to F.ctc_loss's zero_infinity / "mean":
+written out here rather than left to F.ctc_loss's "mean":
 - feasibility: a sample whose logit_len < target_len + #repeats has no
   alignment and contributes 0 (but still counts in the mean's denominator);
 - "mean": per-sample loss / max(target_len, 1), averaged over the batch, or
   over sample_mask's weight when a mask is given.
+
+F.ctc_loss runs with zero_infinity=True: its own backward of an infeasible
+sample computes exp(... + nll - ...) with nll = inf, which is NaN, and a
+NaN times the zero that the feasibility mask sends back is still NaN. With
+zero_infinity the gradient of such a sample is exactly 0, as in the JAX
+package (optax's finite log-semiring behind a `where`); the loss value does
+not change, since the mask zeroes the same samples.
 """
 
 import torch
@@ -32,7 +39,7 @@ def ctc_loss(
         target_lens.long(),
         blank=blank_id,
         reduction="none",
-        zero_infinity=False,
+        zero_infinity=True,
     )
     u = targets.shape[1]
     valid_pos = torch.arange(1, u, device=targets.device)[None, :] < target_lens[:, None]

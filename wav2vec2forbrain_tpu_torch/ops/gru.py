@@ -1,14 +1,20 @@
-"""Bidirectional GRU recurrence: CUDA kernel wrapper and its plain version
-(counterpart of wav2vec2forbrain_tpu/ops/pallas_gru.py::gru_recurrence and,
-for the forward, ::gru_recurrence_dir).
+"""Bidirectional GRU recurrence: the CUDA kernels' wrapper and the plain
+versions (counterpart of wav2vec2forbrain_tpu/ops/pallas_gru.py::
+gru_recurrence and its custom VJP; for the forward also of
+::gru_recurrence_dir).
 
 Per step, for each direction stacked on dim 1:
     gh = h_cd @ W_hh_cd + b_hh   (f32 accumulation; _cd = compute dtype)
     r = sig(gi_r + gh_r); z = sig(gi_z + gh_z); n = tanh(gi_n + r * gh_n)
     h' = (1 - z) * n + z * h     (h carried in f32)
-The kernel is csrc/gru.cu. It takes any hidden size H that is a multiple of
-32 and whose per-block state fits in shared memory (H <= 3584), so it also
-covers the JAX package's per-direction variant for H = 512 / 1024.
+Backward (the Pallas `_bwd_kernel`): reverse-time BPTT from the saved ys,
+    dh = dh_carry + g[t];  dgr, dgz, dgn (-> dgi[t]) and dgh = [dgr, dgz, dgn * r]
+    dh_carry = dh * z + dgh_cd @ W_hh_cd^T
+    dW_hh = sum_t hprev_cd^T @ dgh_cd;  db_hh = sum_t sum_b dgh;  dh0 = dh_carry
+The kernels are in csrc/gru.cu. The forward takes any hidden size H that is
+a multiple of 32 and whose per-block state fits in shared memory (H <=
+3584), so it also covers the JAX package's per-direction variant for H =
+512 / 1024; the backward takes H <= 2400.
 """
 
 import torch
@@ -25,29 +31,64 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def _gates(gi_t, gh):
+    gi_r, gi_z, gi_n = gi_t.chunk(3, dim=-1)
+    gh_r, gh_z, gh_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(gi_r + gh_r)
+    z = torch.sigmoid(gi_z + gh_z)
+    n = torch.tanh(gi_n + r * gh_n)
+    return r, z, n, gh_n
+
+
 def gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
     """gi (T, D, B, 3H) f32; w_hh (D, H, 3H); b_hh (D, 1, 3H) or (D, 3H);
-    h0 (D, B, H) f32 -> ys (T, D, B, H) f32."""
+    h0 (D, B, H) f32 -> ys (T, D, B, H) f32. Plain PyTorch version of the
+    forward kernel (differentiable by autograd)."""
     w = w_hh.to(compute_dtype)
     bias = b_hh.reshape(b_hh.shape[0], 1, -1).float()
     h = h0.float()
     ys = []
     for t in range(gi.shape[0]):
         gh = _bmm_f32(h.to(compute_dtype), w) + bias
-        gi_r, gi_z, gi_n = gi[t].chunk(3, dim=-1)
-        gh_r, gh_z, gh_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(gi_r + gh_r)
-        z = torch.sigmoid(gi_z + gh_z)
-        n = torch.tanh(gi_n + r * gh_n)
+        r, z, n, _ = _gates(gi[t], gh)
         h = (1.0 - z) * n + z * h
         ys.append(h)
     return torch.stack(ys)
 
 
-def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
-    """Same contract as gru_recurrence_plain, through the kernel on CUDA."""
-    if not gi.is_cuda:
-        return gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype)
+def gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, g, compute_dtype=torch.float32):
+    """Plain version of the backward kernel: (dgi (T, D, B, 3H), dW_hh (D,
+    H, 3H), db_hh (D, 1, 3H), dh0 (D, B, H)), all f32, for the upstream
+    gradient g (T, D, B, H) of ys."""
+    cd = compute_dtype
+    w = w_hh.to(cd)
+    w_t = w.transpose(1, 2)
+    bias = b_hh.reshape(b_hh.shape[0], 1, -1).float()
+    g = g.float()
+    dh = torch.zeros_like(h0, dtype=torch.float32)
+    dgi = torch.empty_like(gi, dtype=torch.float32)
+    dw = torch.zeros(w_hh.shape, dtype=torch.float32, device=gi.device)
+    db = torch.zeros(bias.shape, dtype=torch.float32, device=gi.device)
+    for t in reversed(range(gi.shape[0])):
+        hprev = (ys[t - 1] if t > 0 else h0).float()
+        gh = _bmm_f32(hprev.to(cd), w) + bias
+        r, z, n, gh_n = _gates(gi[t], gh)
+        dh = dh + g[t]
+        dn = dh * (1.0 - z)
+        dz = dh * (hprev - n)
+        dgn = dn * (1.0 - n * n)
+        dr = dgn * gh_n
+        dgz = dz * z * (1.0 - z)
+        dgr = dr * r * (1.0 - r)
+        dgi[t] = torch.cat([dgr, dgz, dgn], dim=-1)
+        dgh = torch.cat([dgr, dgz, dgn * r], dim=-1)
+        dh = dh * z + _bmm_f32(dgh.to(cd), w_t)
+        dw = dw + _bmm_f32(hprev.to(cd).transpose(1, 2), dgh.to(cd))
+        db = db + torch.sum(dgh, dim=1, keepdim=True)
+    return dgi, dw, db, dh
+
+
+def _check(gi, w_hh, b_hh, h0, compute_dtype):
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gru_recurrence: compute dtype {compute_dtype} not supported")
     t, nd, b, h3 = gi.shape
@@ -59,10 +100,18 @@ def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
             f"gru_recurrence: shapes gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, "
             f"b_hh {tuple(b_hh.shape)}, h0 {tuple(h0.shape)} do not agree"
         )
-    if h3 % 3 or h % 32 or 4 * _K_BATCH * h * 4 > _MAX_SMEM:
-        raise ValueError(f"gru_recurrence: hidden size {h} must be a multiple of 32 and <= 3584")
+    if h3 % 3 or h % 32:
+        raise ValueError(f"gru_recurrence: hidden size {h} must be a multiple of 32")
+    return t, nd, b, h
+
+
+def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype):
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
+    if 4 * _K_BATCH * h * 4 > _MAX_SMEM:
+        raise ValueError(f"gru_recurrence: hidden size {h} > 3584 does not fit the kernel")
     w = w_hh.to(compute_dtype).contiguous()
-    bias = b_hh.reshape(nd, h3).float().contiguous()
+    bias = b_hh.reshape(nd, 3 * h).float().contiguous()
+    gi, h0 = gi.contiguous(), h0.contiguous()
     kernels.require_cuda("gru_recurrence", gi, w, bias, h0)
     ys = torch.empty((t, nd, b, h), dtype=torch.float32, device=gi.device)
     if t == 0:
@@ -76,3 +125,59 @@ def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
     kernels.check("gru", code)
     kernels.LAUNCHES["gru"] += 1
     return ys
+
+
+def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
+    if 6 * _K_BATCH * h * 4 > _MAX_SMEM:
+        raise ValueError(f"gru_recurrence backward: hidden size {h} > 2400 does not fit the kernel")
+    w = w_hh.to(compute_dtype).contiguous()
+    w_t = w.transpose(1, 2).contiguous()
+    bias = b_hh.reshape(nd, 3 * h).float().contiguous()
+    gi, h0, ys, g = (x.float().contiguous() for x in (gi, h0, ys, g))
+    kernels.require_cuda("gru_recurrence backward", gi, w, w_t, bias, h0, ys, g)
+    dgi = torch.empty_like(gi)
+    dgh = torch.empty_like(gi)  # scratch: dgi with the n column scaled by r
+    dw = torch.empty((nd, h, 3 * h), dtype=torch.float32, device=gi.device)
+    db = torch.empty((nd, 1, 3 * h), dtype=torch.float32, device=gi.device)
+    dh0 = torch.empty_like(h0)
+    if t == 0:
+        return dgi, dw.zero_(), db.zero_(), dh0.zero_()
+    lib = kernels.lib()
+    with torch.cuda.device(gi.device):
+        code = lib.w2vb_gru_bwd(
+            gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), int(compute_dtype == torch.bfloat16),
+            bias.data_ptr(), h0.data_ptr(), ys.data_ptr(), g.data_ptr(),
+            dgi.data_ptr(), dgh.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+            t, nd, b, h, kernels.stream_of(gi),
+        )
+    kernels.check("gru_bwd", code)
+    kernels.LAUNCHES["gru_bwd"] += 1
+    return dgi, dw, db, dh0
+
+
+class _GruRecurrence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gi, w_hh, b_hh, h0, compute_dtype):
+        if gi.is_cuda:
+            ys = _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype)
+        else:
+            ys = gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype)
+        # the backward recomputes the gates from ys, as the JAX _vjp_fwd saves it
+        ctx.save_for_backward(gi, w_hh, b_hh, h0, ys)
+        ctx.compute_dtype = compute_dtype
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        gi, w_hh, b_hh, h0, ys = ctx.saved_tensors
+        fn = _bwd_kernel if gi.is_cuda else gru_recurrence_bwd_plain
+        dgi, dw, db, dh0 = fn(gi, w_hh, b_hh, h0, ys, g, ctx.compute_dtype)
+        return dgi, dw.to(w_hh.dtype), db.reshape(b_hh.shape).to(b_hh.dtype), dh0, None
+
+
+def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
+    """Same contract as gru_recurrence_plain; differentiable in gi, w_hh,
+    b_hh and h0. On CUDA tensors the kernels run (or raise); on CPU tensors
+    their plain versions."""
+    return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype)

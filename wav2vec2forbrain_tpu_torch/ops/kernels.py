@@ -1,7 +1,8 @@
 """Build, load and launch-count the hand-written CUDA kernels (csrc/*.cu).
 
-All sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library
-with a plain C interface, loaded with ctypes. The build runs at first use,
+All sources are compiled by ``nvcc`` for ``sm_90a`` (one nvcc process per
+source, all started together) and linked into ONE shared library with a
+plain C interface, loaded with ctypes. The build runs at first use,
 into ``build/kernels/<hash>/`` at the repository root (git-ignored), keyed
 by a hash of the sources and flags, so a fresh checkout builds everything by
 itself and an unchanged tree reuses its build. Nothing is built from
@@ -30,10 +31,13 @@ BUILD_ROOT = _PKG_DIR.parent / "build" / "kernels"
 LIB_NAME = "libw2vb_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"preproc": 0, "gru": 0, "attention": 0, "conv_glu": 0}
+LAUNCHES = {
+    "preproc": 0, "gru": 0, "attention": 0, "conv_glu": 0,
+    "preproc_bwd": 0, "gru_bwd": 0, "attention_bwd": 0, "conv_glu_bwd": 0,
+}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -42,12 +46,22 @@ _f = ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, day_idxs, taps, z, out, B, T, C, n_taps, n_days, k, stride, t_out, stream
     "w2vb_preproc_fwd": [_vp] * 7 + [_i] * 8 + [_vp],
+    # x, w, w_t, bias, day_idxs, taps, g, dz, dy, dx, dw, db,
+    # B, T, C, n_taps, n_days, k, stride, t_out, stream
+    "w2vb_preproc_bwd": [_vp] * 12 + [_i] * 8 + [_vp],
     # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, stream
     "w2vb_gru_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # q, k, v, o, io_bf16, cd_bf16, B, T, NH, D, scale, stream
-    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 6 + [_f, _vp],
+    # gi, w_hh, w_t, w_bf16, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, stream
+    "w2vb_gru_bwd": [_vp, _vp, _vp, _i] + [_vp] * 9 + [_i] * 4 + [_vp],
+    # q, k, v, o, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
+    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 6 + [_f, _i, _f, _f, _vp],
+    # q, k, v, g, dq, dk, dv, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob,
+    # inv_keep, stream
+    "w2vb_attention_bwd": [_vp] * 7 + [_i] * 6 + [_f, _i, _f, _f, _vp],
     # y, w, z, io_bf16, cd_bf16, B, T, C, ks, stream
     "w2vb_conv_glu_fwd": [_vp] * 3 + [_i] * 6 + [_vp],
+    # y, w, dz, dy, dk, io_bf16, cd_bf16, B, T, C, ks, stream
+    "w2vb_conv_glu_bwd": [_vp] * 5 + [_i] * 6 + [_vp],
 }
 
 _lib = None
@@ -102,18 +116,31 @@ def build(verbose: bool = False) -> Path:
             )
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.parent / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    compile_flags = [*NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.parent / f"{LIB_NAME}.{tag}"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    log = proc.stdout + proc.stderr
+        raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     (out.parent / "build.log").write_text(log)
     os.replace(tmp, out)
     build_info.update(

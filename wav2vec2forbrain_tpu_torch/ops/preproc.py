@@ -1,15 +1,24 @@
-"""Fused preprocessing: CUDA kernel wrapper and its plain version (counterpart
-of wav2vec2forbrain_tpu/ops/pallas_preproc.py, forward only).
+"""Fused preprocessing: the CUDA kernels' wrapper and the plain versions
+(counterpart of wav2vec2forbrain_tpu/ops/pallas_preproc.py::fused_preproc
+and its custom VJP).
 
 smooth (20 taps, 'same') -> x @ W[day] + b[day] -> softsign -> unfold
-(k=32, stride 4, channel-major). The kernel is csrc/preproc.cu; see its
-header for the design. On a CPU tensor the wrapper runs the plain version;
-on a CUDA tensor it launches the kernel or raises.
+(k=32, stride 4, channel-major). Backward (the Pallas `_bwd_kernel`), for
+g (B, T', 256 * k):
+    y = smooth(x), pre = y @ W[day] + b[day]      recomputed, not saved
+    dz = d unfold(g) / (1 + |pre|)^2
+    dW_b = y^T dz, db_b = sum_t dz                 per sample
+    dx = smooth with the reversed taps of (dz @ W[day]^T)
+and the per-sample dW/db are summed into the day tables outside the kernel
+(index_add_, the JAX package's segment_sum). The kernels are in
+csrc/preproc.cu; see its header for the design. On a CPU tensor the wrapper
+runs the plain versions; on a CUDA tensor it launches the kernels or raises.
 """
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from wav2vec2forbrain_tpu_torch.models.preprocessing import (
     NEURAL_DIM,
@@ -22,26 +31,40 @@ from wav2vec2forbrain_tpu_torch.ops import kernels
 
 
 def fused_preproc_plain(x, day_weights, day_bias, day_idxs, taps, kernel_len=32, stride=4):
-    """Plain PyTorch version of the kernel: x (B, T, 256) -> (B, T', 256*k) f32."""
+    """Plain PyTorch version of the forward kernel: x (B, T, 256) -> (B, T', 256*k) f32."""
     params = {"day_weights": day_weights, "day_bias": day_bias}
     y = day_affine_softsign(gaussian_smooth(x.float(), taps), params, day_idxs.long())
     return unfold_time(y, kernel_len, stride)
 
 
-def fused_preproc(
-    x: torch.Tensor,
-    day_weights: torch.Tensor,
-    day_bias: torch.Tensor,
-    day_idxs: torch.Tensor,
-    taps: torch.Tensor,
-    kernel_len: int = 32,
-    stride: int = 4,
-) -> torch.Tensor:
-    """x (B, T, 256) f32; day_weights (D, 256, 256) f32; day_bias (D, 1, 256)
-    f32; day_idxs (B,) int; taps (n,) f32 -> features (B, T', 256*kernel_len)
-    f32 with T' = (T - kernel_len) // stride + 1."""
-    if not x.is_cuda:
-        return fused_preproc_plain(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
+def fused_preproc_bwd_plain(x, day_weights, day_bias, day_idxs, taps, g, kernel_len=32, stride=4):
+    """Plain version of the backward kernel: (dx (B, T, 256), per-sample dW
+    (B, 256, 256), per-sample db (B, 1, 256)), all f32."""
+    b, t, c = x.shape
+    t_out = (t - kernel_len) // stride + 1
+    days = day_idxs.long()
+    y = gaussian_smooth(x.float(), taps)
+    w = day_weights[days]
+    pre = torch.bmm(y, w) + day_bias[days]
+    g4 = g.float().reshape(b, t_out, c, kernel_len)
+    dz = torch.zeros((b, t, c), dtype=torch.float32, device=x.device)
+    for j in range(kernel_len):
+        dz[:, j : j + (t_out - 1) * stride + 1 : stride] += g4[..., j]
+    denom = 1.0 + torch.abs(pre)
+    dz = dz / (denom * denom)
+    db = torch.sum(dz, dim=1, keepdim=True)
+    dw = torch.bmm(y.transpose(1, 2), dz)
+    dy = torch.bmm(dz, w.transpose(1, 2))
+    # the smoothing's adjoint: correlation with the reversed taps, padding swapped
+    k = taps.shape[0]
+    yp = F.pad(dy, (0, 0, k // 2, (k - 1) // 2))
+    dx = torch.zeros_like(dy)
+    for i in range(k):
+        dx = dx + taps[k - 1 - i] * yp[:, i : i + t]
+    return dx, dw, db
+
+
+def _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
     b, t, c = x.shape
     n_days = day_weights.shape[0]
     if c != NEURAL_DIM or x.dtype != torch.float32:
@@ -55,7 +78,13 @@ def fused_preproc(
     t_out = (t - kernel_len) // stride + 1
     if t_out <= 0:
         raise ValueError(f"fused_preproc: T={t} is shorter than the unfold window {kernel_len}")
+    return b, t, c, n_days, t_out
+
+
+def _fwd_kernel(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
+    b, t, c, n_days, t_out = _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
     day32 = day_idxs.to(torch.int32).contiguous()
+    x = x.contiguous()
     kernels.require_cuda("fused_preproc", x, day_weights, day_bias, day32, taps)
     z = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
     out = torch.empty((b, t_out, c * kernel_len), dtype=torch.float32, device=x.device)
@@ -71,6 +100,67 @@ def fused_preproc(
     return out
 
 
+def _bwd_kernel(x, day_weights, day_bias, day_idxs, taps, g, kernel_len, stride):
+    b, t, c, n_days, t_out = _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
+    if g.shape != (b, t_out, c * kernel_len):
+        raise ValueError(f"fused_preproc backward: g {tuple(g.shape)} != {(b, t_out, c * kernel_len)}")
+    day32 = day_idxs.to(torch.int32).contiguous()
+    x, g = x.contiguous(), g.float().contiguous()
+    w_t = day_weights.transpose(1, 2).contiguous()  # W[day]^T rows for dy = dz W^T
+    kernels.require_cuda("fused_preproc backward", x, day_weights, w_t, day_bias, day32, taps, g)
+    dz = torch.empty((b, t, c), dtype=torch.float32, device=x.device)  # scratch
+    dy = torch.empty_like(dz)  # scratch
+    dx = torch.empty_like(dz)
+    dw = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
+    db = torch.empty((b, 1, c), dtype=torch.float32, device=x.device)
+    lib = kernels.lib()
+    with torch.cuda.device(x.device):
+        code = lib.w2vb_preproc_bwd(
+            x.data_ptr(), day_weights.data_ptr(), w_t.data_ptr(), day_bias.data_ptr(),
+            day32.data_ptr(), taps.data_ptr(), g.data_ptr(),
+            dz.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            b, t, c, taps.shape[0], n_days, kernel_len, stride, t_out, kernels.stream_of(x),
+        )
+    kernels.check("preproc_bwd", code)
+    kernels.LAUNCHES["preproc_bwd"] += 1
+    return dx, dw, db
+
+
+class _FusedPreproc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
+        ctx.save_for_backward(x, day_weights, day_bias, day_idxs, taps)
+        ctx.args = (kernel_len, stride)
+        fn = _fwd_kernel if x.is_cuda else fused_preproc_plain
+        return fn(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, day_weights, day_bias, day_idxs, taps = ctx.saved_tensors
+        fn = _bwd_kernel if x.is_cuda else fused_preproc_bwd_plain
+        dx, dw_b, db_b = fn(x, day_weights, day_bias, day_idxs, taps, g, *ctx.args)
+        days = day_idxs.long()
+        dw = torch.zeros_like(day_weights).index_add_(0, days, dw_b)
+        db = torch.zeros_like(day_bias).index_add_(0, days, db_b)
+        return dx, dw, db, None, None, None, None
+
+
+def fused_preproc(
+    x: torch.Tensor,
+    day_weights: torch.Tensor,
+    day_bias: torch.Tensor,
+    day_idxs: torch.Tensor,
+    taps: torch.Tensor,
+    kernel_len: int = 32,
+    stride: int = 4,
+) -> torch.Tensor:
+    """x (B, T, 256) f32; day_weights (D, 256, 256) f32; day_bias (D, 1, 256)
+    f32; day_idxs (B,) int; taps (n,) f32 -> features (B, T', 256*kernel_len)
+    f32 with T' = (T - kernel_len) // stride + 1. Differentiable in x and
+    the day tables."""
+    return _FusedPreproc.apply(x.float(), day_weights, day_bias, day_idxs, taps, kernel_len, stride)
+
+
 def apply_preproc_fused(
     params: dict,
     x: torch.Tensor,
@@ -80,7 +170,7 @@ def apply_preproc_fused(
     kernel_len: int = 32,
     stride: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for models.preprocessing.apply_preproc through the kernel."""
+    """Drop-in for models.preprocessing.apply_preproc through the kernels."""
     feats = fused_preproc(
         x, params["day_weights"], params["day_bias"], day_idxs, taps, kernel_len, stride
     )

@@ -1,0 +1,174 @@
+"""Optimizer and per-epoch LR schedules with torch-Adam semantics
+(counterpart of wav2vec2forbrain_tpu/train/optim.py).
+
+- Adam, not AdamW: weight decay is added to the gradient before the moment
+  update (`g + wd * p`), as torch.optim.Adam and the JAX package do.
+- The update has optax's bias-corrected form (m / bc1) / (sqrt(v / bc2) +
+  eps), computed in f32, so the port can be held tightly to the JAX
+  package.
+- Labels "brain", "w2v" and "frozen" (models/assembly.py::param_labels):
+  the two trained groups take their own LR, set by the host each step or
+  epoch; frozen leaves keep no state and never move.
+- mu_dtype / nu_dtype (--adam_mu_dtype / --adam_nu_dtype) set how the
+  moments are STORED; they are computed in f32 every step. With only
+  mu_dtype set the arithmetic follows stock optax.scale_by_adam (the decay
+  term b1 * mu is taken in the storage dtype); with nu_dtype set, the JAX
+  package's scale_by_adam_nu_dtype (everything in f32).
+- clip_by_global_norm: torch clip_grad_norm_ over the whole tree.
+
+The update is a loop over the leaves in PyTorch ops, in place on the
+params: no finished optimizer kernel (the JAX package runs it as XLA).
+"""
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
+
+
+class LRSchedules(NamedTuple):
+    """Host-side per-epoch LR functions: epoch -> absolute lr."""
+
+    brain: Callable[[int], float]
+    w2v: Callable[[int], float]
+
+
+def step_lr(base_lr: float, step_size: int, gamma: float) -> Callable[[int], float]:
+    """torch StepLR: lr = base * gamma ** (epoch // step_size)."""
+
+    def lr(epoch: int) -> float:
+        return base_lr * (gamma ** (epoch // step_size))
+
+    return lr
+
+
+def two_module_warmup_schedules(
+    module1_baselr: float,
+    module2_warmup_start_step: int,
+    module2_warmup_steps: int,
+    module2_target_lr: float,
+    adjust_module1_lr_to_module2_postwarmup_lr: bool,
+) -> LRSchedules:
+    """The reference's get_2module_warmup_scheduler lambdas as absolute-lr
+    functions (brain = module 1, w2v = module 2)."""
+
+    def module2_lr(step: int) -> float:
+        if step < module2_warmup_start_step:
+            return 0.0
+        factor = (step - module2_warmup_start_step) / module2_warmup_steps if module2_warmup_steps > 0 else 1.0
+        return module2_target_lr * min(1.0, factor)
+
+    def module1_lr(step: int) -> float:
+        if not adjust_module1_lr_to_module2_postwarmup_lr or not module2_target_lr:
+            return module1_baselr
+        if step < module2_warmup_start_step:
+            return module1_baselr
+        target_factor = module2_target_lr / module1_baselr
+        if step >= module2_warmup_start_step + module2_warmup_steps:
+            return module1_baselr * target_factor
+        return module1_baselr * (
+            1.0 + (target_factor - 1.0) * (step - module2_warmup_start_step) / module2_warmup_steps
+        )
+
+    return LRSchedules(brain=module1_lr, w2v=module2_lr)
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (f32 0-d tensor)."""
+    leaves = tree_leaves(grads)
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
+    """torch clip_grad_norm_ over the whole tree: coef = max_norm / (norm +
+    1e-6), clamped to 1. Returns (clipped grads, norm)."""
+    if norm is None:
+        norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return tree_map(lambda g: None if g is None else g * scale, grads), norm
+
+
+# --- Adam ------------------------------------------------------------------------------
+
+
+class AdamState(NamedTuple):
+    """count: steps taken; mu / nu: trees shaped like the params, None at
+    frozen leaves, in their storage dtypes."""
+
+    count: int
+    mu: dict
+    nu: dict
+
+
+B1, B2 = 0.9, 0.999  # torch.optim.Adam's default betas, as the JAX package uses
+
+
+class Optimizer:
+    """make_optimizer's result: init(params) -> state; step(params, grads,
+    state, brain_lr, w2v_lr) -> new state, with params updated in place."""
+
+    def __init__(self, labels, weight_decay=0.0, eps=1e-8, mu_dtype=None, nu_dtype=None):
+        self.labels = labels
+        self.weight_decay = weight_decay
+        self.eps = eps
+        self.mu_dtype = mu_dtype
+        self.nu_dtype = nu_dtype
+
+    def init(self, params) -> AdamState:
+        def zeros(p, label, dtype):
+            if label == "frozen":
+                return None
+            return torch.zeros_like(p, dtype=dtype or p.dtype)
+
+        mu = tree_map(lambda p, l: zeros(p, l, self.mu_dtype), params, self.labels)
+        nu = tree_map(lambda p, l: zeros(p, l, self.nu_dtype), params, self.labels)
+        return AdamState(0, mu, nu)
+
+    @torch.no_grad()
+    def step(self, params, grads, state: AdamState, brain_lr: float, w2v_lr: float) -> AdamState:
+        """grads: tree like params; None at a leaf means a zero gradient
+        (a parameter the forward did not reach, such as a layer that
+        LayerDrop skipped)."""
+        lr_of = {"brain": float(brain_lr), "w2v": float(w2v_lr)}
+        count = state.count + 1
+        # the f32 bias corrections 1 - b ** count, held as python floats
+        # (exact f32 values, so no per-leaf device copies)
+        bc1 = float(1.0 - torch.tensor(B1) ** float(count))
+        bc2 = float(1.0 - torch.tensor(B2) ** float(count))
+
+        def leaf(p, g, label, m, v):
+            if label == "frozen":
+                return
+            g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+            if self.weight_decay != 0.0:
+                g = g + self.weight_decay * p
+            m32, v32 = self._moments(g, m, v)
+            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+            p.add_((u * (-lr_of[label])).to(p.dtype))
+            m.copy_(m32)
+            v.copy_(v32)
+
+        tree_map(leaf, params, grads, self.labels, state.mu, state.nu)
+        return AdamState(count, state.mu, state.nu)
+
+    def _moments(self, g, m, v):
+        if self.nu_dtype is None:
+            # stock optax: (1 - b) * g^k + b * t, with b * t in t's dtype
+            m32 = (1 - B1) * g + (m * float(torch.tensor(B1, dtype=m.dtype))).float()
+            v32 = (1 - B2) * (g * g) + (v * float(torch.tensor(B2, dtype=v.dtype))).float()
+        else:
+            m32 = B1 * m.float() + (1.0 - B1) * g
+            v32 = B2 * v.float() + (1.0 - B2) * torch.square(g)
+        return m32, v32
+
+
+def make_optimizer(labels, optimizer: str = "adam", weight_decay: float = 0.0, eps: float = 1e-8,
+                   mu_dtype=None, nu_dtype=None) -> Optimizer:
+    """The two trained groups share one rule; frozen leaves get no update.
+    `optimizer` keeps the JAX package's signature; only "adam" is ported."""
+    if optimizer != "adam":
+        raise ValueError(f"Optimizer {optimizer} not implemented")
+    return Optimizer(labels, weight_decay, eps, mu_dtype, nu_dtype)

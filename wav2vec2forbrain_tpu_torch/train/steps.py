@@ -1,13 +1,48 @@
-"""Eval step (counterpart of wav2vec2forbrain_tpu/train/steps.py::eval_step).
+"""Train and eval steps (counterpart of wav2vec2forbrain_tpu/train/steps.py).
 
 The JAX package builds its steps once per experiment, closed over the static
-ModelSpec; `build_eval_step` does the same. PyTorch runs eagerly, so there
-is nothing to compile: the step runs under torch.inference_mode.
+ModelSpec; `build_eval_step` and `build_train_step` do the same. PyTorch
+runs eagerly, so there is nothing to compile.
+
+The train step (JAX `build_step_fns.train_step`):
+- white-noise and constant-offset augmentation of the input, drawn from the
+  step's StepRng (models/seeds.py), then forward_with_loss(train=True) with
+  the step's ForwardRng;
+- gradients by autograd over the trainable leaves: a frozen leaf gets
+  requires_grad=False, except when gradient clipping is on, when the norm
+  covers the full tree, frozen gradients included (torch clip_grad_norm_
+  over model.parameters());
+- the Adam step (train/optim.py) at the host's per-group LRs.
+Unlike the JAX step, which returns new arrays, the port updates the params
+and the optimizer moments in place and returns the same objects.
 """
+
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, forward_with_loss
+from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.train.optim import Optimizer, clip_by_global_norm, global_norm
+from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
+
+
+class StepConfig(NamedTuple):
+    gradient_clipping: Optional[float]
+    white_noise_sd: float
+    constant_offset_sd: float
+
+
+class TrainStepOut(NamedTuple):
+    params: Any
+    opt_state: Any
+    model_state: Any
+    loss: torch.Tensor
+    pred_ids: torch.Tensor  # greedy argmax on the device
+    logit_lens: torch.Tensor
+    rng: StepRng
+    # ctc/intermediate/combined losses with the aux head; {} otherwise
+    metrics: Any = {}
 
 
 def build_eval_step(spec: ModelSpec):
@@ -36,3 +71,66 @@ def build_eval_step(spec: ModelSpec):
         return loss, out["logits"], out["logit_lens"], pred_ids, out["metrics"]
 
     return eval_step
+
+
+def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig):
+    """grad_fn(params, model_state, batch, rng) -> (out, grads, norm): the
+    train step up to the optimizer. out is forward_with_loss's dict; grads a
+    tree like params (None at frozen leaves, and at leaves the forward did
+    not reach); norm the global gradient norm (over the full tree when
+    clipping is on), before clipping; grads are clipped when clipping is on."""
+    clip = step_cfg.gradient_clipping
+
+    def grad_fn(params, model_state, batch, rng: StepRng):
+        fwd_rng = rng.next_forward()
+        x = batch.input.float()
+        if step_cfg.white_noise_sd > 0:
+            x = x + rng.normal(x.shape, x.device) * step_cfg.white_noise_sd
+        if step_cfg.constant_offset_sd > 0:
+            x = x + rng.normal((x.shape[0], 1, x.shape[2]), x.device) * step_cfg.constant_offset_sd
+
+        def need(p, label):
+            p.requires_grad_(label != "frozen" or clip is not None)
+
+        tree_map(need, params, labels)
+        out = forward_with_loss(
+            params, model_state, spec, x, batch.day_idxs, batch.input_lens,
+            batch.target, batch.target_lens, rng=fwd_rng, train=True,
+            sample_mask=batch.sample_mask,
+        )
+        leaves = [p for p in tree_leaves(params) if p.requires_grad]
+        found = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
+        by_id = {id(p): g for p, g in zip(leaves, found)}
+        grads = tree_map(lambda p: by_id.get(id(p)), params)
+        if clip is not None:
+            grads, norm = clip_by_global_norm(grads, clip)
+            grads = tree_map(lambda g, label: None if label == "frozen" else g, grads, labels)
+        else:
+            norm = global_norm(grads)
+        return out, grads, norm
+
+    return grad_fn
+
+
+def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: StepConfig):
+    """train_step(params, opt_state, model_state, batch, rng, brain_lr,
+    w2v_lr) -> TrainStepOut (JAX: build_step_fns' train_step). labels is
+    the param_labels tree the optimizer was made with; rng a StepRng."""
+    grad_fn = build_grad_fn(spec, labels, step_cfg)
+
+    def train_step(params, opt_state, model_state, batch, rng: StepRng, brain_lr, w2v_lr) -> TrainStepOut:
+        out, grads, _ = grad_fn(params, model_state, batch, rng)
+        new_opt_state = optimizer.step(params, grads, opt_state, brain_lr, w2v_lr)
+        metrics = {k: v.detach() for k, v in out["metrics"].items()}
+        return TrainStepOut(
+            params,
+            new_opt_state,
+            out["state"],
+            out["loss"].detach(),
+            torch.argmax(out["logits"].detach(), dim=-1).to(torch.int32),
+            out["logit_lens"],
+            rng,
+            metrics,
+        )
+
+    return train_step
