@@ -9,27 +9,45 @@ Phases, each of which exits nonzero on failure:
   1. build: nvcc compiles csrc/*.cu for sm_90a into build/kernels/ (or reuses
      the build of identical sources); prints the seconds and ptxas' usage.
   2. kernels: each hand-written kernel, forward and backward, against its
-     plain PyTorch version on the card at the slice's shapes, at f32 and
-     bf16 compute, and the attention forward with dropout 0.1 against the
-     dense version with the same seed: max-abs error beside its tolerance,
-     and the median time of kernel vs plain (CUDA events, after warm-up, L2
-     warm).
-  3. serving: the full-width conformer-rope-large serving forward (24
-     layers, d=1024; random weights from a fixed seed) answers 4 requests of
-     32 samples x 384 frames through predict.py with the `auto` policy at
-     bf16 compute / f32 activations; launch counts of every forward kernel,
-     loss / WER / CER, samples/s; then one batch at f32 through `auto` and
-     `none`.
-  4. training: train_batches takes 4 full-width train steps (bf16 compute,
-     f32 activations, dropout 0.1 everywhere, LayerDrop 0.1, both LR
-     groups, Adam) with the `auto` policy: launch counts of all eight
-     kernels, steps/s and samples/s, finite losses and params, every
-     trainable leaf moved, the BN running stats of every layer that ran
-     updated; then one step at f32 compute under `auto` and under `none`
-     from the same params, optimizer state and seed streams (dropout on):
-     loss, global gradient norm and the updated params against their bounds.
-The second-to-last stdout line is the kernels JSON (launch counts from the
-training run), the last line {"ok": true, "device": {...}}.
+     plain PyTorch version on the card at both main paths' shapes, at f32
+     and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
+     B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 for the
+     conformer and, through its per-direction entry, at H=512 and 1024 with
+     B=64 for the sweep; attention at B=32, 16 heads, scale 1/8 (conformer)
+     and B=64, 12 heads, q pre-scaled by 1/8 and scale 1 (wav2vec2-base),
+     with dropout 0 and 0.1 against the dense version with the same seed;
+     the LayerNorm at both encoders' shapes with an f32 and a bf16 stream.
+     Each row: max-abs error beside its tolerance, the median time of
+     kernel vs plain (CUDA events, after warm-up, L2 warm), the bound (the
+     larger of the bytes over 3.35 TB/s and the operations over the peak
+     rate of their type) and, where one PyTorch call computes the same
+     function, that call's time (SDPA at rate 0, F.layer_norm, and for the
+     GRU a bidirectional cuDNN nn.GRU fed gi through an identity W_ih: an
+     upper bound, as it adds that projection).
+  3. conformer serving: the full-width conformer-rope-large serving forward
+     (24 layers, d=1024; random weights from a fixed seed) answers 4
+     requests of 32 samples x 384 frames through predict.py with the `auto`
+     policy at bf16 compute / f32 activations; launch counts of every
+     forward kernel of the path, loss / WER / CER, samples/s, then the same
+     under `none`; then one batch at f32 through `auto` and `none`.
+  4. conformer training: train_batches takes 4 full-width train steps (bf16
+     compute, f32 activations, dropout 0.1 everywhere, LayerDrop 0.1, both
+     LR groups, Adam) with the `auto` policy: launch counts of every kernel
+     of the path, steps/s and samples/s, finite losses and params, every
+     trainable leaf of a layer that ran moved, the BN running stats of every
+     layer that ran updated; then one step at f32 compute under `auto` and
+     under `none` from the same params, optimizer state and seed streams
+     (dropout on): loss, global gradient norm and the updated params
+     against their bounds.
+  5. wav2vec2-base serving: phase 3 for `b2p2t_gru+w2v` at the fft sweep
+     point (wav2vec2-base-960h: 12 post-LN layers, d=768, 12 heads, FFN
+     3072; biGRU 3 x 1024, latent 768), 4 requests of 64 x 384.
+  6. wav2vec2-base training: phase 4 for the same model (GRU dropout 0.45,
+     Adam at weight decay 1e-4), 4 steps of 64 x 384.
+The counts are set to 0 just before each phase's timed run and read just
+after it. The second-to-last stdout line is the kernels JSON (one row per
+kernel; launches summed over the two training runs), the last line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -42,15 +60,18 @@ import time
 SEED = 0
 # f32: the same math as the plain version with sums in another order. The
 # forward outputs are O(1): absolute bounds. The backward outputs sum up to
-# T*B = 2848 (GRU dW), 384 (preproc dW) or 89 (attention, conv dK) products
-# and grow with them: bounds relative to the largest output, max(1, |ref|).
-TOL_F32 = {"preproc": 1e-5, "gru": 2e-5, "attention": 2e-5, "conv_glu": 1e-5,
-           "preproc_bwd": 1e-5, "gru_bwd": 2e-5, "attention_bwd": 2e-5, "conv_glu_bwd": 1e-5}
-# bf16 compute: both sides round the same values to bf16, but f32 sums taken
-# in another order can flip a bf16 rounding; allow two bf16 ulps of the
-# largest output magnitude. The attention mask is bit-identical between the
-# kernel and the dense version (the same hash), so dropout 0.1 keeps the
-# rate-0 tolerances.
+# T*B = 5696 (GRU dW), 384 (preproc dW) or 89 (attention, conv dK, LN
+# partials) products and grow with them: bounds relative to the largest
+# output, max(1, |ref|).
+TOL_F32 = {"preproc": 1e-5, "gru": 2e-5, "attention": 2e-5, "conv_glu": 1e-5, "layernorm": 1e-5,
+           "preproc_bwd": 1e-5, "gru_bwd": 2e-5, "attention_bwd": 2e-5, "conv_glu_bwd": 1e-5,
+           "layernorm_bwd": 2e-5}
+TOL_F32.update(gru_dir=TOL_F32["gru"], gru_dir_bwd=TOL_F32["gru_bwd"])
+# bf16 compute or a bf16 stream: both sides round the same values to bf16,
+# but f32 sums taken in another order can flip a bf16 rounding; allow two
+# bf16 ulps of the largest output magnitude. The attention mask is
+# bit-identical between the kernel and the dense version (the same hash),
+# so dropout 0.1 keeps the rate-0 tolerances.
 BF16_ULPS = 2.0**-6
 AUTO_VS_NONE_F32_BOUND = 1e-3  # logits max-abs, full model at f32
 # the f32 train step, `auto` vs `none`, from the same params, Adam state and
@@ -62,18 +83,47 @@ AUTO_VS_NONE_F32_BOUND = 1e-3  # logits max-abs, full model at f32
 TRAIN_F32_LOSS_REL = 1e-4
 TRAIN_F32_GRAD_NORM_REL = 1e-4
 TRAIN_F32_PARAM_STEPS = 0.1
-N_TRAIN_STEPS = 4
+N_REQUESTS = N_TRAIN_STEPS = 4
+LN_EPS = 1e-5
+# the bound's rates (NVIDIA's data sheet for the H100 SXM, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores; bf16 tensor cores
+_PALLAS = "wav2vec2forbrain_tpu/ops/"
 REPLACES = {
-    "preproc": "wav2vec2forbrain_tpu/ops/pallas_preproc.py:283",
-    "gru": "wav2vec2forbrain_tpu/ops/pallas_gru.py:286",
-    "attention": "wav2vec2forbrain_tpu/ops/pallas_attention.py:210",
-    "conv_glu": "wav2vec2forbrain_tpu/ops/pallas_conv_glu.py:152",
-    "preproc_bwd": "wav2vec2forbrain_tpu/ops/pallas_preproc.py:341",
-    "gru_bwd": "wav2vec2forbrain_tpu/ops/pallas_gru.py:323",
-    "attention_bwd": "wav2vec2forbrain_tpu/ops/pallas_attention.py:280",
-    "conv_glu_bwd": "wav2vec2forbrain_tpu/ops/pallas_conv_glu.py:169",
+    "preproc": _PALLAS + "pallas_preproc.py:283",
+    "preproc_bwd": _PALLAS + "pallas_preproc.py:341",
+    "gru": _PALLAS + "pallas_gru.py:286",
+    "gru_bwd": _PALLAS + "pallas_gru.py:323",
+    "gru_dir": _PALLAS + "pallas_gru.py:643",
+    "gru_dir_bwd": _PALLAS + "pallas_gru.py:694",
+    "attention": _PALLAS + "pallas_attention.py:210",
+    "attention_bwd": _PALLAS + "pallas_attention.py:280",
+    "conv_glu": _PALLAS + "pallas_conv_glu.py:152",
+    "conv_glu_bwd": _PALLAS + "pallas_conv_glu.py:169",
+    "layernorm": _PALLAS + "pallas_layernorm.py:100",
+    "layernorm_bwd": _PALLAS + "pallas_layernorm.py:115",
 }
-SOURCES = {name: f"wav2vec2forbrain_tpu_torch/csrc/{name.split('_bwd')[0]}.cu" for name in REPLACES}
+SOURCES = {name: "wav2vec2forbrain_tpu_torch/csrc/{}.cu".format(name.split("_bwd")[0].replace("gru_dir", "gru"))
+           for name in REPLACES}
+# the kernels each main path must launch (backward kernels only in training)
+PATH_KERNELS = {
+    "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm"),
+    "w2v": ("preproc", "gru_dir", "attention", "layernorm"),
+}
+# the configuration each row of the kernels JSON is timed at: a training run's
+ROW_LABELS = {
+    "preproc": "B32 T384 sigma0.3 f32",
+    "gru": "H256 B32 layer0 bfloat16",
+    "gru_dir": "H1024 B64 layer0 bfloat16",
+    "attention": "B32 T89 16x64 scale0.125 io float32 cd bfloat16 p0.1",
+    "conv_glu": "B32 T89 C1024 io float32 cd bfloat16",
+    "layernorm": "B64 T89 C768 float32",
+}
+ROW_LABELS.update({f"{k}_bwd": v for k, v in list(ROW_LABELS.items())})
+FAMILY_NAMES = {
+    "conformer": "b2p2t_gru+w2v_conformer: conformer-rope-large (24 x d1024, 16 heads, FFN 4096, k31), biGRU 2 x 256",
+    "w2v": "b2p2t_gru+w2v: wav2vec2-base-960h (12 x d768 post-LN, 12 heads, FFN 3072), biGRU 3 x 1024",
+}
 
 
 def fail(msg: str) -> None:
@@ -99,10 +149,24 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def compare(name, label, kernel_fn, plain_fn, tol_of, results):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(bytes_moved, flops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their type's peak; flops is a list
+    of (count, dtype name)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_FLOPS[dt] for n, dt in flops)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare(name, label, kernel_fn, plain_fn, tol_of, results, inputs, flops, library_fn=None):
     """Run kernel and plain on the same inputs, check every output, time;
     append a row. A kernel returning several outputs is held output by
-    output; the row keeps the largest error and its tolerance."""
+    output; the row keeps the largest error and its tolerance. The bound
+    counts `inputs` read once and the kernel's outputs written once."""
     import torch
 
     from wav2vec2forbrain_tpu_torch.ops import kernels
@@ -126,22 +190,77 @@ def compare(name, label, kernel_fn, plain_fn, tol_of, results):
         ok = ok and bool(torch.isfinite(out).all().item()) and e <= t
         if e / t >= err / max(tol, 1e-30):
             err, tol = e, t
+    bound, bound_by = bound_ms(nbytes(*inputs, *outs), flops)
+    del outs, refs
     ms = timed_ms(kernel_fn)
     plain_ms = timed_ms(plain_fn, iters=5, warmup=1)
+    library_ms = None if library_fn is None else timed_ms(library_fn)
     torch.cuda.synchronize()
-    print(f"  {name:9s} {label:34s} max_abs_err {err:.3e} (tol {tol:.1e}) "
-          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {'ok' if ok else 'MISMATCH'}")
+    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+    print(f"  {name:13s} {label:42s} max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms{lib}  bound {bound:.4f} ms ({bound_by})  {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} [{label}]: kernel disagrees with its plain version ({err} > {tol})")
-    results.append(dict(name=name, label=label, err=err, ms=ms, plain_ms=plain_ms))
+    results.append(dict(name=name, label=label, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=bound_by, library_ms=library_ms))
+
+
+def cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys):
+    """The library yardstick of the GRU rows: (forward, backward) of one
+    bidirectional nn.GRU call (cuDNN) that computes the recurrence on gi.
+    Its input is [gi_fwd, gi_bwd flipped in time] (T, B, 6H); each
+    direction's W_ih is the identity on its half, b_ih = 0. That input
+    projection (and its weight gradient) is work the kernel does not do, so
+    the times are upper bounds of the library's. The f32 forward is held to
+    the plain ys, which checks the construction. A bf16 nn.GRU that the
+    installed torch refuses gives (None, None)."""
+    import torch
+
+    t, _, b, h = ys.shape
+    flip = lambda x: torch.flip(x, dims=(0,))  # noqa: E731
+    mod = torch.nn.GRU(6 * h, h, bidirectional=True, device=gi.device, dtype=cd)
+    mod.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    with torch.no_grad():
+        eye = torch.eye(3 * h, device=gi.device)
+        for d, sfx in enumerate(("", "_reverse")):
+            w_ih = torch.zeros((3 * h, 6 * h), device=gi.device)
+            w_ih[:, 3 * h * d: 3 * h * (d + 1)] = eye
+            getattr(mod, "weight_ih_l0" + sfx).copy_(w_ih)
+            getattr(mod, "weight_hh_l0" + sfx).copy_(w_hh[d].t())
+            getattr(mod, "bias_ih_l0" + sfx).zero_()
+            getattr(mod, "bias_hh_l0" + sfx).copy_(b_hh[d].reshape(-1))
+        del eye, w_ih
+    inp = torch.cat([gi[:, 0], flip(gi[:, 1])], dim=-1).to(cd).requires_grad_(True)
+    hx = h0.to(cd)
+    g_out = torch.cat([gy[:, 0], flip(gy[:, 1])], dim=-1).to(cd)
+    try:
+        out, _ = mod(inp, hx)
+    except RuntimeError as e:
+        if cd == torch.float32:
+            raise
+        print(f"  (no library time: nn.GRU at {cd} raised {str(e).splitlines()[0]})")
+        return None, None
+    if cd == torch.float32:
+        got = torch.stack([out[..., :h], flip(out[..., h:])], dim=1)
+        err = (got - ys).abs().max().item()
+        if not err <= 1e-3:
+            fail(f"the cuDNN GRU yardstick does not compute the recurrence (max-abs {err} vs plain)")
+    leaves = [inp, *mod.parameters()]
+
+    def fwd():
+        with torch.no_grad():
+            return mod(inp, hx)
+
+    return fwd, lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True)
 
 
 def kernel_phases(dev, results):
     import torch
+    import torch.nn.functional as F
 
     from wav2vec2forbrain_tpu_torch.models.gru import bigru_inputs, init_gru_params
     from wav2vec2forbrain_tpu_torch.models.preprocessing import gaussian_kernel
-    from wav2vec2forbrain_tpu_torch.ops import attention, conv_glu, gru, preproc
+    from wav2vec2forbrain_tpu_torch.ops import attention, conv_glu, gru, layernorm, preproc
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -158,62 +277,98 @@ def kernel_phases(dev, results):
     def cd_name(cd):
         return str(cd)[6:]
 
-    # 1. preproc: B=32, T=384, days spread over 0..23 (the chain is f32 only)
-    x = torch.randn((32, 384, 256), generator=g, device=dev)
-    w = torch.eye(256, device=dev)[None] + 0.05 * torch.randn((24, 256, 256), generator=g, device=dev)
-    b = 0.1 * torch.randn((24, 1, 256), generator=g, device=dev)
-    days = torch.arange(32, device=dev) % 24
-    taps = gaussian_kernel(20, 0.3, dev)
-    compare("preproc", "B32 T384 f32", lambda: preproc._fwd_kernel(x, w, b, days, taps, 32, 4),
-            lambda: preproc.fused_preproc_plain(x, w, b, days, taps), f32_tol("preproc"), results)
-    gp = 0.1 * torch.randn((32, 89, 8192), generator=g, device=dev)
-    compare("preproc_bwd", "B32 T384 f32", lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
-            lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"), results)
+    def preproc_rows(gen, batch, sigma):
+        """preproc at T=384, days spread over 0..23 (the chain is f32 only)."""
+        x = torch.randn((batch, 384, 256), generator=gen, device=dev)
+        w = torch.eye(256, device=dev)[None] + 0.05 * torch.randn((24, 256, 256), generator=gen, device=dev)
+        b = 0.1 * torch.randn((24, 1, 256), generator=gen, device=dev)
+        days = torch.arange(batch, device=dev) % 24
+        taps = gaussian_kernel(20, sigma, dev)
+        affine, smooth = 2 * x.numel() * 256, 2 * x.numel() * taps.numel()
+        label = f"B{batch} T384 sigma{sigma} f32"
+        compare("preproc", label, lambda: preproc._fwd_kernel(x, w, b, days, taps, 32, 4),
+                lambda: preproc.fused_preproc_plain(x, w, b, days, taps), f32_tol("preproc"), results,
+                (x, w, b, days, taps), [(affine + smooth, "float32")])
+        gp = 0.1 * torch.randn((batch, 89, 8192), generator=gen, device=dev)
+        # dx through W^T and the per-sample dW: two affine-sized products; the smoothing and its adjoint
+        compare("preproc_bwd", label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
+                lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
+                results, (x, w, b, days, taps, gp), [(2 * affine + 2 * smooth, "float32")])
 
-    # 2. GRU recurrence: T=89, B=32, H=256, layer-0 and layer-1 gi; H=512/1024 forward too
-    for h, layers in ((256, (0, 1)), (512, (0,)), (1024, (0,))):
+    def attention_rows(gen, batch, heads, scale, q_scale):
+        """attention at T=89, heads of 64, eval (rate 0) and train (rate 0.1,
+        seed 77); q is multiplied by q_scale in the stream dtype first (the
+        wav2vec2 encoder's pre-scaling). The library call:
+        F.scaled_dot_product_attention at rate 0 (forward, and its backward)."""
+        width = 64 * heads
+        for sd in (f32, bf16):
+            q, k, v, ga = (torch.randn((batch, 89, width), generator=gen, device=dev).to(sd) for _ in range(4))
+            q = q * q_scale
+            hs = [t.view(batch, 89, heads, 64).transpose(1, 2) for t in (q, k, v, ga)]
+            leaves = [t.detach().requires_grad_(True) for t in hs[:3]]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            sdpa_fwd = lambda: F.scaled_dot_product_attention(*hs[:3], scale=scale)  # noqa: E731
+            sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, hs[3], retain_graph=True)  # noqa: E731
+            qkt = 2 * batch * heads * 89 * 89 * 64  # one (T, D) x (D, T) product per (batch, head)
+            for cd in (f32, bf16):
+                if sd == bf16 and cd == f32:
+                    continue
+                for rate in (0.0, 0.1):
+                    label = f"B{batch} T89 {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
+                    compare("attention", label,
+                            lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77),
+                            lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77),
+                            f32_tol("attention") if cd == f32 else bf16_tol, results,
+                            (q, k, v), [(2 * qkt, cd_name(cd))], sdpa_fwd)
+                    compare("attention_bwd", label,
+                            lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77),
+                            lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77),
+                            f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results,
+                            (q, k, v, ga), [(5 * qkt, cd_name(cd))], sdpa_bwd)
+            del sdpa_out
+
+    # 1. preproc: B=32 with the conformer's smoothing (sigma 0.3)
+    preproc_rows(g, 32, 0.3)
+
+    # 2. GRU recurrence, T=89: H=256, B=32 (conformer; layer-0 and layer-1
+    # gi) through gru_recurrence; H=512 and 1024, B=64 (wav2vec2-base sweep)
+    # through the per-direction entry, whose dW_hh product is f32
+    for h, batch, layers, per_dir in ((256, 32, (0, 1), False), (512, 64, (0,), True), (1024, 64, (0,), True)):
+        name = "gru_dir" if per_dir else "gru"
         params = init_gru_params(g, 8192, h, 2, True, True, False, dev)
-        x0 = torch.rand((32, 89, 8192), generator=g, device=dev) * 2 - 1
-        x1 = torch.rand((32, 89, 2 * h), generator=g, device=dev) * 2 - 1
-        h0 = torch.zeros((2, 32, h), device=dev)
+        x0 = torch.rand((batch, 89, 8192), generator=g, device=dev) * 2 - 1
+        x1 = torch.rand((batch, 89, 2 * h), generator=g, device=dev) * 2 - 1
+        h0 = torch.zeros((2, batch, h), device=dev)
         for layer in layers:
             for cd in (f32, bf16):
-                xin = x0 if layer == 0 else x1
-                gi, w_hh, b_hh = bigru_inputs(params["layers"][layer]["directions"], xin, cd)
-                gi = gi.detach()
-                label = f"H{h} layer{layer} {cd_name(cd)}"
-                compare("gru", label,
-                        lambda: gru._fwd_kernel(gi, w_hh, b_hh, h0, cd),
-                        lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd),
-                        f32_tol("gru") if cd == f32 else bf16_tol, results)
-                if h != 256:
-                    continue
+                gi, w_hh, b_hh = bigru_inputs(params["layers"][layer]["directions"], x0 if layer == 0 else x1, cd)
+                gi, w_cd = gi.detach(), w_hh.to(cd)
+                label = f"H{h} B{batch} layer{layer} {cd_name(cd)}"
+                step = 2 * batch * h * 3 * h * 2 * 89  # one (B, H) x (H, 3H) product per direction and step
                 ys = gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd)
                 gy = torch.randn(ys.shape, generator=g, device=dev)
-                compare("gru_bwd", label,
-                        lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd),
-                        lambda: gru.gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, gy, cd),
-                        f32_rel_tol("gru_bwd") if cd == f32 else bf16_tol, results)
+                lib_fwd, lib_bwd = cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys)
+                compare(name, label,
+                        lambda: gru._fwd_kernel(gi, w_hh, b_hh, h0, cd, name),
+                        lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd),
+                        f32_tol(name) if cd == f32 else bf16_tol, results,
+                        (gi, w_cd, b_hh, h0), [(step, cd_name(cd))], lib_fwd)
+                # gh recomputed and dh's product with W^T in the compute dtype; dW in it or in f32
+                compare(f"{name}_bwd", label,
+                        lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
+                        lambda: gru.gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
+                        f32_rel_tol(f"{name}_bwd") if cd == f32 else bf16_tol, results,
+                        (gi, w_cd, b_hh, h0, ys, gy),
+                        [(2 * step, cd_name(cd)), (step, "float32" if per_dir else cd_name(cd))], lib_bwd)
+                del gi, ys, gy, lib_fwd, lib_bwd
+        del params, x0, x1
 
-    # 3. attention: B=32, T=89, 16 heads of 64; eval (rate 0) and train (rate 0.1, seed 77)
-    for sd in (f32, bf16):
-        q, k, v, ga = (torch.randn((32, 89, 1024), generator=g, device=dev).to(sd) for _ in range(4))
-        for cd in (f32, bf16):
-            if sd == bf16 and cd == f32:
-                continue
-            for rate in (0.0, 0.1):
-                label = f"B32 T89 16x64 io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
-                compare("attention", label,
-                        lambda: attention._fwd_kernel(q, k, v, 16, 0.125, rate, cd, 77),
-                        lambda: attention.mha_dense_bth(q, k, v, 16, 0.125, rate, cd, 77),
-                        f32_tol("attention") if cd == f32 else bf16_tol, results)
-                compare("attention_bwd", label,
-                        lambda: attention._bwd_kernel(q, k, v, ga, 16, 0.125, rate, cd, 77),
-                        lambda: attention.mha_bwd_plain(q, k, v, ga, 16, 0.125, rate, cd, 77),
-                        f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results)
+    # 3. attention: the conformer's B=32, 16 heads of 64 at scale 1/8
+    attention_rows(g, 32, 16, 0.125, 1.0)
 
-    # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31
+    # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31 (no one PyTorch call computes it)
     wdw = (torch.rand((31, 1024), generator=g, device=dev) * 2 - 1) * (3.0 / 31) ** 0.5
+    conv = 2 * 32 * 89 * 1024 * 31
     for sd in (f32, bf16):
         y = torch.randn((32, 89, 2048), generator=g, device=dev).to(sd)
         dz = torch.randn((32, 89, 1024), generator=g, device=dev).to(sd)
@@ -225,14 +380,76 @@ def kernel_phases(dev, results):
             compare("conv_glu", label,
                     lambda: conv_glu._fwd_kernel(y, wdw, cd),
                     lambda: conv_glu.glu_dwconv_plain(y, wdw, cd),
-                    f32_tol("conv_glu") if exact else bf16_tol, results)
+                    f32_tol("conv_glu") if exact else bf16_tol, results,
+                    (y, wdw), [(conv, cd_name(cd))])
             compare("conv_glu_bwd", label,
                     lambda: conv_glu._bwd_kernel(y, wdw, dz, cd),
                     lambda: conv_glu.glu_dwconv_bwd_plain(y, wdw, dz, cd),
-                    f32_rel_tol("conv_glu_bwd") if exact else bf16_tol, results)
+                    f32_rel_tol("conv_glu_bwd") if exact else bf16_tol, results,
+                    (y, wdw, dz), [(2 * conv, cd_name(cd))])
+
+    # 5. LayerNorm at the wav2vec2-base (64 x 89 x 768) and conformer (32 x
+    # 89 x 1024) shapes, f32 and bf16 streams. The library call: F.layer_norm
+    # (forward) and its backward
+    for shape in ((64, 89, 768), (32, 89, 1024)):
+        c = shape[-1]
+        scale = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+        bias = 0.2 * torch.randn(c, generator=g, device=dev)
+        for sd in (f32, bf16):
+            xs = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(sd)
+            dys = torch.randn(shape, generator=g, device=dev).to(sd)
+            label = f"B{shape[0]} T{shape[1]} C{c} {cd_name(sd)}"
+            elems = xs.numel()
+            if sd == f32:
+                leaves = [t.detach().requires_grad_(True) for t in (xs, scale, bias)]
+                ln_out = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], LN_EPS)
+                ln_fwd = lambda: F.layer_norm(xs, (c,), scale, bias, LN_EPS)  # noqa: E731
+                ln_bwd = lambda: torch.autograd.grad(ln_out, leaves, dys, retain_graph=True)  # noqa: E731
+            else:  # F.layer_norm takes its weights in the input's dtype: no library row at a bf16 stream
+                ln_fwd = ln_bwd = None
+            compare("layernorm", label,
+                    lambda: layernorm._fwd_kernel(xs, scale, bias, LN_EPS),
+                    lambda: layernorm.layer_norm_plain(xs, scale, bias, LN_EPS),
+                    f32_tol("layernorm") if sd == f32 else bf16_tol, results,
+                    (xs, scale, bias), [(7 * elems, "float32")], ln_fwd)
+            compare("layernorm_bwd", label,
+                    lambda: layernorm._bwd_kernel(xs, scale, dys, LN_EPS),
+                    lambda: layernorm.layer_norm_bwd_plain(xs, scale, dys, LN_EPS),
+                    f32_rel_tol("layernorm_bwd") if sd == f32 else bf16_tol, results,
+                    (xs, scale, dys), [(14 * elems, "float32")], ln_bwd)
+
+    # 6. the wav2vec2-base path's shapes of the kernels it shares with the
+    # conformer (inputs from their own seed): preproc at B=64 with the sweep's
+    # smoothing (sigma 1.5); attention at B=64, 12 heads of 64 with q
+    # pre-scaled by 1/8 in the stream dtype and the kernel at scale 1
+    g_w2v = torch.Generator(device=dev).manual_seed(SEED + 1)
+    preproc_rows(g_w2v, 64, 1.5)
+    attention_rows(g_w2v, 64, 12, 1.0, 0.125)
 
 
-def slice_phase(dev, device_name, power):
+def _spec_and_batch(family):
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec
+    from wav2vec2forbrain_tpu_torch.profile_train import FAMILIES
+
+    fields, _, batch_size = FAMILIES[family]
+    return ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32, **fields), batch_size
+
+
+def _check_launches(launches, family, train):
+    """Every kernel of the family's path launched, no other kernel did."""
+    want = set(PATH_KERNELS[family])
+    if train:
+        want |= {f"{k}_bwd" for k in want}
+    wrong = sorted(k for k, v in launches.items() if (v > 0) != (k in want))
+    if wrong:
+        fail(f"{family} {'training' if train else 'serving'}: kernels launched against the path: "
+             f"{ {k: launches[k] for k in wrong} } (expected exactly {sorted(want)})")
+
+
+def serve_phase(dev, device_name, power, family):
+    """Phases 3 and 5; returns (launches, samples/s auto, samples/s none)."""
     import dataclasses
 
     import numpy as np
@@ -240,33 +457,31 @@ def slice_phase(dev, device_name, power):
 
     from wav2vec2forbrain_tpu_torch.data.batch import to_device
     from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
-    from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params
+    from wav2vec2forbrain_tpu_torch.models.assembly import init_model_params
     from wav2vec2forbrain_tpu_torch.ops import kernels, select
     from wav2vec2forbrain_tpu_torch.predict import predict
     from wav2vec2forbrain_tpu_torch.train.steps import build_eval_step
     from wav2vec2forbrain_tpu_torch.tree import tree_leaves
 
-    spec = ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32)
+    spec, batch_size = _spec_and_batch(family)
     t = time.perf_counter()
     params, state = init_model_params(torch.Generator(device=dev).manual_seed(SEED), spec, dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"  model: conformer-rope-large (24 x d1024, 16 heads, FFN 4096, k31), "
-          f"biGRU 2 x 256, {n_params / 1e6:.1f}M params, init {time.perf_counter() - t:.2f} s")
-    batches = make_requests(4, 32, 384, SEED)
-
+    print(f"  model: {FAMILY_NAMES[family]}, {n_params / 1e6:.1f}M params, init {time.perf_counter() - t:.2f} s")
+    batches = make_requests(N_REQUESTS, batch_size, 384, SEED)
     expected_lens = [(b.input_lens - 32) // 4 for b in batches]
 
     def check(i, preds):
         logits = preds["logits"]
-        if logits.shape != (32, 89, 32):
-            fail(f"batch {i}: logits shape {logits.shape} != (32, 89, 32)")
+        if logits.shape != (batch_size, 89, 32):
+            fail(f"{family} batch {i}: logits shape {logits.shape} != ({batch_size}, 89, 32)")
         if not np.isfinite(logits).all():
-            fail(f"batch {i}: non-finite logits")
+            fail(f"{family} batch {i}: non-finite logits")
         if not np.array_equal(preds["logit_lens"], expected_lens[i]):
-            fail(f"batch {i}: logit_lens {preds['logit_lens']} != (input_lens - 32) // 4")
+            fail(f"{family} batch {i}: logit_lens {preds['logit_lens']} != (input_lens - 32) // 4")
         if not np.isfinite(preds["loss"]) or preds["loss"] <= 0:
-            fail(f"batch {i}: CTC loss {preds['loss']} (expected finite and > 0)")
+            fail(f"{family} batch {i}: CTC loss {preds['loss']} (expected finite and > 0)")
 
     select.set_kernel_policy("auto")
     predict(params, state, spec, batches[:1])  # warm-up: cuBLAS handles, kernel load
@@ -280,14 +495,12 @@ def slice_phase(dev, device_name, power):
     launches = dict(kernels.LAUNCHES)
     avg = history.get_average()
     n = sum(b.input.shape[0] for b in batches)
-    print(f"  predict (auto, bf16 compute, f32 stream): {len(batches)} requests x 32 samples "
+    print(f"  predict (auto, bf16 compute, f32 stream): {len(batches)} requests x {batch_size} samples "
           f"in {wall:.3f} s = {n / wall:.1f} samples/s on {device_name} ({power})")
     print(f"  test loss {avg.loss:.4f}  WER {avg.metrics['word_error_rate']:.4f}  "
           f"CER {avg.metrics['char_error_rate']:.4f} (random weights: proves the path, not quality)")
     print(f"  kernel launches in the predict run: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if (v <= 0) != k.endswith("_bwd")]
-    if missing:
-        fail(f"forward kernels never launched, or backward kernels launched, in serving: {missing}")
+    _check_launches(launches, family, train=False)
 
     select.set_kernel_policy("none")
     t = time.perf_counter()
@@ -296,8 +509,7 @@ def slice_phase(dev, device_name, power):
     wall_none = time.perf_counter() - t
     print(f"  predict (none: plain PyTorch for every kernel): {n / wall_none:.1f} samples/s")
 
-    spec32 = dataclasses.replace(spec, compute_dtype=torch.float32)
-    step = build_eval_step(spec32)
+    step = build_eval_step(dataclasses.replace(spec, compute_dtype=torch.float32))
     batch = to_device(batches[0], dev)
     logits = {}
     for policy in ("auto", "none"):
@@ -309,7 +521,7 @@ def slice_phase(dev, device_name, power):
     print(f"  f32 logits, auto vs none: max_abs_diff {diff:.3e} (bound {AUTO_VS_NONE_F32_BOUND:.0e}), "
           f"max |logit| {logits['none'].abs().max().item():.3f}")
     if not diff <= AUTO_VS_NONE_F32_BOUND:
-        fail(f"auto vs none logits differ by {diff}")
+        fail(f"{family}: auto vs none logits differ by {diff}")
     return launches, n / wall, n / wall_none
 
 
@@ -319,8 +531,16 @@ def _clone(tree):
     return tree_map(lambda t: None if t is None else t.detach().clone(), tree)
 
 
-def train_phase(dev, device_name, power):
-    """Phase 4; returns the launch counts of the timed training run."""
+def _layer_of(path):
+    """The encoder layer index of a param path, or None."""
+    parts = path.split("/")
+    if "encoder" in parts and "layers" in parts:
+        return int(parts[parts.index("layers") + 1])
+    return None
+
+
+def train_phase(dev, device_name, power, family):
+    """Phases 4 and 6; returns (launches, steps/s, samples/s) of the timed run."""
     import dataclasses
 
     import numpy as np
@@ -338,18 +558,20 @@ def train_phase(dev, device_name, power):
 
     select.set_kernel_policy("auto")
     t = time.perf_counter()
-    tr = build_trainer(dev, SEED)
+    tr = build_trainer(dev, SEED, family)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(tr.params))
-    print(f"  model: conformer-rope-large (24 x d1024), biGRU 2 x 256, {n_params / 1e6:.1f}M params; "
-          f"bf16 compute, f32 stream, dropout 0.1, LayerDrop 0.1, Adam; init {time.perf_counter() - t:.2f} s")
-    batches = make_requests(N_TRAIN_STEPS + 1, 32, 384, SEED + 1)
+    print(f"  model: {FAMILY_NAMES[family]}, {n_params / 1e6:.1f}M params; bf16 compute, f32 stream, "
+          f"GRU dropout {tr.spec.gru_dropout}, Adam weight decay {tr.optimizer.weight_decay}; "
+          f"init {time.perf_counter() - t:.2f} s")
+    bsz = tr.batch_size
+    batches = make_requests(N_TRAIN_STEPS + 1, bsz, 384, SEED + 1)
     rng = StepRng(SEED, dev)
     # warm-up step: cuBLAS handles, the kernels' first launches, Adam state
     run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
     torch.cuda.synchronize()
     before = dict(leaves(_clone(tr.params)))
-    bn_before = _clone(run.model_state)
+    state_before = _clone(run.model_state)
 
     kernels.reset_launches()
     t = time.perf_counter()
@@ -359,42 +581,50 @@ def train_phase(dev, device_name, power):
     wall = time.perf_counter() - t
     launches = dict(kernels.LAUNCHES)
     n = sum(b.input.shape[0] for b in batches[1:])
-    print(f"  train_batches (auto): {run.steps} steps x 32 samples in {wall:.3f} s = "
+    print(f"  train_batches (auto): {run.steps} steps x {bsz} samples in {wall:.3f} s = "
           f"{run.steps / wall:.3f} steps/s, {n / wall:.1f} samples/s on {device_name} ({power})")
     losses = [m.loss for m in run.history.metrics]
     avg = run.history.get_average()
     print(f"  train losses {[round(x, 4) for x in losses]}  WER {avg.metrics['word_error_rate']:.4f}  "
           f"CER {avg.metrics.get('char_error_rate', float('nan')):.4f}")
     print(f"  kernel launches in the train run: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        fail(f"kernels never launched in the train run: {missing}")
+    _check_launches(launches, family, train=True)
     if not all(np.isfinite(losses)):
-        fail(f"non-finite train loss {losses}")
+        fail(f"{family}: non-finite train loss {losses}")
 
     # which layers ran in some step (LayerDrop decisions of every step, warm-up included)
     masks = [f.enc.layerdrop_drawn[0] for f in rng.forwards]
     ran = [not all(m[i] for m in masks) for i in range(len(masks[0]))]
     print(f"  LayerDrop: layers dropped per step {[[i for i, d in enumerate(m) if d] for m in masks]}")
     label_of = dict(leaves(tr.labels))
-    unmoved = []
+    wrong = []
     for path, p in leaves(tr.params):
         if not bool(torch.isfinite(p).all()):
-            fail(f"non-finite parameter after training: {path}")
+            fail(f"{family}: non-finite parameter after training: {path}")
         moved = not torch.equal(p, before[path])
         layer = _layer_of(path)
-        expect = label_of[path] != "frozen" and "/pos_conv/" not in path and (layer is None or ran[layer])
+        if label_of[path] == "frozen":
+            expect = False
+        elif layer is not None and not ran[layer]:
+            # no gradient: only weight decay moves it, and not a leaf that is all zeros
+            expect = tr.optimizer.weight_decay > 0 and bool(before[path].ne(0).any())
+        else:
+            # the conformer's pos_conv is a dead parity param (its forward never applies it)
+            expect = not (family == "conformer" and "/pos_conv/" in path)
         if moved != expect:
-            unmoved.append((path, moved, expect))
-    if unmoved:
-        fail(f"params moved (or stayed) against expectation: {unmoved[:8]} ({len(unmoved)} in all)")
-    for i, (new, old) in enumerate(zip(run.model_state["encoder"]["layers"], bn_before["encoder"]["layers"])):
-        changed = not torch.equal(new["batch_norm"]["mean"], old["batch_norm"]["mean"])
-        if changed != ran[i]:
-            fail(f"layer {i}: BN running stats {'changed' if changed else 'unchanged'} but the layer "
-                 f"{'ran' if ran[i] else 'was dropped in every step'}")
-    print(f"  every trainable leaf moved (dead pos_conv and layers dropped in every step excepted), "
-          f"frozen leaves did not; BN stats updated in the {sum(ran)} layers that ran")
+            wrong.append((path, moved, expect))
+    if wrong:
+        fail(f"{family}: params moved (or stayed) against expectation: {wrong[:8]} ({len(wrong)} in all)")
+    if family == "conformer":
+        for i, (new, old) in enumerate(zip(run.model_state["encoder"]["layers"], state_before["encoder"]["layers"])):
+            changed = not torch.equal(new["batch_norm"]["mean"], old["batch_norm"]["mean"])
+            if changed != ran[i]:
+                fail(f"layer {i}: BN running stats {'changed' if changed else 'unchanged'} but the layer "
+                     f"{'ran' if ran[i] else 'was dropped in every step'}")
+        print(f"  BN stats updated in the {sum(ran)} layers that ran")
+    print("  every trainable leaf of the layers that ran moved (the conformer's dead pos_conv excepted), "
+          "frozen leaves did not; a layer dropped in every step moved only by weight decay "
+          f"({tr.optimizer.weight_decay})")
 
     # one f32 step under `auto` and under `none` from the same state and seed streams
     spec32 = dataclasses.replace(tr.spec, compute_dtype=torch.float32)
@@ -408,7 +638,7 @@ def train_phase(dev, device_name, power):
         grad_fn = build_grad_fn(spec32, tr.labels, STEP_CFG)
         out, grads, norm = grad_fn(params, state, batch, StepRng(SEED + 7, dev))
         if not all(bool(torch.isfinite(gr).all()) for gr in tree_leaves(grads)):
-            fail(f"non-finite gradient at f32 under {policy}")
+            fail(f"{family}: non-finite gradient at f32 under {policy}")
         tr.optimizer.step(params, grads, opt_state, BRAIN_LR, W2V_LR)
         torch.cuda.synchronize()
         res[policy] = (float(out["loss"].detach()), float(norm), params)
@@ -433,16 +663,10 @@ def train_phase(dev, device_name, power):
               f"{ratio:.3f} of it)")
     if not (loss_rel <= TRAIN_F32_LOSS_REL and norm_rel <= TRAIN_F32_GRAD_NORM_REL
             and all(r <= 1.0 for r, _, _ in worst.values())):
-        fail("the f32 train step differs between `auto` and `none` beyond its bounds")
-    return launches, run.steps / wall, n / wall
-
-
-def _layer_of(path):
-    """The conformer layer index of a param path, or None."""
-    parts = path.split("/")
-    if "encoder" in parts and "layers" in parts:
-        return int(parts[parts.index("layers") + 1])
-    return None
+        fail(f"{family}: the f32 train step differs between `auto` and `none` beyond its bounds")
+    del res, pa, pn, tr, run
+    torch.cuda.empty_cache()
+    return launches, N_TRAIN_STEPS / wall, n / wall
 
 
 def main() -> None:
@@ -487,39 +711,43 @@ def main() -> None:
     kernel_phases(dev, results)
     torch.cuda.synchronize()
 
-    print("[3] serving: conformer-rope-large forward")
-    serve_launches, sps, sps_none = slice_phase(dev, device_name, power)
-    torch.cuda.synchronize()
+    serve, train = {}, {}
+    for i, family in enumerate(("conformer", "w2v")):
+        print(f"[{3 + 2 * i}] serving: {FAMILY_NAMES[family]}")
+        serve[family] = serve_phase(dev, device_name, power, family)
+        torch.cuda.synchronize()
+        print(f"[{4 + 2 * i}] training: {FAMILY_NAMES[family]}")
+        train[family] = train_phase(dev, device_name, power, family)
+        torch.cuda.synchronize()
 
-    print("[4] training: conformer-rope-large train steps")
-    launches, steps_ps, train_sps = train_phase(dev, device_name, power)
-    torch.cuda.synchronize()
-
-    # the row of each kernel is timed at the training run's configuration:
-    # bf16 compute, f32 activation stream, dropout 0.1
-    slice_labels = {
-        "preproc": "B32 T384 f32",
-        "gru": "H256 layer0 bfloat16",
-        "attention": "B32 T89 16x64 io float32 cd bfloat16 p0.1",
-        "conv_glu": "B32 T89 C1024 io float32 cd bfloat16",
-    }
-    slice_labels.update({f"{k}_bwd": v for k, v in slice_labels.items()})
     rows = []
-    for name, label in slice_labels.items():
+    for name, label in ROW_LABELS.items():
         mine = [r for r in results if r["name"] == name]
         at = next(r for r in mine if r["label"] == label)
+        by_path = {f"{fam}_train": train[fam][0][name] for fam in train}
+        launches = sum(by_path.values())
+        if launches <= 0:
+            fail(f"{name}: launched in no training run")
         rows.append({
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": launches,
+            "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in mine),
             "ms": at["ms"],
             "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": label,
         })
-    print(f"serving samples/s: auto {sps:.2f}  none {sps_none:.2f}; serving launches {json.dumps(serve_launches)}")
-    print(f"training: {steps_ps:.3f} steps/s, {train_sps:.2f} samples/s on {power}")
+    for family in serve:
+        _, sps, sps_none = serve[family]
+        _, steps_ps, train_sps = train[family]
+        print(f"{family}: serving samples/s auto {sps:.2f} none {sps_none:.2f}; "
+              f"training {steps_ps:.3f} steps/s, {train_sps:.2f} samples/s on {power}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))

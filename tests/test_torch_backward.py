@@ -286,8 +286,9 @@ def test_cuda_tiny_train_step_auto_matches_none():
             step = build_train_step(spec, labels, opt, StepConfig(None, 0.02, 0.25))
             kernels.reset_launches()
             res = step(params, opt.init(params), state, batch, StepRng(3, dev), 1e-3, 1e-4)
-            if policy == "auto":
-                assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+            if policy == "auto":  # every kernel of the conformer path, forward and backward
+                path = ("preproc", "gru", "attention", "conv_glu", "layernorm")
+                assert all(kernels.LAUNCHES[k] > 0 and kernels.LAUNCHES[f"{k}_bwd"] > 0 for k in path), kernels.LAUNCHES
             out[policy] = (float(res.loss), [p.detach().clone() for p in tree_leaves(params)])
     finally:
         select.set_kernel_policy("auto")

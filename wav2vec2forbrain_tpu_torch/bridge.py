@@ -3,9 +3,13 @@ wav2vec2forbrain_tpu/models/convert.py).
 
 The port keeps the JAX parameter structure, key names and (in, out) kernel
 layouts, so a leaf crosses unchanged: numpy array <-> tensor, bit for bit.
-The one layout difference is the scan-stacked conformer (`layers_stacked`,
-conformer.py::stack_conformer_layers), which the port holds as the
-per-layer list. `params_to_jax(..., stacked=True)` restacks it.
+This holds for both encoder families: the conformer (params and its
+BatchNorm state) and wav2vec2 (pos_conv weight_g / weight_v / bias, the
+layers, the encoder LN, lm_head; its state is {"encoder": {}}). The one
+layout difference is the scan-stacked encoder (`layers_stacked`,
+conformer.py::stack_conformer_layers, wav2vec2.py::stack_w2v_layers),
+which the port holds as the per-layer list. `params_to_jax(...,
+stacked=True)` restacks it.
 
 The optimizer state crosses too: the JAX make_optimizer state (an optax
 multi_transform with one Adam state per trained group, each holding count,
@@ -44,13 +48,14 @@ def _stack(layers: list) -> dict:
 
 def params_from_jax(params: dict, state: dict, device="cpu") -> Tuple[dict, dict]:
     """JAX (params, state) as numpy pytrees -> the port's (params, state),
-    tensors on `device`. Accepts per-layer and scan-stacked conformers."""
+    tensors on `device`. Accepts per-layer and scan-stacked encoders."""
     params = dict(params)
     w2v = dict(params["w2v"])
     enc = dict(w2v["encoder"])
     enc_state = dict(state["encoder"])
     if "layers_stacked" in enc:
         enc["layers"] = _unstack(enc.pop("layers_stacked"))
+    if "layers_stacked" in enc_state:
         enc_state["layers"] = _unstack(enc_state.pop("layers_stacked"))
     w2v["encoder"] = enc
     params["w2v"] = w2v
@@ -70,7 +75,8 @@ def params_to_jax(params: dict, state: dict, stacked: bool = False) -> Tuple[dic
         enc = np_params["w2v"]["encoder"]
         enc["layers_stacked"] = _stack(enc.pop("layers"))
         enc_state = np_state["encoder"]
-        enc_state["layers_stacked"] = _stack(enc_state.pop("layers"))
+        if "layers" in enc_state:  # the conformer's BatchNorm state
+            enc_state["layers_stacked"] = _stack(enc_state.pop("layers"))
     return np_params, np_state
 
 

@@ -49,13 +49,26 @@
 //     and dgh (T, 2, B, 3H) to device memory and dh0 at the end. Two block
 //     barriers per step.
 //  2. dW_hh as a tiled shared-memory product over the T * B rows (2848 at
-//     the slice's shape): one block per 64 x 64 output tile and direction,
-//     32-row chunks of hprev and dgh staged in shared memory (rounded to the
-//     compute dtype, as the JAX `_mm` rounds them), 4 x 4 outputs per
-//     thread. Each output is summed by one thread in a fixed order: no
-//     atomics, deterministic.
+//     the conformer slice's shape, 5696 at the wav2vec2-base sweep's): one
+//     block per 64 x 64 output tile and direction, 32-row chunks of hprev
+//     and dgh staged in shared memory, 4 x 4 outputs per thread. Each
+//     output is summed by one thread in a fixed order: no atomics,
+//     deterministic. dw_cd = 1 rounds both operands to the compute dtype,
+//     as the JAX `_mm` in _bwd_kernel does; dw_cd = 0 keeps them f32, as the
+//     einsum outside the per-direction kernel does (::_vjp_bwd_dir).
 //  3. db_hh: one thread per column sums dgh over the rows in order.
 // cuBLAS is not used: the JAX kernel computes dW_hh in its own body.
+//
+// Per-direction variant (replaces ::_bwd_impl_dir, the Pallas kernel
+// _bwd_kernel_dir, and the dW einsum of ::_vjp_bwd_dir): the JAX package
+// runs the directions one after the other there because one direction's
+// W_hh fits VMEM and two do not (H = 512 / 1024). Here each block already
+// owns one direction and streams W_hh from L2, so the same three launches
+// compute that function at any H <= 2400; at H = 1024 the recurrence
+// holds 96 KiB of shared memory per block (hprev f32 and rounded, the dh
+// carry, dgh rounded) and W_hh (12 MiB f32, 6 MiB bf16 per direction)
+// stays in L2. dgi and dgh are written to device memory (the JAX kernel
+// emits dgi and r, and rebuilds dgh = [dgr, dgz, dgn * r] outside).
 #include "common.cuh"
 
 namespace {
@@ -275,7 +288,7 @@ constexpr int kChunk = 32;  // T*B rows staged per step
 // dw[d] = sum over rows (t, b) of hprev_cd[t, d, b, :]^T dgh_cd[t, d, b, :]
 __global__ void gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ ys,
                               const float* __restrict__ dgh, float* __restrict__ dw, int T,
-                              int ND, int B, int H, bool cd_bf16) {
+                              int ND, int B, int H, bool round_bf16) {
   __shared__ float as[kChunk][kTile];  // hprev rows, columns i0 ..
   __shared__ float bs[kChunk][kTile];  // dgh rows, columns j0 ..
   const int H3 = 3 * H;
@@ -306,8 +319,8 @@ __global__ void gru_dw_kernel(const float* __restrict__ h0, const float* __restr
                      : h0[((size_t)d * B + bb) * H + i];
         if (j < H3) bv = dgh[(((size_t)t * ND + d) * B + bb) * H3 + j];
       }
-      as[rr][cc] = w2vb::round_cd(av, cd_bf16);
-      bs[rr][cc] = w2vb::round_cd(bv, cd_bf16);
+      as[rr][cc] = w2vb::round_cd(av, round_bf16);
+      bs[rr][cc] = w2vb::round_cd(bv, round_bf16);
     }
     __syncthreads();
 #pragma unroll 4
@@ -351,7 +364,8 @@ __global__ void gru_db_kernel(const float* __restrict__ dgh, float* __restrict__
 template <typename W>
 int launch_bwd(const float* gi, const void* w_hh, const void* w_t, const float* b_hh,
                const float* h0, const float* ys, const float* g, float* dgi, float* dgh,
-               float* dw, float* db, float* dh0, int T, int ND, int B, int H, cudaStream_t s) {
+               float* dw, float* db, float* dh0, int T, int ND, int B, int H, bool dw_cd,
+               cudaStream_t s) {
   const size_t smem = (size_t)6 * kBatch * H * sizeof(float);
   cudaError_t e = w2vb::allow_smem(gru_bwd_kernel<W>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -363,7 +377,7 @@ int launch_bwd(const float* gi, const void* w_hh, const void* w_t, const float* 
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 gdw((3 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, ND);
-  gru_dw_kernel<<<gdw, 256, 0, s>>>(h0, ys, dgh, dw, T, ND, B, H, sizeof(W) == 2);
+  gru_dw_kernel<<<gdw, 256, 0, s>>>(h0, ys, dgh, dw, T, ND, B, H, dw_cd && sizeof(W) == 2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 gdb((3 * H + 255) / 256, ND);
@@ -384,14 +398,16 @@ extern "C" int w2vb_gru_fwd(const float* gi, const void* w_hh, int w_bf16, const
 
 // Backward: w_hh (ND, H, 3H) and w_t = its transpose (ND, 3H, H), both in
 // the compute dtype (w_bf16); dgh is a (T, ND, B, 3H) f32 scratch; dw (ND,
-// H, 3H), db (ND, 3H) and dh0 (ND, B, H) f32.
+// H, 3H), db (ND, 3H) and dh0 (ND, B, H) f32. dw_cd: 1 takes dW's product in
+// the compute dtype (_bwd_impl), 0 in f32 (the per-direction _bwd_impl_dir).
 extern "C" int w2vb_gru_bwd(const float* gi, const void* w_hh, const void* w_t, int w_bf16,
                             const float* b_hh, const float* h0, const float* ys, const float* g,
                             float* dgi, float* dgh, float* dw, float* db, float* dh0, int T,
-                            int ND, int B, int H, void* stream) {
+                            int ND, int B, int H, int dw_cd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_bf16)
     return launch_bwd<__nv_bfloat16>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND,
-                                     B, H, s);
-  return launch_bwd<float>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, s);
+                                     B, H, dw_cd != 0, s);
+  return launch_bwd<float>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H,
+                           dw_cd != 0, s);
 }

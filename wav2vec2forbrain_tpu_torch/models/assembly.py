@@ -1,4 +1,4 @@
-"""B2P2T brain encoder + Wav2Vec2-Conformer model assembly (counterpart of
+"""B2P2T brain encoder + Wav2Vec2(-Conformer) model assembly (counterpart of
 wav2vec2forbrain_tpu/models/assembly.py).
 
 Parameters are nested dicts of tensors with the JAX package's structure and
@@ -9,11 +9,14 @@ key names, so they cross the bridge (bridge.py) unchanged:
       "w2v":   {"encoder": ..., "lm_head": ...},
     }
     state  = {"encoder": {"layers": [{"batch_norm": {"mean", "var"}}, ...]}}
+             ({"encoder": {}} for the wav2vec2 family, which has no BatchNorm)
 
-Only the conformer family is ported so far (eval and train mode, the aux
-head and the extras); the wav2vec2-base family waits for a later slice.
-Train mode takes its dropout seeds and LayerDrop decisions from a
-ForwardRng (models/seeds.py): the GRU, encoder and head streams.
+Two encoder families, as in the JAX package (spec.encoder_family):
+"conformer" (the port's default: b2p2t_gru+w2v_conformer) and "wav2vec2"
+(b2p2t_gru+w2v: the post-LN or stable pre-LN Wav2Vec2 encoder). Eval and
+train mode, the aux head and the extras. Train mode takes its dropout seeds
+and LayerDrop decisions from a ForwardRng (models/seeds.py): the GRU,
+encoder and head streams.
 """
 
 from dataclasses import dataclass
@@ -24,7 +27,6 @@ import torch
 from wav2vec2forbrain_tpu_torch.models.conformer import (
     ConformerEncoderConfig,
     apply_conformer_encoder,
-    dropout_site,
     init_conformer_encoder_params,
     init_conformer_state,
 )
@@ -38,6 +40,14 @@ from wav2vec2forbrain_tpu_torch.models.preprocessing import (
     init_preproc_params,
 )
 from wav2vec2forbrain_tpu_torch.models.seeds import ForwardRng
+from wav2vec2forbrain_tpu_torch.models.wav2vec2 import (
+    Wav2Vec2EncoderConfig,
+    apply_lm_head,
+    apply_w2v_encoder,
+    dropout_site,
+    init_lm_head_params,
+    init_w2v_encoder_params,
+)
 from wav2vec2forbrain_tpu_torch.ops.ctc import ctc_loss
 from wav2vec2forbrain_tpu_torch.ops.preproc import apply_preproc_fused
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
@@ -50,7 +60,10 @@ class ModelSpec:
 
     The defaults are b2p2t_gru+w2v_conformer at full width: biGRU 2 x 256,
     FC to 1024, Wav2Vec2-Conformer-RoPE-large (24 layers, d=1024, 16 heads,
-    FFN 4096, depthwise kernel 31, swish), 32-symbol CTC head."""
+    FFN 4096, depthwise kernel 31, swish), 32-symbol CTC head. With
+    encoder_family "wav2vec2" the encoder is w2v_cfg (default base-960h:
+    12 post-LN layers, d=768, 12 heads, FFN 3072); set latent_size to its
+    hidden size."""
 
     # preprocessing
     unfolder_kernel_len: int = 32
@@ -66,7 +79,9 @@ class ModelSpec:
     fc_hidden_sizes: Tuple[int, ...] = ()
     fc_activation: str = "gelu"
     latent_size: int = 1024
-    # encoder (the conformer family; wav2vec2-base comes with its own slice)
+    # encoder family: "conformer" or "wav2vec2", and its config
+    encoder_family: str = "conformer"
+    w2v_cfg: Optional[Wav2Vec2EncoderConfig] = None
     conformer_cfg: Optional[ConformerEncoderConfig] = None
     ctc_loss_reduction: str = "mean"
     compute_dtype: torch.dtype = torch.float32
@@ -79,8 +94,14 @@ class ModelSpec:
     additional_loss_squared: bool = False
 
     def __post_init__(self):
-        if self.conformer_cfg is None:
-            self.conformer_cfg = ConformerEncoderConfig.rope_large_960h()
+        if self.encoder_family == "conformer":
+            if self.conformer_cfg is None:
+                self.conformer_cfg = ConformerEncoderConfig.rope_large_960h()
+        elif self.encoder_family == "wav2vec2":
+            if self.w2v_cfg is None:
+                self.w2v_cfg = Wav2Vec2EncoderConfig.base_960h()
+        else:
+            raise ValueError(f"encoder_family {self.encoder_family!r}: expected 'conformer' or 'wav2vec2'")
 
 
 def init_model_params(generator: torch.Generator, spec: ModelSpec, device) -> Tuple[dict, dict]:
@@ -88,7 +109,6 @@ def init_model_params(generator: torch.Generator, spec: ModelSpec, device) -> Tu
     directly on `device` from `generator` (which must live on that device)."""
     gru_in = in_size_after_preprocessing(spec.unfolder_kernel_len)
     gru_out = spec.gru_hidden_size * (2 if spec.gru_bidirectional else 1)
-    cfg = spec.conformer_cfg
     brain = {
         "preproc": init_preproc_params(generator, device),
         "gru": init_gru_params(
@@ -103,16 +123,19 @@ def init_model_params(generator: torch.Generator, spec: ModelSpec, device) -> Tu
         ),
         "fc": init_fc(generator, gru_out, spec.latent_size, spec.fc_hidden_sizes, device),
     }
-    params = {
-        "brain": brain,
-        "w2v": {
-            "encoder": init_conformer_encoder_params(generator, cfg, device),
-            "lm_head": init_linear(generator, cfg.hidden_size, cfg.vocab_size, device),
-        },
-    }
+    if spec.encoder_family == "wav2vec2":
+        encoder = init_w2v_encoder_params(generator, spec.w2v_cfg, device)
+        head = init_lm_head_params(generator, spec.w2v_cfg, device)
+        state = {"encoder": {}}
+    else:
+        cfg = spec.conformer_cfg
+        encoder = init_conformer_encoder_params(generator, cfg, device)
+        head = init_linear(generator, cfg.hidden_size, cfg.vocab_size, device)
+        state = {"encoder": init_conformer_state(cfg, device)}
+    params = {"brain": brain, "w2v": {"encoder": encoder, "lm_head": head}}
     if spec.aux_head_vocab_size is not None:
         params["aux_head"] = init_linear(generator, spec.latent_size, spec.aux_head_vocab_size, device)
-    return params, {"encoder": init_conformer_state(cfg, device)}
+    return params, state
 
 
 def forward(
@@ -128,8 +151,10 @@ def forward(
 ):
     """Batch (B, T, 256) -> (logits (B, T', vocab) f32, logit_lens (B,),
     new_state), plus an extras dict when return_extras: "hidden_states"
-    (what the lm_head projects, after the final dropout), "latents" (the
-    pre-encoder brain latents) and, with an aux head, "aux_logits".
+    (the encoder's output: for the conformer after the final dropout, what
+    the lm_head projects; for wav2vec2 before it, as in the JAX package),
+    "latents" (the pre-encoder brain latents) and, with an aux head,
+    "aux_logits".
 
     Train mode needs rng, a ForwardRng whose gru / enc / head streams seed
     the GRU's inter-layer dropout, the encoder and the head's final dropout."""
@@ -157,15 +182,24 @@ def forward(
     )
     latents = apply_fc(params["brain"]["fc"], h, spec.fc_activation, cd)
     enc_in = latents.to(spec.activation_dtype)
-    cfg = spec.conformer_cfg
-    hidden, new_enc_state = apply_conformer_encoder(
-        params["w2v"]["encoder"], state["encoder"], enc_in, cfg,
-        train=train, compute_dtype=cd, stream=rng.enc if rng is not None else None,
-    )
-    # ForCTC head: final dropout + vocab projection
-    hidden = dropout_site(rng.head if rng is not None else None, hidden, cfg.final_dropout, train)
-    logits = apply_linear(params["w2v"]["lm_head"], hidden, cd)
-    new_state = {"encoder": new_enc_state}
+    enc_stream = rng.enc if rng is not None else None
+    head_stream = rng.head if rng is not None else None
+    if spec.encoder_family == "wav2vec2":
+        hidden = apply_w2v_encoder(params["w2v"]["encoder"], enc_in, spec.w2v_cfg, train, cd, enc_stream)
+        new_state = state
+        logits = apply_lm_head(params["w2v"]["lm_head"], hidden, spec.w2v_cfg, cd, head_stream, train)
+        # the extras' hidden states are the encoder's, before the final dropout
+    else:
+        cfg = spec.conformer_cfg
+        hidden, new_enc_state = apply_conformer_encoder(
+            params["w2v"]["encoder"], state["encoder"], enc_in, cfg,
+            train=train, compute_dtype=cd, stream=enc_stream,
+        )
+        # ForCTC head: final dropout + vocab projection; the extras' hidden
+        # states are the dropped-out ones the head projects
+        hidden = dropout_site(head_stream, hidden, cfg.final_dropout, train)
+        logits = apply_linear(params["w2v"]["lm_head"], hidden, cd)
+        new_state = {"encoder": new_enc_state}
     if not return_extras:
         return logits.float(), out_lens, new_state
     extras = {"hidden_states": hidden.float(), "latents": latents.float()}

@@ -16,6 +16,10 @@ Train mode, as the JAX package: hash dropout at the seven sites of a layer
 the attention op, the attention output, the conv module's output) and on
 the encoder input, seeded in that order from the forward's encoder
 SeedStream (models/seeds.py); BatchNorm on batch statistics; LayerDrop.
+
+Every LayerNorm (five per layer and the encoder's last) goes through
+models/wav2vec2.py::_layer_norm_routed, as in the JAX package: the
+layernorm kernel when the policy routes "layernorm" there.
 """
 
 import math
@@ -26,11 +30,10 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.models.activations import ACT2FN
 from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, init_linear, matmul_f32, uniform
-from wav2vec2forbrain_tpu_torch.models.seeds import SeedStream
-from wav2vec2forbrain_tpu_torch.models.wav2vec2 import _layer_norm
+from wav2vec2forbrain_tpu_torch.models.seeds import CONFORMER_LAYER_SITES, SeedStream, sites_per_layer
+from wav2vec2forbrain_tpu_torch.models.wav2vec2 import _init_layer_norm, _layer_norm_routed, dropout_site, init_pos_conv
 from wav2vec2forbrain_tpu_torch.ops.attention import attention
 from wav2vec2forbrain_tpu_torch.ops.conv_glu import depthwise_conv_same, glu_dwconv
-from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 
@@ -83,13 +86,6 @@ class ConformerEncoderConfig:
 # --- init ----------------------------------------------------------------------
 
 
-def _init_layer_norm(size: int, device) -> dict:
-    return {
-        "scale": torch.ones(size, dtype=torch.float32, device=device),
-        "bias": torch.zeros(size, dtype=torch.float32, device=device),
-    }
-
-
 def _init_conv1d_kernel(generator, shape, fan_in: int, device) -> torch.Tensor:
     """torch Conv1d kaiming-uniform init: U(-sqrt(3/fan_in), sqrt(3/fan_in))."""
     return uniform(generator, shape, math.sqrt(3.0) / math.sqrt(fan_in), device)
@@ -134,18 +130,10 @@ def init_conformer_layer_params(generator, cfg: ConformerEncoderConfig, device) 
 
 def init_conformer_encoder_params(generator, cfg: ConformerEncoderConfig, device) -> dict:
     h = cfg.hidden_size
-    k = cfg.num_conv_pos_embeddings
-    groups = cfg.num_conv_pos_embedding_groups
-    bound = 1.0 / math.sqrt((h // groups) * k)
-    v = uniform(generator, (h, h // groups, k), math.sqrt(3.0) * bound, device)
-    g = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
     return {
         # dead parity params (HF owns them, its forward never applies them)
-        "pos_conv": {
-            "weight_g": g,
-            "weight_v": v,
-            "bias": uniform(generator, (h,), bound, device),
-        },
+        "pos_conv": init_pos_conv(generator, h, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups,
+                                  device),
         "layer_norm": _init_layer_norm(h, device),
         "layers": [
             init_conformer_layer_params(generator, cfg, device)
@@ -194,25 +182,6 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, num_hea
 
 
 # --- blocks -----------------------------------------------------------------------
-
-
-def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
-    """One dropout site: a hash mask keyed on the stream's next seed."""
-    if not train or rate <= 0.0:
-        return x
-    return hash_dropout(x, stream.seed(), rate)
-
-
-def sites_per_layer(cfg: ConformerEncoderConfig) -> int:
-    """Seeds one train-mode layer draws: the FFN halves' activation and
-    hidden dropouts, the attention probabilities and output, the conv module."""
-    rates = (
-        cfg.activation_dropout, cfg.hidden_dropout,
-        cfg.attention_dropout, cfg.attention_dropout,
-        cfg.conformer_conv_dropout,
-        cfg.activation_dropout, cfg.hidden_dropout,
-    )
-    return sum(r > 0.0 for r in rates)
 
 
 def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
@@ -265,7 +234,7 @@ def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtyp
     """Returns (y, new_state) with new_state = {"batch_norm": ...}."""
     cd = compute_dtype or x.dtype
     sd = x.dtype
-    y = _layer_norm(p["layer_norm"], x, cfg.layer_norm_eps)
+    y = _layer_norm_routed(p["layer_norm"], x, cfg.layer_norm_eps)
     # pointwise conv1 (k=1, no bias) == dense to 2C, then GLU over channels
     y = matmul_f32(y.to(cd), p["pointwise_conv1"]["kernel"].to(cd)).to(sd)
     w_dw = p["depthwise_conv"]["kernel"][:, 0, :]  # (ks, C)
@@ -285,12 +254,12 @@ def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_
     """One macaron block. Returns (x, new_state)."""
     eps = cfg.layer_norm_eps
     residual = x
-    y = _layer_norm(p["ffn1_layer_norm"], x, eps)
+    y = _layer_norm_routed(p["ffn1_layer_norm"], x, eps)
     y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train)
     x = y * 0.5 + residual
 
     residual = x
-    y = _layer_norm(p["self_attn_layer_norm"], x, eps)
+    y = _layer_norm_routed(p["self_attn_layer_norm"], x, eps)
     y = conformer_self_attention(p["self_attn"], y, cfg, cos, sin, compute_dtype, stream, train)
     y = dropout_site(stream, y, cfg.attention_dropout, train)
     x = residual + y
@@ -300,10 +269,10 @@ def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_
     x = residual + y
 
     residual = x
-    y = _layer_norm(p["ffn2_layer_norm"], x, eps)
+    y = _layer_norm_routed(p["ffn2_layer_norm"], x, eps)
     y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train)
     x = y * 0.5 + residual
-    return _layer_norm(p["final_layer_norm"], x, eps), new_state
+    return _layer_norm_routed(p["final_layer_norm"], x, eps), new_state
 
 
 def apply_conformer_encoder(
@@ -332,9 +301,9 @@ def apply_conformer_encoder(
     new_states = []
     for p_layer, s_layer, dropped in zip(params["layers"], state["layers"], drop):
         if dropped:
-            stream.skip(sites_per_layer(cfg))
+            stream.skip(sites_per_layer(cfg, CONFORMER_LAYER_SITES))
             new_states.append(s_layer)
             continue
         x, new_s = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, stream, train)
         new_states.append(new_s)
-    return _layer_norm(params["layer_norm"], x, cfg.layer_norm_eps), {"layers": new_states}
+    return _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps), {"layers": new_states}

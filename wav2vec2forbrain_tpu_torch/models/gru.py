@@ -9,9 +9,14 @@ GRU) and the JAX package do.
 
 A bidirectional layer's recurrence runs through ops/gru.py (the CUDA kernel
 on CUDA tensors) when the kernel policy routes "gru" there, else through its
-plain version. The unidirectional path stays plain. In train mode the
-inter-layer dropout (not after the last layer, as torch nn.GRU) is hash
-dropout seeded from the forward's GRU SeedStream (models/seeds.py).
+plain version. From H = 512 up it takes the per-direction entry
+(gru_recurrence_dir), whose bf16 dW_hh product is f32 as in the JAX
+package's per-direction kernels, which that package runs at the sweep
+widths 512 and 1024 (its TPU memory budget at the sweeps' batch picks them;
+that budget does not apply here and is not copied). The unidirectional
+path stays plain. In train mode the inter-layer dropout (not after the
+last layer, as torch nn.GRU) is hash dropout seeded from the forward's GRU
+SeedStream (models/seeds.py).
 Gradients reach a learnable h0 through its broadcast to the batch.
 """
 
@@ -21,8 +26,10 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.models.fc import matmul_f32, uniform
 from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
-from wav2vec2forbrain_tpu_torch.ops.gru import gru_recurrence, gru_recurrence_plain
+from wav2vec2forbrain_tpu_torch.ops.gru import gru_recurrence, gru_recurrence_dir, gru_recurrence_plain
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+
+PER_DIRECTION_MIN_HIDDEN = 512  # the sweep widths the JAX package runs per direction
 
 
 def init_gru_params(
@@ -98,7 +105,12 @@ def bigru_layer(dirs: list, x: torch.Tensor, h0: torch.Tensor, compute_dtype=Non
     (B, T, 2H) f32 (counterpart of _bigru_layer_fused / bigru_layer_pallas)."""
     cd = compute_dtype or x.dtype
     gi, w_hh, b_hh = bigru_inputs(dirs, x, cd)
-    rec = gru_recurrence if use_kernel else gru_recurrence_plain
+    if not use_kernel:
+        rec = gru_recurrence_plain
+    elif w_hh.shape[1] >= PER_DIRECTION_MIN_HIDDEN:
+        rec = gru_recurrence_dir
+    else:
+        rec = gru_recurrence
     ys = rec(gi, w_hh, b_hh, h0.contiguous(), cd)  # (T, 2, B, H)
     fwd = ys[:, 0].transpose(0, 1)
     bwd = torch.flip(ys[:, 1].transpose(0, 1), dims=(1,))

@@ -18,6 +18,12 @@ instead, or replays a sequence that a test supplies:
 
 Seeds and LayerDrop uniforms come from CPU generators: drawing them never
 waits on the card.
+
+The dropout sites of one encoder layer, in the order the JAX layer draws
+their seeds (each config field names a site's rate; a site whose rate is 0
+draws nothing), are CONFORMER_LAYER_SITES and W2V_LAYER_SITES;
+`sites_per_layer` counts the live ones, which is also how many seeds a
+layer that LayerDrop skips consumes.
 """
 
 from typing import List, NamedTuple, Optional, Sequence
@@ -25,6 +31,23 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 INT32_MAX = 2**31 - 1
+
+# models/conformer.py::conformer_layer: each FFN half's activation and
+# output, the attention probabilities and output, the conv module
+CONFORMER_LAYER_SITES = (
+    "activation_dropout", "hidden_dropout",
+    "attention_dropout", "attention_dropout",
+    "conformer_conv_dropout",
+    "activation_dropout", "hidden_dropout",
+)
+# models/wav2vec2.py::encoder_layer (both LN forms): the attention
+# probabilities, the attention output, the FFN activation, the FFN output
+W2V_LAYER_SITES = ("attention_dropout", "hidden_dropout", "activation_dropout", "hidden_dropout")
+
+
+def sites_per_layer(cfg, sites) -> int:
+    """Seeds one train-mode layer of encoder config `cfg` draws."""
+    return sum(getattr(cfg, name) > 0.0 for name in sites)
 
 
 class SeedStream:

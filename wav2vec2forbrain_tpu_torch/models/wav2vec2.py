@@ -1,18 +1,235 @@
-"""Wav2Vec2 encoder pieces (counterpart of wav2vec2forbrain_tpu/models/wav2vec2.py).
+"""Wav2Vec2 transformer encoder, feature-extractor-free (counterpart of
+wav2vec2forbrain_tpu/models/wav2vec2.py, unscanned layer list).
 
-Only the LayerNorm the conformer uses is ported so far; the wav2vec2-base
-encoder comes with its own slice. The layernorm kernel is not ported yet, so
-there is no routed variant: every LN runs this plain version.
+Post-LN (do_stable_layer_norm=False, e.g. base-960h):
+    x = x + pos_conv(x); x = LN(x); x = dropout(x)
+    per layer: x = LN(x + dropout(attn(x))); x = finalLN(x + ffn(x))
+Stable pre-LN (e.g. large-960h):
+    x = x + pos_conv(x); x = dropout(x)
+    per layer: x = x + dropout(attn(LN(x))); x = x + ffn(finalLN(x)); then the encoder LN
+No attention mask: padded frames take part in the softmax, as in the
+reference and the JAX package. Dtypes follow the JAX package: matmuls
+contract in the compute dtype with f32 results, block outputs ride the
+activation-stream dtype (x.dtype), norms run in f32.
+
+Train mode: hash dropout at the encoder input and at the four sites of a
+layer (models/seeds.py::W2V_LAYER_SITES), seeded in that order from the
+forward's encoder SeedStream; LayerDrop. Every LayerNorm goes through
+_layer_norm_routed: the layernorm kernel (ops/layernorm.py) when the policy
+routes "layernorm" there, else the plain version.
 """
 
+import math
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+from wav2vec2forbrain_tpu_torch.models.activations import ACT2FN
+from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, init_linear, uniform
+from wav2vec2forbrain_tpu_torch.models.seeds import W2V_LAYER_SITES, SeedStream, sites_per_layer
+from wav2vec2forbrain_tpu_torch.ops.attention import attention as mha
+from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
+from wav2vec2forbrain_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
+from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 
-def _layer_norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Row LayerNorm in f32 (mean, centred biased var, rsqrt(var + eps),
-    scale, bias), emitted in x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+@dataclass
+class Wav2Vec2EncoderConfig:
+    """The JAX Wav2Vec2EncoderConfig, with its defaults (base-960h)."""
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    final_dropout: float = 0.1
+    layerdrop: float = 0.1
+    layer_norm_eps: float = 1e-5
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    do_stable_layer_norm: bool = False
+    vocab_size: int = 32
+    feat_extract_activation: str = "gelu"
+
+    @classmethod
+    def base_960h(cls) -> "Wav2Vec2EncoderConfig":
+        return cls()
+
+    @classmethod
+    def large_960h(cls) -> "Wav2Vec2EncoderConfig":
+        return cls(
+            hidden_size=1024,
+            num_hidden_layers=24,
+            num_attention_heads=16,
+            intermediate_size=4096,
+            do_stable_layer_norm=True,
+        )
+
+    @classmethod
+    def tiny_test(cls, **kw) -> "Wav2Vec2EncoderConfig":
+        d = dict(
+            hidden_size=96,
+            num_hidden_layers=2,
+            num_attention_heads=4,
+            intermediate_size=128,
+            num_conv_pos_embeddings=16,
+            num_conv_pos_embedding_groups=4,
+        )
+        d.update(kw)
+        return cls(**d)
+
+
+# --- init ----------------------------------------------------------------------
+
+
+def _init_layer_norm(size: int, device) -> dict:
+    return {
+        "scale": torch.ones(size, dtype=torch.float32, device=device),
+        "bias": torch.zeros(size, dtype=torch.float32, device=device),
+    }
+
+
+def init_pos_conv(generator, h: int, k: int, groups: int, device) -> dict:
+    """The weight-normed grouped conv: torch's kaiming-uniform v (out,
+    in/groups, k), g = ||v|| over dims (0, 1) per tap, uniform bias."""
+    bound = 1.0 / math.sqrt((h // groups) * k)
+    v = uniform(generator, (h, h // groups, k), math.sqrt(3.0) * bound, device)
+    g = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
+    return {"weight_g": g, "weight_v": v, "bias": uniform(generator, (h,), bound, device)}
+
+
+def init_w2v_encoder_params(generator, cfg: Wav2Vec2EncoderConfig, device) -> dict:
+    h = cfg.hidden_size
+    lin = lambda i, o: init_linear(generator, i, o, device)  # noqa: E731
+    pos_conv = init_pos_conv(generator, h, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups, device)
+    layers = [
+        {
+            "attention": {"q_proj": lin(h, h), "k_proj": lin(h, h), "v_proj": lin(h, h), "out_proj": lin(h, h)},
+            "layer_norm": _init_layer_norm(h, device),
+            "feed_forward": {
+                "intermediate_dense": lin(h, cfg.intermediate_size),
+                "output_dense": lin(cfg.intermediate_size, h),
+            },
+            "final_layer_norm": _init_layer_norm(h, device),
+        }
+        for _ in range(cfg.num_hidden_layers)
+    ]
+    # the stable (pre-LN) form applies the one "layer_norm" after the layers
+    return {"pos_conv": pos_conv, "layer_norm": _init_layer_norm(h, device), "layers": layers}
+
+
+def init_lm_head_params(generator, cfg: Wav2Vec2EncoderConfig, device) -> dict:
+    return init_linear(generator, cfg.hidden_size, cfg.vocab_size, device)
+
+
+# --- forward -------------------------------------------------------------------
+
+
+def _layer_norm_routed(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LN through the layernorm kernel (3-D x, policy "layernorm"), else
+    the plain version (f32 math, emitted in x's dtype)."""
+    fn = layer_norm if x.dim() == 3 and kernel_enabled("layernorm") else layer_norm_plain
+    return fn(x, p["scale"], p["bias"], eps)
+
+
+def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+    """One dropout site: a hash mask keyed on the stream's next seed."""
+    if not train or rate <= 0.0:
+        return x
+    return hash_dropout(x, stream.seed(), rate)
+
+
+def pos_conv_embed(p: dict, x: torch.Tensor, cfg: Wav2Vec2EncoderConfig) -> torch.Tensor:
+    """Grouped weight-normed conv positional embedding. x: (B, T, H)."""
+    v = p["weight_v"]  # (out, in/groups, k)
+    norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
+    w = p["weight_g"] * v / torch.clamp(norm, min=1e-12)
+    k = cfg.num_conv_pos_embeddings
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), padding=k // 2, groups=cfg.num_conv_pos_embedding_groups)
+    # the f32 bias add promotes a bf16 conv output: cast back to the stream dtype
+    y = (y.transpose(1, 2) + p["bias"]).to(x.dtype)
+    if k % 2 == 0:  # SamePadLayer: trim the extra right output
+        y = y[:, : x.shape[1], :]
+    return ACT2FN[cfg.feat_extract_activation](y)
+
+
+def self_attention(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+    """HF Wav2Vec2Attention (Bart style): q scaled by head_dim ** -0.5 in
+    the stream dtype, then attention at scale 1."""
+    heads = cfg.num_attention_heads
+    cd = compute_dtype or x.dtype
+    sd = x.dtype
+    q = apply_linear(p["q_proj"], x, cd, out_dtype=sd) * (x.shape[-1] // heads) ** -0.5
+    k = apply_linear(p["k_proj"], x, cd, out_dtype=sd)
+    v = apply_linear(p["v_proj"], x, cd, out_dtype=sd)
+    rate = cfg.attention_dropout if train else 0.0
+    ctx = mha(q, k, v, heads, cd, rate, stream.seed() if rate > 0.0 else 0, scale=1.0)
+    return apply_linear(p["out_proj"], ctx, cd, out_dtype=sd)
+
+
+def feed_forward(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+    sd = x.dtype
+    y = apply_linear(p["intermediate_dense"], x, compute_dtype, out_dtype=sd)
+    y = ACT2FN[cfg.hidden_act](y)
+    y = dropout_site(stream, y, cfg.activation_dropout, train)
+    y = apply_linear(p["output_dense"], y, compute_dtype, out_dtype=sd)
+    return dropout_site(stream, y, cfg.hidden_dropout, train)
+
+
+def encoder_layer(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+    eps = cfg.layer_norm_eps
+    if cfg.do_stable_layer_norm:
+        y = _layer_norm_routed(p["layer_norm"], x, eps)
+        y = self_attention(p["attention"], y, cfg, compute_dtype, stream, train)
+        x = x + dropout_site(stream, y, cfg.hidden_dropout, train)
+        y = feed_forward(p["feed_forward"], _layer_norm_routed(p["final_layer_norm"], x, eps), cfg,
+                         compute_dtype, stream, train)
+        return x + y
+    y = self_attention(p["attention"], x, cfg, compute_dtype, stream, train)
+    x = _layer_norm_routed(p["layer_norm"], x + dropout_site(stream, y, cfg.hidden_dropout, train), eps)
+    y = feed_forward(p["feed_forward"], x, cfg, compute_dtype, stream, train)
+    return _layer_norm_routed(p["final_layer_norm"], x + y, eps)
+
+
+def apply_w2v_encoder(
+    params: dict,
+    x: torch.Tensor,
+    cfg: Wav2Vec2EncoderConfig,
+    train: bool = False,
+    compute_dtype=None,
+    stream: Optional[SeedStream] = None,
+) -> torch.Tensor:
+    """Full encoder. x: (B, T, H) -> (B, T, H).
+
+    Train mode needs `stream` (the forward's encoder stream): the input
+    dropout's seed, then the LayerDrop decisions, then every layer's sites
+    in order. A layer that LayerDrop skips is not computed, but it consumes
+    its sites' seeds, as the JAX forward computes it and where-masks it out."""
+    if train and stream is None:
+        raise ValueError("apply_w2v_encoder: train mode needs a seed stream (models/seeds.py)")
+    x = x + pos_conv_embed(params["pos_conv"], x, cfg)
+    if not cfg.do_stable_layer_norm:
+        x = _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps)
+    x = dropout_site(stream, x, cfg.hidden_dropout, train)
+    n_layers = len(params["layers"])
+    drop = stream.layerdrop_mask(n_layers, cfg.layerdrop) if train and cfg.layerdrop > 0.0 else [False] * n_layers
+    for p_layer, dropped in zip(params["layers"], drop):
+        if dropped:
+            stream.skip(sites_per_layer(cfg, W2V_LAYER_SITES))
+            continue
+        x = encoder_layer(p_layer, x, cfg, compute_dtype, stream, train)
+    if cfg.do_stable_layer_norm:
+        x = _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps)
+    return x
+
+
+def apply_lm_head(params: dict, hidden: torch.Tensor, cfg: Wav2Vec2EncoderConfig, compute_dtype=None,
+                  stream: Optional[SeedStream] = None, train: bool = False) -> torch.Tensor:
+    """ForCTC head: the final dropout, then the vocab projection (f32)."""
+    hidden = dropout_site(stream, hidden, cfg.final_dropout, train)
+    return apply_linear(params, hidden, compute_dtype)

@@ -19,6 +19,7 @@ probabilities.
 """
 
 import math
+from typing import Optional
 
 import torch
 
@@ -179,10 +180,13 @@ def mha_fused_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, co
     )
 
 
-def attention(q, k, v, num_heads: int, compute_dtype, dropout_rate: float = 0.0, seed: int = 0):
+def attention(q, k, v, num_heads: int, compute_dtype, dropout_rate: float = 0.0, seed: int = 0,
+              scale: Optional[float] = None):
     """Model-side entry (counterpart of mha_with_rng): the kernels when the
     policy routes "attention" to them, else the dense version. Pass
-    dropout_rate 0 in eval mode."""
-    scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    dropout_rate 0 in eval mode. scale defaults to head_dim ** -0.5 (the
+    wav2vec2 encoder pre-scales q and passes 1.0)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     fn = mha_fused_bth if kernel_enabled("attention") else mha_dense_bth
     return fn(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed)

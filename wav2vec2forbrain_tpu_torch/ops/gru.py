@@ -13,8 +13,15 @@ Backward (the Pallas `_bwd_kernel`): reverse-time BPTT from the saved ys,
     dW_hh = sum_t hprev_cd^T @ dgh_cd;  db_hh = sum_t sum_b dgh;  dh0 = dh_carry
 The kernels are in csrc/gru.cu. The forward takes any hidden size H that is
 a multiple of 32 and whose per-block state fits in shared memory (H <=
-3584), so it also covers the JAX package's per-direction variant for H =
-512 / 1024; the backward takes H <= 2400.
+3584); the backward takes H <= 2400.
+
+`gru_recurrence_dir` is the counterpart of the JAX package's per-direction
+variant (::gru_recurrence_dir, which it runs for H = 512 / 1024): the same
+kernels, counted under their own names ("gru_dir", "gru_dir_bwd"), with one
+difference in the numbers: its dW_hh product takes hprev and dgh in f32
+(the JAX einsum outside `_bwd_impl_dir`), where `gru_recurrence` rounds
+them to the compute dtype (the JAX `_mm` inside `_bwd_kernel`). At f32
+compute the two are the same function.
 """
 
 import torch
@@ -56,11 +63,13 @@ def gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
     return torch.stack(ys)
 
 
-def gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, g, compute_dtype=torch.float32):
+def gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, g, compute_dtype=torch.float32, per_direction=False):
     """Plain version of the backward kernel: (dgi (T, D, B, 3H), dW_hh (D,
     H, 3H), db_hh (D, 1, 3H), dh0 (D, B, H)), all f32, for the upstream
-    gradient g (T, D, B, H) of ys."""
+    gradient g (T, D, B, H) of ys. per_direction takes dW_hh's product in
+    f32 (gru_recurrence_dir), else in the compute dtype."""
     cd = compute_dtype
+    dw_cd = torch.float32 if per_direction else cd
     w = w_hh.to(cd)
     w_t = w.transpose(1, 2)
     bias = b_hh.reshape(b_hh.shape[0], 1, -1).float()
@@ -83,7 +92,7 @@ def gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, g, compute_dtype=torch.floa
         dgi[t] = torch.cat([dgr, dgz, dgn], dim=-1)
         dgh = torch.cat([dgr, dgz, dgn * r], dim=-1)
         dh = dh * z + _bmm_f32(dgh.to(cd), w_t)
-        dw = dw + _bmm_f32(hprev.to(cd).transpose(1, 2), dgh.to(cd))
+        dw = dw + _bmm_f32(hprev.to(dw_cd).transpose(1, 2), dgh.to(dw_cd))
         db = db + torch.sum(dgh, dim=1, keepdim=True)
     return dgi, dw, db, dh
 
@@ -105,7 +114,9 @@ def _check(gi, w_hh, b_hh, h0, compute_dtype):
     return t, nd, b, h
 
 
-def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype):
+def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, name="gru"):
+    """The forward kernel, counted under `name`: the entry that launched it
+    ("gru" or "gru_dir"; the numbers are the same)."""
     t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
     if 4 * _K_BATCH * h * 4 > _MAX_SMEM:
         raise ValueError(f"gru_recurrence: hidden size {h} > 3584 does not fit the kernel")
@@ -122,12 +133,12 @@ def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype):
             gi.data_ptr(), w.data_ptr(), int(compute_dtype == torch.bfloat16), bias.data_ptr(),
             h0.data_ptr(), ys.data_ptr(), t, nd, b, h, kernels.stream_of(gi),
         )
-    kernels.check("gru", code)
-    kernels.LAUNCHES["gru"] += 1
+    kernels.check(name, code)
+    kernels.LAUNCHES[name] += 1
     return ys
 
 
-def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
+def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
     t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
     if 6 * _K_BATCH * h * 4 > _MAX_SMEM:
         raise ValueError(f"gru_recurrence backward: hidden size {h} > 2400 does not fit the kernel")
@@ -149,35 +160,42 @@ def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
             gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), int(compute_dtype == torch.bfloat16),
             bias.data_ptr(), h0.data_ptr(), ys.data_ptr(), g.data_ptr(),
             dgi.data_ptr(), dgh.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-            t, nd, b, h, kernels.stream_of(gi),
+            t, nd, b, h, int(not per_direction), kernels.stream_of(gi),
         )
-    kernels.check("gru_bwd", code)
-    kernels.LAUNCHES["gru_bwd"] += 1
+    name = "gru_dir_bwd" if per_direction else "gru_bwd"
+    kernels.check(name, code)
+    kernels.LAUNCHES[name] += 1
     return dgi, dw, db, dh0
 
 
 class _GruRecurrence(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, gi, w_hh, b_hh, h0, compute_dtype):
+    def forward(ctx, gi, w_hh, b_hh, h0, compute_dtype, per_direction):
         if gi.is_cuda:
-            ys = _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype)
+            ys = _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, "gru_dir" if per_direction else "gru")
         else:
             ys = gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype)
         # the backward recomputes the gates from ys, as the JAX _vjp_fwd saves it
         ctx.save_for_backward(gi, w_hh, b_hh, h0, ys)
-        ctx.compute_dtype = compute_dtype
+        ctx.args = (compute_dtype, per_direction)
         return ys
 
     @staticmethod
     def backward(ctx, g):
         gi, w_hh, b_hh, h0, ys = ctx.saved_tensors
         fn = _bwd_kernel if gi.is_cuda else gru_recurrence_bwd_plain
-        dgi, dw, db, dh0 = fn(gi, w_hh, b_hh, h0, ys, g, ctx.compute_dtype)
-        return dgi, dw.to(w_hh.dtype), db.reshape(b_hh.shape).to(b_hh.dtype), dh0, None
+        dgi, dw, db, dh0 = fn(gi, w_hh, b_hh, h0, ys, g, *ctx.args)
+        return dgi, dw.to(w_hh.dtype), db.reshape(b_hh.shape).to(b_hh.dtype), dh0, None, None
 
 
 def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
     """Same contract as gru_recurrence_plain; differentiable in gi, w_hh,
     b_hh and h0. On CUDA tensors the kernels run (or raise); on CPU tensors
     their plain versions."""
-    return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype)
+    return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype, False)
+
+
+def gru_recurrence_dir(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
+    """gru_recurrence with the per-direction variant's f32 dW_hh product
+    (counterpart of the JAX gru_recurrence_dir; see the module docstring)."""
+    return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype, True)

@@ -37,6 +37,9 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "preproc": 0, "gru": 0, "attention": 0, "conv_glu": 0,
     "preproc_bwd": 0, "gru_bwd": 0, "attention_bwd": 0, "conv_glu_bwd": 0,
+    # the GRU recurrence through its per-direction entry (ops/gru.py::gru_recurrence_dir)
+    "gru_dir": 0, "gru_dir_bwd": 0,
+    "layernorm": 0, "layernorm_bwd": 0,
 }
 
 _vp = ctypes.c_void_p
@@ -51,8 +54,8 @@ _SIGNATURES = {
     "w2vb_preproc_bwd": [_vp] * 12 + [_i] * 8 + [_vp],
     # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, stream
     "w2vb_gru_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # gi, w_hh, w_t, w_bf16, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, stream
-    "w2vb_gru_bwd": [_vp, _vp, _vp, _i] + [_vp] * 9 + [_i] * 4 + [_vp],
+    # gi, w_hh, w_t, w_bf16, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, dw_cd, stream
+    "w2vb_gru_bwd": [_vp, _vp, _vp, _i] + [_vp] * 9 + [_i] * 5 + [_vp],
     # q, k, v, o, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
     "w2vb_attention_fwd": [_vp] * 4 + [_i] * 6 + [_f, _i, _f, _f, _vp],
     # q, k, v, g, dq, dk, dv, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob,
@@ -62,6 +65,10 @@ _SIGNATURES = {
     "w2vb_conv_glu_fwd": [_vp] * 3 + [_i] * 6 + [_vp],
     # y, w, dz, dy, dk, io_bf16, cd_bf16, B, T, C, ks, stream
     "w2vb_conv_glu_bwd": [_vp] * 5 + [_i] * 6 + [_vp],
+    # x, scale, bias, y, io_bf16, rows, C, eps, stream
+    "w2vb_layernorm_fwd": [_vp] * 4 + [_i] * 3 + [_f, _vp],
+    # x, scale, dy, dx, stats, dg, db, io_bf16, B, T, C, eps, stream
+    "w2vb_layernorm_bwd": [_vp] * 7 + [_i] * 4 + [_f, _vp],
 }
 
 _lib = None

@@ -6,16 +6,18 @@ Same kernel names and the same policy values as the JAX package:
   - comma list, e.g. "attention,gru": exactly these kernels
 
 None of the JAX package's `auto` verdicts carry over: they were measured on a
-TPU. No H100 A/B exists yet, so `auto` turns on every ported kernel
-(PORTED). A kernel that is not ported yet ("layernorm", "dropout") runs its
-plain PyTorch version whatever the policy says.
+TPU (the JAX `auto` keeps "layernorm" on XLA after a TPU A/B). The port's
+`auto` turns on every ported kernel (PORTED), and stays so until an H100
+A/B of the end-to-end metrics moves one off (PERF.md has the per-kernel
+times). "dropout" has no kernel: it runs its plain PyTorch version whatever
+the policy says.
 
 A routed kernel's wrapper runs the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises.
 """
 
 KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout")
-PORTED = ("preproc", "gru", "attention", "conv_glu")
+PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm")
 
 _policy = "auto"
 

@@ -1,19 +1,24 @@
-"""Device-time breakdown of the full-width conformer train step on one CUDA card.
+"""Device-time breakdown of a full-width train step on one CUDA card.
 
-    python -m wav2vec2forbrain_tpu_torch.profile_train [--policy auto|none|...]
+    python -m wav2vec2forbrain_tpu_torch.profile_train [--family conformer|w2v] [--policy auto|none|...]
 
-Builds `b2p2t_gru+w2v_conformer` at full width (conformer-rope-large: 24
-layers, d=1024, 16 heads, FFN 4096, k=31; biGRU 2 x 256; random weights
-from a fixed seed), bf16 compute with an f32 activation stream, dropout 0.1
-everywhere and LayerDrop 0.1, unfreeze_strategy "brain_encoder+w2v", Adam
-at weight decay 0, augmentation at the sweeps' whiteNoiseSD 0.02 /
-constantOffsetSD 0.25. Warms up with one step, runs STEPS steps of
-32 x 384 frames through train_batches without the profiler and then
-STEPS more under torch.profiler. Prints the card's name and power limit,
-the ops with the most device time, the device-busy share of the profiled
-wall window (summed kernel time / wall time; one stream, so kernels do not
-overlap) and of the unprofiled one, and wall ms per step of both. Needs a
-CUDA card; it has no CPU path.
+--family conformer (default): `b2p2t_gru+w2v_conformer` at full width
+(conformer-rope-large: 24 layers, d=1024, 16 heads, FFN 4096, k=31; biGRU
+2 x 256), dropout 0.1 everywhere and LayerDrop 0.1, Adam at weight decay 0,
+batches of 32. --family w2v: `b2p2t_gru+w2v` at the fft sweep point
+(sweeps/b2p2t_gru+w2v_full_fine_tuning.yaml: wav2vec2-base-960h encoder,
+12 post-LN layers, d=768, 12 heads, FFN 3072, dropouts and LayerDrop 0.1;
+biGRU 3 x 1024 with dropout 0.45, no FC hidden layer, latent 768,
+gaussian_smooth_width 1.5), Adam at weight decay 1e-4, batches of 64. Both:
+random weights from a fixed seed, bf16 compute with an f32 activation
+stream, unfreeze_strategy "brain_encoder+w2v" at LRs 1e-4 / 1e-5,
+augmentation at the sweeps' whiteNoiseSD 0.02 / constantOffsetSD 0.25, 384
+frames. Warms up with one step, runs STEPS steps through train_batches
+without the profiler and then STEPS more under torch.profiler. Prints the
+card's name and power limit, the ops with the most device time, the
+device-busy share of the profiled wall window (summed kernel time / wall
+time; one stream, so kernels do not overlap) and of the unprofiled one, and
+wall ms per step of both. Needs a CUDA card; it has no CPU path.
 """
 
 import argparse
@@ -26,6 +31,7 @@ import torch
 from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.models.wav2vec2 import Wav2Vec2EncoderConfig
 from wav2vec2forbrain_tpu_torch.ops import select
 from wav2vec2forbrain_tpu_torch.profile_predict import _device_us, _on_device
 from wav2vec2forbrain_tpu_torch.train.optim import make_optimizer
@@ -37,6 +43,15 @@ STEPS = 2
 STEP_CFG = StepConfig(gradient_clipping=None, white_noise_sd=0.02, constant_offset_sd=0.25)
 
 
+# family -> (ModelSpec fields, Adam weight decay, batch size)
+FAMILIES = {
+    "conformer": (dict(gru_dropout=0.1), 0.0, 32),
+    "w2v": (dict(encoder_family="wav2vec2", w2v_cfg=Wav2Vec2EncoderConfig.base_960h(), latent_size=768,
+                 gru_hidden_size=1024, gru_num_layers=3, gru_dropout=0.45, fc_hidden_sizes=(),
+                 gaussian_smooth_width=1.5), 1e-4, 64),
+}
+
+
 class Trainer(NamedTuple):
     spec: ModelSpec
     params: dict
@@ -45,19 +60,22 @@ class Trainer(NamedTuple):
     optimizer: Any
     opt_state: Any
     train_step: Any
+    batch_size: int
 
 
-def build_trainer(device, seed: int = 0) -> Trainer:
-    """The full-width training setup above, on `device`."""
-    spec = ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32, gru_dropout=0.1)
+def build_trainer(device, seed: int = 0, family: str = "conformer") -> Trainer:
+    """The full-width training setup of `family` above, on `device`."""
+    fields, weight_decay, batch_size = FAMILIES[family]
+    spec = ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32, **fields)
     params, state = init_model_params(torch.Generator(device=device).manual_seed(seed), spec, device)
     labels = param_labels(params, "brain_encoder+w2v")
-    optimizer = make_optimizer(labels, "adam", 0.0)
+    optimizer = make_optimizer(labels, "adam", weight_decay)
     return Trainer(spec, params, state, labels, optimizer, optimizer.init(params),
-                   build_train_step(spec, labels, optimizer, STEP_CFG))
+                   build_train_step(spec, labels, optimizer, STEP_CFG), batch_size)
 
 
-_PORT_KERNELS = ("attention_", "gru_", "conv_glu_", "smooth_affine", "unfold_kernel", "bwd_dz_dy", "bwd_dw", "bwd_dx")
+_PORT_KERNELS = ("attention_", "gru_", "conv_glu_", "smooth_affine", "unfold_kernel", "bwd_dz_dy", "bwd_dw", "bwd_dx",
+                 "layernorm_")
 
 
 def _category(name: str) -> str:
@@ -75,6 +93,7 @@ def _category(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", default="conformer", choices=sorted(FAMILIES), help="model family (see above)")
     ap.add_argument("--policy", default="auto", help="kernel policy (ops/select.py)")
     args = ap.parse_args(argv)
     top = 30
@@ -87,9 +106,9 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
-    tr = build_trainer(dev)
+    tr = build_trainer(dev, family=args.family)
     rng = StepRng(0, dev)
-    batches = make_requests(STEPS + 1, 32, 384, seed=0)
+    batches = make_requests(STEPS + 1, tr.batch_size, 384, seed=0)
     run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
     torch.cuda.synchronize()
     # the same steps without the profiler, for the wall time the idle share is taken against
@@ -109,7 +128,7 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages() if _on_device(e) and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     total_us = sum(_device_us(e) for e in events)
-    print(f"policy {args.policy}: {STEPS} train steps in {wall * 1e3:.2f} ms wall "
+    print(f"family {args.family}, policy {args.policy}, batch {tr.batch_size}: {STEPS} train steps in {wall * 1e3:.2f} ms wall "
           f"({wall * 1e3 / STEPS:.2f} ms/step), device busy {total_us / 1e3:.2f} ms "
           f"= {100 * total_us / 1e6 / wall:.1f}% of wall; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
