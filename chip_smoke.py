@@ -13,10 +13,13 @@ Phases, each of which exits nonzero on failure:
      and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
      B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 for the
      conformer and, through its per-direction entry, at H=512 and 1024 with
-     B=64 for the sweep; attention at B=32, 16 heads, scale 1/8 (conformer)
-     and B=64, 12 heads, q pre-scaled by 1/8 and scale 1 (wav2vec2-base),
-     with dropout 0 and 0.1 against the dense version with the same seed;
-     the LayerNorm at both encoders' shapes with an f32 and a bf16 stream.
+     B=64 for the sweep and at a ragged H=600 (the per-direction backward
+     also timed without its f32 dW product); attention at T'=89, B=32, 16
+     heads, scale 1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8
+     and scale 1 (wav2vec2-base), with dropout 0 and 0.1 against the dense
+     version with the same seed, and at T'=169 (about 700 frames, past the
+     old backward kernel's T'=117 limit); the LayerNorm at both encoders'
+     shapes with an f32 and a bf16 stream.
      Each row: max-abs error beside its tolerance, the median time of
      kernel vs plain (CUDA events, after warm-up, L2 warm), the bound (the
      larger of the bytes over 3.35 TB/s and the operations over the peak
@@ -31,14 +34,17 @@ Phases, each of which exits nonzero on failure:
      forward kernel of the path, loss / WER / CER, samples/s, then the same
      under `none`; then one batch at f32 through `auto` and `none`.
   4. conformer training: train_batches takes 4 full-width train steps (bf16
-     compute, f32 activations, dropout 0.1 everywhere, LayerDrop 0.1, both
-     LR groups, Adam) with the `auto` policy: launch counts of every kernel
-     of the path, steps/s and samples/s, finite losses and params, every
-     trainable leaf of a layer that ran moved, the BN running stats of every
-     layer that ran updated; then one step at f32 compute under `auto` and
+     compute, f32 activations, dropout 0.1 everywhere, both LR groups, Adam)
+     with the `auto` policy, its LayerDrop replayed so that encoder layer
+     DROPPED_LAYER is dropped in every step (warm-up included) and every
+     other layer runs: launch counts of every kernel of the path, steps/s
+     and samples/s, finite losses and params, every trainable leaf of a
+     layer that ran moved and those of the dropped layer moved only by
+     weight decay, the BN running stats updated exactly in the layers that
+     ran; then one step at f32 compute under `auto` and
      under `none` from the same params, optimizer state and seed streams
-     (dropout on): loss, global gradient norm and the updated params
-     against their bounds.
+     (dropout on, the same layer dropped): loss, global gradient norm and
+     the updated params against their bounds.
   5. wav2vec2-base serving: phase 3 for `b2p2t_gru+w2v` at the fft sweep
      point (wav2vec2-base-960h: 12 post-LN layers, d=768, 12 heads, FFN
      3072; biGRU 3 x 1024, latent 768), 4 requests of 64 x 384.
@@ -67,6 +73,7 @@ TOL_F32 = {"preproc": 1e-5, "gru": 2e-5, "attention": 2e-5, "conv_glu": 1e-5, "l
            "preproc_bwd": 1e-5, "gru_bwd": 2e-5, "attention_bwd": 2e-5, "conv_glu_bwd": 1e-5,
            "layernorm_bwd": 2e-5}
 TOL_F32.update(gru_dir=TOL_F32["gru"], gru_dir_bwd=TOL_F32["gru_bwd"])
+DROPPED_LAYER = 1  # phases 4 and 6: the encoder layer LayerDrop drops in every train step
 # bf16 compute or a bf16 stream: both sides round the same values to bf16,
 # but f32 sums taken in another order can flip a bf16 rounding; allow two
 # bf16 ulps of the largest output magnitude. The attention mask is
@@ -295,26 +302,31 @@ def kernel_phases(dev, results):
                 lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
                 results, (x, w, b, days, taps, gp), [(2 * affine + 2 * smooth, "float32")])
 
-    def attention_rows(gen, batch, heads, scale, q_scale):
-        """attention at T=89, heads of 64, eval (rate 0) and train (rate 0.1,
+    def attention_rows(gen, batch, heads, scale, q_scale, t=89, only=None):
+        """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,
         seed 77); q is multiplied by q_scale in the stream dtype first (the
-        wav2vec2 encoder's pre-scaling). The library call:
-        F.scaled_dot_product_attention at rate 0 (forward, and its backward)."""
+        wav2vec2 encoder's pre-scaling); only: one (stream, compute dtype,
+        rate) to run. The library call: F.scaled_dot_product_attention at
+        rate 0 (forward, and its backward)."""
         width = 64 * heads
         for sd in (f32, bf16):
-            q, k, v, ga = (torch.randn((batch, 89, width), generator=gen, device=dev).to(sd) for _ in range(4))
+            if only is not None and sd != only[0]:
+                continue
+            q, k, v, ga = (torch.randn((batch, t, width), generator=gen, device=dev).to(sd) for _ in range(4))
             q = q * q_scale
-            hs = [t.view(batch, 89, heads, 64).transpose(1, 2) for t in (q, k, v, ga)]
+            hs = [x.view(batch, t, heads, 64).transpose(1, 2) for x in (q, k, v, ga)]
             leaves = [t.detach().requires_grad_(True) for t in hs[:3]]
             sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
             sdpa_fwd = lambda: F.scaled_dot_product_attention(*hs[:3], scale=scale)  # noqa: E731
             sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, hs[3], retain_graph=True)  # noqa: E731
-            qkt = 2 * batch * heads * 89 * 89 * 64  # one (T, D) x (D, T) product per (batch, head)
+            qkt = 2 * batch * heads * t * t * 64  # one (T, D) x (D, T) product per (batch, head)
             for cd in (f32, bf16):
                 if sd == bf16 and cd == f32:
                     continue
                 for rate in (0.0, 0.1):
-                    label = f"B{batch} T89 {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
+                    if only is not None and (cd, rate) != only[1:]:
+                        continue
+                    label = f"B{batch} T{t} {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
                     compare("attention", label,
                             lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77),
                             lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77),
@@ -333,7 +345,8 @@ def kernel_phases(dev, results):
     # 2. GRU recurrence, T=89: H=256, B=32 (conformer; layer-0 and layer-1
     # gi) through gru_recurrence; H=512 and 1024, B=64 (wav2vec2-base sweep)
     # through the per-direction entry, whose dW_hh product is f32
-    for h, batch, layers, per_dir in ((256, 32, (0, 1), False), (512, 64, (0,), True), (1024, 64, (0,), True)):
+    for h, batch, layers, per_dir in ((256, 32, (0, 1), False), (512, 64, (0,), True), (1024, 64, (0,), True),
+                                      (600, 64, (0,), True)):
         name = "gru_dir" if per_dir else "gru"
         params = init_gru_params(g, 8192, h, 2, True, True, False, dev)
         x0 = torch.rand((batch, 89, 8192), generator=g, device=dev) * 2 - 1
@@ -360,6 +373,10 @@ def kernel_phases(dev, results):
                         f32_rel_tol(f"{name}_bwd") if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0, ys, gy),
                         [(2 * step, cd_name(cd)), (step, "float32" if per_dir else cd_name(cd))], lib_bwd)
+                if per_dir:  # the step launches alone, without the f32 dW / db product that follows them
+                    rec_ms = timed_ms(lambda: gru._dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, gy, cd))
+                    print(f"  {'':13s} {label:42s} recurrence alone {rec_ms:.4f} ms "
+                          f"(the entry: {results[-1]['ms']:.4f} ms)")
                 del gi, ys, gy, lib_fwd, lib_bwd
         del params, x0, x1
 
@@ -425,6 +442,9 @@ def kernel_phases(dev, results):
     g_w2v = torch.Generator(device=dev).manual_seed(SEED + 1)
     preproc_rows(g_w2v, 64, 1.5)
     attention_rows(g_w2v, 64, 12, 1.0, 0.125)
+    # 7. attention at T'=169 (B=32, 16 heads: the conformer's shape at ~700 frames), the training setting
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169,
+                   only=(f32, bf16, 0.1))
 
 
 def _spec_and_batch(family):
@@ -539,6 +559,27 @@ def _layer_of(path):
     return None
 
 
+def _layerdrop_rng(seed, dev, n_layers, steps):
+    """A StepRng of `steps` steps whose encoder streams replay a LayerDrop
+    mask (models/seeds.py) that drops layer DROPPED_LAYER and keeps every
+    other layer; their dropout seeds come from numpy, the GRU and head
+    streams from CPU generators, all from `seed`."""
+    import numpy as np
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models.seeds import INT32_MAX, ForwardRng, SeedStream, StepRng
+
+    rs = np.random.default_rng(seed)
+    mask = [i == DROPPED_LAYER for i in range(n_layers)]
+
+    def stream():
+        return SeedStream(torch.Generator().manual_seed(int(rs.integers(2**62))))
+
+    replay = [ForwardRng(stream(), SeedStream(seeds=rs.integers(0, INT32_MAX, 4096).tolist(), layerdrop=[mask]),
+                         stream()) for _ in range(steps)]
+    return StepRng(seed, dev, replay=replay)
+
+
 def train_phase(dev, device_name, power, family):
     """Phases 4 and 6; returns (launches, steps/s, samples/s) of the timed run."""
     import dataclasses
@@ -548,7 +589,6 @@ def train_phase(dev, device_name, power, family):
 
     from wav2vec2forbrain_tpu_torch.data.batch import to_device
     from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
-    from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
     from wav2vec2forbrain_tpu_torch.ops import kernels, select
     from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, STEP_CFG, W2V_LR, build_trainer
     from wav2vec2forbrain_tpu_torch.train.optim import AdamState
@@ -566,7 +606,9 @@ def train_phase(dev, device_name, power, family):
           f"init {time.perf_counter() - t:.2f} s")
     bsz = tr.batch_size
     batches = make_requests(N_TRAIN_STEPS + 1, bsz, 384, SEED + 1)
-    rng = StepRng(SEED, dev)
+    enc_cfg = tr.spec.w2v_cfg if tr.spec.encoder_family == "wav2vec2" else tr.spec.conformer_cfg
+    n_layers = enc_cfg.num_hidden_layers
+    rng = _layerdrop_rng(SEED, dev, n_layers, len(batches))
     # warm-up step: cuBLAS handles, the kernels' first launches, Adam state
     run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
     torch.cuda.synchronize()
@@ -595,7 +637,10 @@ def train_phase(dev, device_name, power, family):
     # which layers ran in some step (LayerDrop decisions of every step, warm-up included)
     masks = [f.enc.layerdrop_drawn[0] for f in rng.forwards]
     ran = [not all(m[i] for m in masks) for i in range(len(masks[0]))]
-    print(f"  LayerDrop: layers dropped per step {[[i for i, d in enumerate(m) if d] for m in masks]}")
+    print(f"  LayerDrop (replayed): layers dropped per step {[[i for i, d in enumerate(m) if d] for m in masks]}")
+    if len(masks) != len(batches) or ran[DROPPED_LAYER] or not all(ran[:DROPPED_LAYER] + ran[DROPPED_LAYER + 1:]):
+        fail(f"{family}: the LayerDrop replay did not drop exactly layer {DROPPED_LAYER} in all "
+             f"{len(batches)} steps: {masks}")
     label_of = dict(leaves(tr.labels))
     wrong = []
     for path, p in leaves(tr.params):
@@ -636,7 +681,9 @@ def train_phase(dev, device_name, power, family):
         state = _clone(run.model_state)
         opt_state = AdamState(run.opt_state.count, _clone(run.opt_state.mu), _clone(run.opt_state.nu))
         grad_fn = build_grad_fn(spec32, tr.labels, STEP_CFG)
-        out, grads, norm = grad_fn(params, state, batch, StepRng(SEED + 7, dev))
+        # the same replay: layer DROPPED_LAYER, whose Adam moments are still 0, stays dropped (a first
+        # Adam step moves each weight by ~lr * sign(g), which an order-level gradient difference flips)
+        out, grads, norm = grad_fn(params, state, batch, _layerdrop_rng(SEED + 7, dev, n_layers, 1))
         if not all(bool(torch.isfinite(gr).all()) for gr in tree_leaves(grads)):
             fail(f"{family}: non-finite gradient at f32 under {policy}")
         tr.optimizer.step(params, grads, opt_state, BRAIN_LR, W2V_LR)

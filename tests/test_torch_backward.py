@@ -192,6 +192,38 @@ def test_cuda_attention_kernels_match_plain(sd, cd, rate):
         torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("t", [118, 393, 1000])
+def test_attention_bwd_wrapper_has_no_sequence_limit(t):
+    """The backward kernels stream tiles: at any T the wrapper gets past its
+    shape checks and refuses only operands that are not on a card (the
+    forward's own limit, T <= 393 at D = 64, stays)."""
+    q = torch.zeros((1, t, 128))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_attn._bwd_kernel(q, q, q, q, 2, 0.125, 0.1, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        port_attn._bwd_kernel(*[torch.zeros((1, t, 256))] * 4, 1, 0.125, 0.1, torch.bfloat16, 0)
+    if t > 393:
+        with pytest.raises(ValueError, match="shared memory"):
+            port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.float32, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b", [(169, 4), (393, 2)], ids=["T169", "T393"])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+def test_cuda_attention_bwd_long_sequences_match_plain(t, b, cd, rate):
+    """Past T' = 117, where the backward kernel of (T, T) tiles stopped, up
+    to the forward's limit; 16 heads of 64, an f32 stream."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v, g = (torch.randn((b, t, 1024), generator=gen, device=dev) for _ in range(4))
+    got = port_attn._bwd_kernel(q, k, v, g, 16, 0.125, rate, cd, 7)
+    want = port_attn.mha_bwd_plain(q, k, v, g, 16, 0.125, rate, cd, 7)
+    for a, r in zip(got, want):
+        atol = 2e-5 * max(1.0, r.abs().max().item()) if cd == torch.float32 else _bf16_tol(r)
+        torch.testing.assert_close(a, r, atol=atol, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                                    (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])

@@ -2,9 +2,11 @@
 entries against the JAX package's ops/pallas_gru.py::gru_recurrence_dir
 (the per-direction Pallas kernels `_fwd_impl_dir` / `_bwd_impl_dir` in
 interpret mode on the CPU, dW_hh by the einsum outside), forward and
-jax.vjp, at H = 128 (the smallest width the JAX kernel takes); the model's
-routing of wide GRUs to gru_recurrence_dir; and the CUDA kernels against
-their plain versions at H = 512 and 1024, B = 64, T = 89 on a card.
+jax.vjp, at H = 128 (the smallest width the JAX kernel takes); the port's
+f32 dW_hh / db_hh product against that einsum on the same dgh and hprev;
+the model's routing of each width to the entry whose kernels take it; the
+wrappers' refusals; and the CUDA kernels against their plain versions at
+H = 512, 1024 and a ragged 600, B = 64, T = 89 on a card.
 
 Tolerances: f32 2e-5 (GRU states in (-1, 1); sums in another order carried
 through the steps; the gradients scaled by max(1, |ref|)). bf16 compute:
@@ -92,10 +94,32 @@ def test_dir_dw_takes_its_product_in_f32():
     torch.testing.assert_close(per_dir[1], fused[1], atol=BF16_ULPS * fused[1].abs().max().item(), rtol=0)
 
 
-@pytest.mark.parametrize("hidden,expect", [(128, "gru_recurrence"), (512, "gru_recurrence_dir")])
+def test_dir_dw_db_matches_jax_vjp_bwd_dir_einsum(monkeypatch):
+    """gru_dir_dw_db against the dW_hh / db_hh that the JAX _vjp_bwd_dir
+    forms outside its kernel, fed the same dgi, r (so the same dgh) and ys."""
+    import jax.numpy as jnp
+
+    from wav2vec2forbrain_tpu.ops import pallas_gru
+
+    gi, w, b, h0, ys = _inputs(4)
+    rng = np.random.default_rng(5)
+    dgi = rng.standard_normal(gi.shape).astype(np.float32)
+    r = rng.uniform(0.0, 1.0, ys.shape).astype(np.float32)
+    monkeypatch.setattr(pallas_gru, "_bwd_partitioned_dir", lambda cd: lambda *a: (dgi, r, h0))
+    _, dw_ref, db_ref, _ = pallas_gru._vjp_bwd_dir(
+        jnp.float32, tuple(jnp.asarray(a) for a in (gi, w, b, h0, ys)), jnp.asarray(ys))
+    dgh = np.concatenate([dgi[..., : 2 * H], dgi[..., 2 * H:] * r], axis=-1)
+    dw, db = port_gru.gru_dir_dw_db(torch.from_numpy(h0), torch.from_numpy(ys), torch.from_numpy(dgh))
+    for name, a, ref in (("dw_hh", dw.numpy(), np.asarray(dw_ref)), ("db_hh", db.numpy(), np.asarray(db_ref))):
+        assert a.shape == ref.shape, name
+        np.testing.assert_allclose(a, ref, atol=_tol(ref, 2e-5, "float32"), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("hidden,expect", [(128, "gru_recurrence"), (512, "gru_recurrence_dir"),
+                                           (100, "gru_recurrence_plain"), (1000, "gru_recurrence_dir")])
 def test_bigru_layer_routes_wide_layers_per_direction(monkeypatch, hidden, expect):
     seen = []
-    for name in ("gru_recurrence", "gru_recurrence_dir"):
+    for name in ("gru_recurrence", "gru_recurrence_dir", "gru_recurrence_plain"):
         fn = getattr(port_model_gru, name)
         monkeypatch.setattr(port_model_gru, name, lambda *a, _n=name, _f=fn: seen.append(_n) or _f(*a))
     params = port_model_gru.init_gru_params(torch.Generator().manual_seed(0), 8, hidden, 1)
@@ -104,8 +128,40 @@ def test_bigru_layer_routes_wide_layers_per_direction(monkeypatch, hidden, expec
     assert out.shape == (1, 2, 2 * hidden) and seen == [expect]
 
 
+@pytest.mark.parametrize("hidden,use_kernel,expect", [
+    (64, True, "gru_recurrence"), (480, True, "gru_recurrence"), (500, True, "gru_recurrence_plain"),
+    (600, True, "gru_recurrence_dir"), (3584, True, "gru_recurrence_dir"), (3600, True, "gru_recurrence_plain"),
+    (1024, False, "gru_recurrence_plain")])
+def test_recurrence_for_takes_kernels_only_where_they_go(hidden, use_kernel, expect):
+    assert port_model_gru.recurrence_for(hidden, use_kernel) is getattr(port_gru, expect)
+
+
+def _meta(t, b, h):
+    """Operands of the given shape that take no memory (the checks read shapes only)."""
+    return [torch.empty(s, device="meta") for s in ((t, 2, b, 3 * h), (2, h, 3 * h), (2, 1, 3 * h), (2, b, h))]
+
+
+@pytest.mark.parametrize("call,h,match", [
+    (lambda a: port_gru._fwd_kernel(*a, torch.float32, "gru"), 100, "multiple of 32"),
+    (lambda a: port_gru._fwd_kernel(*a, torch.float32, "gru_dir"), 3600, "does not fit"),
+    (lambda a: port_gru._bwd_kernel(*a, a[3][None], a[3][None], torch.float32), 2432, "does not fit"),
+    (lambda a: port_gru._fwd_kernel(*a, torch.float16, "gru_dir"), 512, "not supported"),
+], ids=["fused_h100", "dir_fwd_h3600", "fused_bwd_h2432", "fp16"])
+def test_wrappers_refuse_shapes_their_kernels_do_not_take(call, h, match):
+    with pytest.raises(ValueError, match=match):
+        call(_meta(2, 1, h))
+
+
+def test_dir_bwd_takes_any_hidden_size_but_only_cuda_tensors():
+    """The per-direction backward has no hidden-size rule: at H = 100 it
+    gets past every shape check and refuses only CPU operands."""
+    gi, w, b, h0, g = (torch.from_numpy(a) for a in _inputs(6, h=100, t=3, b=2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_gru._bwd_kernel(gi, w, b, h0, g, g, torch.bfloat16, per_direction=True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [512, 1024])
+@pytest.mark.parametrize("hidden", [512, 1024, 600])
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_dir_kernels_match_plain(hidden, cd):
     if not torch.cuda.is_available():
@@ -124,3 +180,49 @@ def test_cuda_dir_kernels_match_plain(hidden, cd):
         torch.testing.assert_close(a.reshape(r.shape), r, atol=tol, rtol=0)
     assert kernels.LAUNCHES["gru_dir"] == before["gru_dir"] + 1
     assert kernels.LAUNCHES["gru_dir_bwd"] == before["gru_dir_bwd"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_dir_bwd_refuses_tf32_matmuls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gi, w, b, h0, g = (torch.from_numpy(a).cuda() for a in _inputs(7, 128, 4, 2))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            port_gru._bwd_kernel(gi, w, b, h0, g, g, torch.float32, per_direction=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_cuda_w2v_train_step_at_a_width_no_kernel_takes_runs_plain():
+    """A tiny wav2vec2 model with a biGRU of H = 100 (valid, not a multiple
+    of 32) takes a train step on the card under `auto` without raising:
+    its recurrence runs the plain loop, the encoder's kernels still run."""
+    from wav2vec2forbrain_tpu_torch.data.batch import to_device
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
+    from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
+    from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+    from wav2vec2forbrain_tpu_torch.models.wav2vec2 import Wav2Vec2EncoderConfig
+    from wav2vec2forbrain_tpu_torch.ops import select
+    from wav2vec2forbrain_tpu_torch.train.optim import make_optimizer
+    from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_train_step
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    spec = ModelSpec(encoder_family="wav2vec2", w2v_cfg=Wav2Vec2EncoderConfig.tiny_test(), latent_size=96,
+                     gru_hidden_size=100, gru_dropout=0.1, compute_dtype=torch.bfloat16)
+    select.set_kernel_policy("auto")
+    params, state = init_model_params(torch.Generator(device=dev).manual_seed(0), spec, dev)
+    labels = param_labels(params, "brain_encoder+w2v")
+    opt = make_optimizer(labels, "adam", 1e-4)
+    step = build_train_step(spec, labels, opt, StepConfig(None, 0.02, 0.25))
+    kernels.reset_launches()
+    res = step(params, opt.init(params), state, to_device(make_requests(1, 4, 160, 0)[0], dev), StepRng(3, dev),
+               1e-3, 1e-4)
+    assert np.isfinite(float(res.loss))
+    assert not any(kernels.LAUNCHES[k] for k in ("gru", "gru_bwd", "gru_dir", "gru_dir_bwd")), kernels.LAUNCHES
+    assert kernels.LAUNCHES["attention_bwd"] > 0 and kernels.LAUNCHES["layernorm_bwd"] > 0, kernels.LAUNCHES

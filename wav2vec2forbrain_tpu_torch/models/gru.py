@@ -7,16 +7,19 @@ outside the recurrence. The backward direction consumes the time-flipped
 PADDED sequence with no length awareness, as the reference (unpacked torch
 GRU) and the JAX package do.
 
-A bidirectional layer's recurrence runs through ops/gru.py (the CUDA kernel
-on CUDA tensors) when the kernel policy routes "gru" there, else through its
-plain version. From H = 512 up it takes the per-direction entry
+A bidirectional layer's recurrence runs through ops/gru.py (the CUDA kernels
+on CUDA tensors) when the kernel policy routes "gru" there and the kernels
+take the shape, else through its plain version (`recurrence_for`, an
+explicit shape rule as in the JAX package's models/gru.py): from H = 512
+up to the forward kernel's limit, the per-direction entry
 (gru_recurrence_dir), whose bf16 dW_hh product is f32 as in the JAX
 package's per-direction kernels, which that package runs at the sweep
 widths 512 and 1024 (its TPU memory budget at the sweeps' batch picks them;
-that budget does not apply here and is not copied). The unidirectional
-path stays plain. In train mode the inter-layer dropout (not after the
-last layer, as torch nn.GRU) is hash dropout seeded from the forward's GRU
-SeedStream (models/seeds.py).
+that budget does not apply here and is not copied); below 512, the fused
+entry for H a multiple of 32 (the fused kernels' gate alignment); any other
+H, the plain loop. The unidirectional path stays plain. In train mode the
+inter-layer dropout (not after the last layer, as torch nn.GRU) is hash
+dropout seeded from the forward's GRU SeedStream (models/seeds.py).
 Gradients reach a learnable h0 through its broadcast to the batch.
 """
 
@@ -26,7 +29,9 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.models.fc import matmul_f32, uniform
 from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
-from wav2vec2forbrain_tpu_torch.ops.gru import gru_recurrence, gru_recurrence_dir, gru_recurrence_plain
+from wav2vec2forbrain_tpu_torch.ops.gru import (
+    DIR_MAX_HIDDEN, gru_recurrence, gru_recurrence_dir, gru_recurrence_plain,
+)
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 PER_DIRECTION_MIN_HIDDEN = 512  # the sweep widths the JAX package runs per direction
@@ -100,17 +105,24 @@ def bigru_inputs(dirs: list, x: torch.Tensor, compute_dtype):
     return gi, w_hh, b_hh
 
 
+def recurrence_for(hidden_size: int, use_kernel: bool):
+    """The recurrence entry of a bidirectional layer of width hidden_size:
+    a kernel entry only where its kernels take that H (module docstring)."""
+    if not use_kernel:
+        return gru_recurrence_plain
+    if PER_DIRECTION_MIN_HIDDEN <= hidden_size <= DIR_MAX_HIDDEN:
+        return gru_recurrence_dir
+    if hidden_size < PER_DIRECTION_MIN_HIDDEN and hidden_size % 32 == 0:
+        return gru_recurrence
+    return gru_recurrence_plain
+
+
 def bigru_layer(dirs: list, x: torch.Tensor, h0: torch.Tensor, compute_dtype=None, use_kernel=False):
     """Both directions of one layer. x: (B, T, in); h0: (2, B, H) f32 ->
     (B, T, 2H) f32 (counterpart of _bigru_layer_fused / bigru_layer_pallas)."""
     cd = compute_dtype or x.dtype
     gi, w_hh, b_hh = bigru_inputs(dirs, x, cd)
-    if not use_kernel:
-        rec = gru_recurrence_plain
-    elif w_hh.shape[1] >= PER_DIRECTION_MIN_HIDDEN:
-        rec = gru_recurrence_dir
-    else:
-        rec = gru_recurrence
+    rec = recurrence_for(w_hh.shape[1], use_kernel)
     ys = rec(gi, w_hh, b_hh, h0.contiguous(), cd)  # (T, 2, B, H)
     fwd = ys[:, 0].transpose(0, 1)
     bwd = torch.flip(ys[:, 1].transpose(0, 1), dims=(1,))

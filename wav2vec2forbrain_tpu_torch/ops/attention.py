@@ -16,6 +16,9 @@ There is no key-padding mask: like the JAX path, queries attend over pad
 frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
 the kernel, the plain versions and the JAX package all drop the same
 probabilities.
+
+The forward kernel holds a head's K and V in shared memory, so it takes T
+up to 393 at D = 64; the backward kernels stream tiles and take any T.
 """
 
 import math
@@ -29,6 +32,7 @@ from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 _MAX_SMEM = 227 * 1024
 _WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the forward kernel
+_BWD_MAX_HEAD_DIM = 128  # the backward kernels' columns per lane (4) x 32; any T
 
 
 def _heads(x, num_heads, cd):
@@ -133,17 +137,17 @@ def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed)
     _check("mha_fused_bth backward", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
-    smem = (4 * t * (d + 1) + 2 * t * (t + 1)) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"mha_fused_bth backward: T={t}, D={d} needs {smem} B of shared memory (> 227 KB)")
+    if d > _BWD_MAX_HEAD_DIM:
+        raise ValueError(f"mha_fused_bth backward: head dim {d} > {_BWD_MAX_HEAD_DIM}")
     g = g.to(q.dtype).contiguous()
     kernels.require_cuda("mha_fused_bth backward", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((3, b, num_heads, t), dtype=torch.float32, device=q.device)  # softmax max, sum, D_i
     lib = kernels.lib()
     with torch.cuda.device(q.device):
         code = lib.w2vb_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
             b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
             kernels.stream_of(q),

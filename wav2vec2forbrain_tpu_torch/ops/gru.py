@@ -1,7 +1,6 @@
 """Bidirectional GRU recurrence: the CUDA kernels' wrapper and the plain
 versions (counterpart of wav2vec2forbrain_tpu/ops/pallas_gru.py::
-gru_recurrence and its custom VJP; for the forward also of
-::gru_recurrence_dir).
+gru_recurrence and ::gru_recurrence_dir, with their custom VJPs).
 
 Per step, for each direction stacked on dim 1:
     gh = h_cd @ W_hh_cd + b_hh   (f32 accumulation; _cd = compute dtype)
@@ -11,17 +10,21 @@ Backward (the Pallas `_bwd_kernel`): reverse-time BPTT from the saved ys,
     dh = dh_carry + g[t];  dgr, dgz, dgn (-> dgi[t]) and dgh = [dgr, dgz, dgn * r]
     dh_carry = dh * z + dgh_cd @ W_hh_cd^T
     dW_hh = sum_t hprev_cd^T @ dgh_cd;  db_hh = sum_t sum_b dgh;  dh0 = dh_carry
-The kernels are in csrc/gru.cu. The forward takes any hidden size H that is
-a multiple of 32 and whose per-block state fits in shared memory (H <=
-3584); the backward takes H <= 2400.
+The kernels are in csrc/gru.cu. `gru_recurrence` (the fused entry) takes a
+hidden size H that is a multiple of 32, as the JAX package's fused kernel
+needs lane-aligned gates; its backward takes H <= 2400.
 
 `gru_recurrence_dir` is the counterpart of the JAX package's per-direction
-variant (::gru_recurrence_dir, which it runs for H = 512 / 1024): the same
-kernels, counted under their own names ("gru_dir", "gru_dir_bwd"), with one
-difference in the numbers: its dW_hh product takes hprev and dgh in f32
-(the JAX einsum outside `_bwd_impl_dir`), where `gru_recurrence` rounds
-them to the compute dtype (the JAX `_mm` inside `_bwd_kernel`). At f32
-compute the two are the same function.
+variant (::gru_recurrence_dir, which it runs for H = 512 / 1024). Its
+forward is the fused entry's kernel, for any H <= 3584 (counted as
+"gru_dir"). Its backward ("gru_dir_bwd") is a kernel of its own that runs
+one launch per time step over (H / 32) x (B / 32) x 2 blocks and computes
+dgi and dh0; dW_hh and db_hh follow, as in JAX (::_vjp_bwd_dir), from an
+f32 product over all steps outside the kernel (`gru_dir_dw_db`), with hprev
+and dgh not rounded, where `gru_recurrence` rounds them to the compute
+dtype (the JAX `_mm` inside `_bwd_kernel`). At f32 compute the two entries
+compute the same function. LAUNCHES["gru_dir_bwd"] counts entry calls that
+launched the kernel, not its per-step launches.
 """
 
 import torch
@@ -29,7 +32,9 @@ import torch
 from wav2vec2forbrain_tpu_torch.ops import kernels
 
 _MAX_SMEM = 227 * 1024
-_K_BATCH = 4  # batch rows per block in csrc/gru.cu
+_K_BATCH = 4  # batch rows per block of the fused kernels in csrc/gru.cu
+DIR_MAX_HIDDEN = 3584  # the forward kernel's shared memory (4 x _K_BATCH x H f32) at 227 KB
+_DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # per-direction backward: Bp, Hp are multiples of these
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,7 +102,25 @@ def gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, g, compute_dtype=torch.floa
     return dgi, dw, db, dh
 
 
-def _check(gi, w_hh, b_hh, h0, compute_dtype):
+def gru_dir_dw_db(h0, ys, dgh):
+    """dW_hh (D, H, 3H) = einsum("tdbh,tdbk->dhk", hprev, dgh) and db_hh (D,
+    1, 3H) = dgh summed over steps and batch rows, both f32, hprev = [h0,
+    ys[:-1]] and dgh (T, D, B, 3H) not rounded: the JAX package's
+    ::_vjp_bwd_dir, as one batched f32 matmul over the T * B rows. On the
+    card it refuses to run with TF32 matmuls allowed."""
+    if dgh.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "gru_recurrence_dir backward: its dW_hh is an f32 product, but "
+            "torch.backends.cuda.matmul.allow_tf32 is True (TF32 keeps ~3 digits)"
+        )
+    hprev = torch.cat([h0[None], ys[:-1]])[: dgh.shape[0]].float()  # T = 0: no rows
+    t, d, b, h = hprev.shape
+    a = hprev.transpose(0, 1).reshape(d, t * b, h)
+    g = dgh.float().transpose(0, 1).reshape(d, t * b, 3 * h)
+    return torch.bmm(a.transpose(1, 2), g), g.sum(dim=1, keepdim=True)
+
+
+def _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=True):
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gru_recurrence: compute dtype {compute_dtype} not supported")
     t, nd, b, h3 = gi.shape
@@ -109,7 +132,7 @@ def _check(gi, w_hh, b_hh, h0, compute_dtype):
             f"gru_recurrence: shapes gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, "
             f"b_hh {tuple(b_hh.shape)}, h0 {tuple(h0.shape)} do not agree"
         )
-    if h3 % 3 or h % 32:
+    if h3 % 3 or (multiple_of_32 and h % 32):
         raise ValueError(f"gru_recurrence: hidden size {h} must be a multiple of 32")
     return t, nd, b, h
 
@@ -117,9 +140,9 @@ def _check(gi, w_hh, b_hh, h0, compute_dtype):
 def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, name="gru"):
     """The forward kernel, counted under `name`: the entry that launched it
     ("gru" or "gru_dir"; the numbers are the same)."""
-    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
-    if 4 * _K_BATCH * h * 4 > _MAX_SMEM:
-        raise ValueError(f"gru_recurrence: hidden size {h} > 3584 does not fit the kernel")
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, name == "gru")
+    if h > DIR_MAX_HIDDEN:
+        raise ValueError(f"gru_recurrence: hidden size {h} > {DIR_MAX_HIDDEN} does not fit the kernel")
     w = w_hh.to(compute_dtype).contiguous()
     bias = b_hh.reshape(nd, 3 * h).float().contiguous()
     gi, h0 = gi.contiguous(), h0.contiguous()
@@ -139,6 +162,8 @@ def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, name="gru"):
 
 
 def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
+    if per_direction:
+        return _dir_bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype)
     t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
     if 6 * _K_BATCH * h * 4 > _MAX_SMEM:
         raise ValueError(f"gru_recurrence backward: hidden size {h} > 2400 does not fit the kernel")
@@ -160,11 +185,56 @@ def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
             gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), int(compute_dtype == torch.bfloat16),
             bias.data_ptr(), h0.data_ptr(), ys.data_ptr(), g.data_ptr(),
             dgi.data_ptr(), dgh.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-            t, nd, b, h, int(not per_direction), kernels.stream_of(gi),
+            t, nd, b, h, kernels.stream_of(gi),
         )
-    name = "gru_dir_bwd" if per_direction else "gru_bwd"
-    kernels.check(name, code)
-    kernels.LAUNCHES[name] += 1
+    kernels.check("gru_bwd", code)
+    kernels.LAUNCHES["gru_bwd"] += 1
+    return dgi, dw, db, dh0
+
+
+def _round_up(n, m):
+    return (n + m - 1) // m * m
+
+
+def _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
+    """The per-direction backward's kernels (gh for every step, then one
+    launch per step): (dgi, dgh, dh0), f32. W_hh goes in laid out (D, Hp,
+    3 Hp), each gate block padded to Hp columns, zeros in the padding
+    (csrc/gru.cu)."""
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=False)
+    cd, dev = compute_dtype, gi.device
+    hp, bp = _round_up(h, _DIR_HIDDEN_PAD), _round_up(b, _DIR_BATCH_PAD)
+    w = torch.zeros((nd, hp, 3, hp), dtype=cd, device=dev)
+    w[:, :h, :, :h] = w_hh.to(cd).reshape(nd, h, 3, h)
+    w = w.reshape(nd, hp, 3 * hp)
+    bias = b_hh.reshape(nd, 3 * h).float().contiguous()
+    gi, h0, ys, g = (x.float().contiguous() for x in (gi, h0, ys, g))
+    kernels.require_cuda("gru_recurrence_dir backward", gi, w, bias, h0, ys, g)
+    dgi = torch.empty_like(gi)
+    dgh = torch.empty_like(gi)  # dgi with the n column scaled by r, for dW_hh
+    dh0 = torch.empty_like(h0)
+    if t == 0:
+        return dgi, dgh, dh0.zero_()
+    hpc = torch.empty((t, nd, bp, hp), dtype=cd, device=dev)  # hprev in the compute dtype
+    dghc = torch.zeros((2, nd, bp, 3 * hp), dtype=cd, device=dev)  # dgh_cd ping-pong; padding stays 0
+    dhz = torch.empty((nd, bp, hp), dtype=torch.float32, device=dev)  # dh * z carried between steps
+    gh = torch.empty((t, nd, bp, 3 * hp), dtype=torch.float32, device=dev)  # hprev_cd . W_cd, every step
+    lib = kernels.lib()
+    with torch.cuda.device(dev):
+        code = lib.w2vb_gru_dir_bwd(
+            gi.data_ptr(), w.data_ptr(), int(cd == torch.bfloat16), bias.data_ptr(), h0.data_ptr(),
+            ys.data_ptr(), g.data_ptr(), hpc.data_ptr(), dghc.data_ptr(), dhz.data_ptr(), gh.data_ptr(),
+            dgi.data_ptr(), dgh.data_ptr(), dh0.data_ptr(), t, nd, b, h, bp, hp, kernels.stream_of(gi),
+        )
+    kernels.check("gru_dir_bwd", code)
+    kernels.LAUNCHES["gru_dir_bwd"] += 1  # once per entry call, not per step launch
+    return dgi, dgh, dh0
+
+
+def _dir_bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
+    """The per-direction backward: the step kernels, then gru_dir_dw_db."""
+    dgi, dgh, dh0 = _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype)
+    dw, db = gru_dir_dw_db(h0, ys, dgh)
     return dgi, dw, db, dh0
 
 
@@ -196,6 +266,7 @@ def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
 
 
 def gru_recurrence_dir(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
-    """gru_recurrence with the per-direction variant's f32 dW_hh product
-    (counterpart of the JAX gru_recurrence_dir; see the module docstring)."""
+    """gru_recurrence with the per-direction variant's backward and its f32
+    dW_hh product (counterpart of the JAX gru_recurrence_dir; see the
+    module docstring). Any H <= DIR_MAX_HIDDEN on CUDA tensors."""
     return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype, True)
