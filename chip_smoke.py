@@ -12,14 +12,16 @@ Phases, each of which exits nonzero on failure:
      plain PyTorch version on the card at both main paths' shapes, at f32
      and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
      B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 for the
-     conformer and, through its per-direction entry, at H=512 and 1024 with
-     B=64 for the sweep and at a ragged H=600 (the per-direction backward
-     also timed without its f32 dW product); attention at T'=89, B=32, 16
-     heads, scale 1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8
-     and scale 1 (wav2vec2-base), with dropout 0 and 0.1 against the dense
-     version with the same seed, and at T'=169 (about 700 frames, past the
-     old backward kernel's T'=117 limit); the LayerNorm at both encoders'
-     shapes with an f32 and a bf16 stream.
+     conformer and, through its per-direction entry (one launch per step,
+     its forward's time per step printed), at H=512 and 1024 with B=64 for
+     the sweep and at a ragged H=600 (the per-direction backward also timed
+     without its f32 dW product); attention at T'=89, B=32, 16 heads, scale
+     1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8 and scale 1
+     (wav2vec2-base), with dropout 0 and 0.1 against the dense version with
+     the same seed (the backward on the tensor cores at bf16 compute), at
+     T'=169 (about 700 frames) and at T'=400, B=8 (about 1,600 frames, past
+     the 393 where the forward switches to its streaming kernel); the
+     LayerNorm at both encoders' shapes with an f32 and a bf16 stream.
      Each row: max-abs error beside its tolerance, the median time of
      kernel vs plain (CUDA events, after warm-up, L2 warm), the bound (the
      larger of the bytes over 3.35 TB/s and the operations over the peak
@@ -362,10 +364,12 @@ def kernel_phases(dev, results):
                 gy = torch.randn(ys.shape, generator=g, device=dev)
                 lib_fwd, lib_bwd = cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys)
                 compare(name, label,
-                        lambda: gru._fwd_kernel(gi, w_hh, b_hh, h0, cd, name),
+                        lambda: gru._fwd_kernel(gi, w_hh, b_hh, h0, cd, per_dir),
                         lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd),
                         f32_tol(name) if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0), [(step, cd_name(cd))], lib_fwd)
+                if per_dir:  # one launch per step: the forward's time per step
+                    print(f"  {'':13s} {label:42s} {1e3 * results[-1]['ms'] / gi.shape[0]:.2f} us per step")
                 # gh recomputed and dh's product with W^T in the compute dtype; dW in it or in f32
                 compare(f"{name}_bwd", label,
                         lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
@@ -442,8 +446,11 @@ def kernel_phases(dev, results):
     g_w2v = torch.Generator(device=dev).manual_seed(SEED + 1)
     preproc_rows(g_w2v, 64, 1.5)
     attention_rows(g_w2v, 64, 12, 1.0, 0.125)
-    # 7. attention at T'=169 (B=32, 16 heads: the conformer's shape at ~700 frames), the training setting
+    # 7. attention at T'=169 (B=32, 16 heads: the conformer's shape at ~700 frames) and at T'=400 (B=8,
+    # ~1,600 frames: the streaming forward), the training setting
     attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169,
+                   only=(f32, bf16, 0.1))
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400,
                    only=(f32, bf16, 0.1))
 
 

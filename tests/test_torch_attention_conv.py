@@ -58,6 +58,36 @@ def test_attention_no_padding_mask_and_dropout_raises():
             fn(q, k, v, NH, 0.2, 1.0, torch.float32)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+def test_dense_attention_matches_jax_at_a_long_sequence(rate):
+    """T' = 400 (past the 393 that the forward kernel holding a head's K and
+    V in shared memory takes at D = 64): the port's dense version, which
+    the streaming kernel is held to on the card, against the JAX dense
+    path, B = 1, 2 heads of 64, f32, the same dropout hash. Tolerance 2e-5:
+    64-term dots and a 400-term softmax sum in another order."""
+    import jax.numpy as jnp
+
+    from wav2vec2forbrain_tpu.ops.xla_attention import mha_dense_bth as jax_mha_dense
+
+    rng = np.random.default_rng(400)
+    q, k, v = (rng.standard_normal((1, 400, 128)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jax_mha_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(11, jnp.int32),
+                                   2, 0.125, rate, jnp.float32))
+    got = port_attn.mha_dense_bth(*(torch.from_numpy(a) for a in (q, k, v)), 2, 0.125, rate, torch.float32, 11)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t,streams", [(89, False), (393, False), (394, True), (400, True)])
+def test_attention_fwd_wrapper_takes_any_sequence_length(t, streams):
+    """The forward wrapper chooses its kernel by shape (the one holding K and
+    V in shared memory up to T = 393 at D = 64, the streaming one beyond)
+    and refuses only operands that are not on a card, never a length."""
+    assert port_attn._fwd_streams(t, 64) is streams
+    q = torch.zeros((1, t, 128))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.1, torch.bfloat16, 0)
+
+
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_conv_glu_matches_jax_pallas_interpret(cd):
     import jax.numpy as jnp
@@ -99,6 +129,22 @@ def test_cuda_attention_kernel_matches_plain(sd, cd):
     q, k, v = (torch.randn((4, 89, 1024), generator=g, device=dev).to(sd) for _ in range(3))
     out = port_attn.mha_fused_bth(q, k, v, 16, 0.125, 0.0, cd)
     ref = port_attn.mha_dense_bth(q, k, v, 16, 0.125, 0.0, cd)
+    atol = 2e-5 if cd == torch.float32 else 2.0**-6 * max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [400, 700])
+@pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+def test_cuda_attention_kernel_long_sequences_match_plain(t, sd, cd, rate):
+    """The streaming forward kernel (T' past 393 at D = 64), 16 heads of 64."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn((2, t, 1024), generator=g, device=dev).to(sd) for _ in range(3))
+    out = port_attn._fwd_kernel(q, k, v, 16, 0.125, rate, cd, 5)
+    ref = port_attn.mha_dense_bth(q, k, v, 16, 0.125, rate, cd, 5)
     atol = 2e-5 if cd == torch.float32 else 2.0**-6 * max(1.0, ref.float().abs().max().item())
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 

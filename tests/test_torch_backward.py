@@ -195,16 +195,15 @@ def test_cuda_attention_kernels_match_plain(sd, cd, rate):
 @pytest.mark.parametrize("t", [118, 393, 1000])
 def test_attention_bwd_wrapper_has_no_sequence_limit(t):
     """The backward kernels stream tiles: at any T the wrapper gets past its
-    shape checks and refuses only operands that are not on a card (the
-    forward's own limit, T <= 393 at D = 64, stays)."""
+    shape checks and refuses only operands that are not on a card. So does
+    the forward's, which streams key tiles past T = 393 at D = 64."""
     q = torch.zeros((1, t, 128))
     with pytest.raises(ValueError, match="CUDA tensors"):
         port_attn._bwd_kernel(q, q, q, q, 2, 0.125, 0.1, torch.bfloat16, 0)
     with pytest.raises(ValueError, match="head dim"):
         port_attn._bwd_kernel(*[torch.zeros((1, t, 256))] * 4, 1, 0.125, 0.1, torch.bfloat16, 0)
-    if t > 393:
-        with pytest.raises(ValueError, match="shared memory"):
-            port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.float32, 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.float32, 0)
 
 
 @pytest.mark.cuda
@@ -222,6 +221,49 @@ def test_cuda_attention_bwd_long_sequences_match_plain(t, b, cd, rate):
     for a, r in zip(got, want):
         atol = 2e-5 * max(1.0, r.abs().max().item()) if cd == torch.float32 else _bf16_tol(r)
         torch.testing.assert_close(a, r, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 17, 89, 169, 400])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+def test_cuda_attention_bwd_bf16_matches_plain(t, rate):
+    """The tensor-core backward (bf16 compute, f32 stream), 16 heads of 64,
+    from one row to past the forward's shared-memory length."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(1000 + t)
+    q, k, v, g = (torch.randn((2, t, 1024), generator=gen, device=dev) for _ in range(4))
+    got = port_attn._bwd_kernel(q, k, v, g, 16, 0.125, rate, torch.bfloat16, 9)
+    want = port_attn.mha_bwd_plain(q, k, v, g, 16, 0.125, rate, torch.bfloat16, 9)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=_bf16_tol(r), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [24, 80, 100, 128])
+@pytest.mark.parametrize("sd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_attention_bwd_bf16_head_dims_match_plain(d, sd):
+    """Head dims the tensor-core kernels pad (to 64 or 128 columns), with
+    and without 16-byte rows (d = 100), at an f32 and a bf16 stream."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, g = (torch.randn((3, 89, 4 * d), generator=gen, device=dev).to(sd) for _ in range(4))
+    got = port_attn._bwd_kernel(q, k, v, g, 4, d**-0.5, 0.1, torch.bfloat16, 3)
+    want = port_attn.mha_bwd_plain(q, k, v, g, 4, d**-0.5, 0.1, torch.bfloat16, 3)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_attention_bwd_is_deterministic(cd):
+    """No atomics: two runs on the same inputs give bitwise-equal dq, dk, dv."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, g = (torch.randn((8, 89, 1024), generator=gen, device=dev) for _ in range(4))
+    first = port_attn._bwd_kernel(q, k, v, g, 16, 0.125, 0.1, cd, 21)
+    second = port_attn._bwd_kernel(q, k, v, g, 16, 0.125, 0.1, cd, 21)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

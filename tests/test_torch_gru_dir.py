@@ -142,14 +142,41 @@ def _meta(t, b, h):
 
 
 @pytest.mark.parametrize("call,h,match", [
-    (lambda a: port_gru._fwd_kernel(*a, torch.float32, "gru"), 100, "multiple of 32"),
-    (lambda a: port_gru._fwd_kernel(*a, torch.float32, "gru_dir"), 3600, "does not fit"),
+    (lambda a: port_gru._fwd_kernel(*a, torch.float32), 100, "multiple of 32"),
+    (lambda a: port_gru._fwd_kernel(*a, torch.float32), 3616, "does not fit"),
     (lambda a: port_gru._bwd_kernel(*a, a[3][None], a[3][None], torch.float32), 2432, "does not fit"),
-    (lambda a: port_gru._fwd_kernel(*a, torch.float16, "gru_dir"), 512, "not supported"),
-], ids=["fused_h100", "dir_fwd_h3600", "fused_bwd_h2432", "fp16"])
+    (lambda a: port_gru._fwd_kernel(*a, torch.float16, per_direction=True), 512, "not supported"),
+], ids=["fused_h100", "fused_fwd_h3616", "fused_bwd_h2432", "fp16"])
 def test_wrappers_refuse_shapes_their_kernels_do_not_take(call, h, match):
     with pytest.raises(ValueError, match=match):
         call(_meta(2, 1, h))
+
+
+@pytest.mark.parametrize("h", [100, 3600])
+def test_dir_fwd_takes_any_hidden_size_but_only_cuda_tensors(h):
+    """The per-direction forward has no hidden-size rule either: at a ragged
+    H = 100 and at H = 3600 (past the fused kernel's 3584) it gets past
+    every shape check and refuses only operands off the card."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_gru._fwd_kernel(*_meta(2, 2, h), torch.bfloat16, per_direction=True)
+
+
+@pytest.mark.parametrize("h", [128, 100, 64])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dir_fwd_weight_layout_round_trips(h, cd):
+    """dir_fwd_weight lays W_hh out as (D, 3 Hp, Hp), gate g's columns as
+    K-contiguous rows at g Hp: undoing it returns W_hh in the compute dtype
+    exactly, and every padded row and column is zero."""
+    w = torch.from_numpy(_inputs(9, h=h, t=1, b=1)[1])
+    hp = -(-h // 64) * 64
+    wt = port_gru.dir_fwd_weight(w, cd)
+    assert wt.shape == (2, 3 * hp, hp) and wt.dtype == cd and wt.is_contiguous()
+    blocks = wt.reshape(2, 3, hp, hp)
+    back = blocks[:, :, :h, :h].permute(0, 3, 1, 2).reshape(2, h, 3 * h)
+    assert torch.equal(back, w.to(cd))
+    pad = torch.ones((hp, hp), dtype=torch.bool)
+    pad[:h, :h] = False
+    assert not blocks[:, :, pad].any()
 
 
 def test_dir_bwd_takes_any_hidden_size_but_only_cuda_tensors():
@@ -169,7 +196,7 @@ def test_cuda_dir_kernels_match_plain(hidden, cd):
     dev = torch.device("cuda")
     gi, w, b, h0, g = (torch.from_numpy(a).to(dev) for a in _inputs(3, hidden, 89, 64))
     before = dict(kernels.LAUNCHES)
-    ys = port_gru._fwd_kernel(gi, w, b, h0, cd, "gru_dir")
+    ys = port_gru._fwd_kernel(gi, w, b, h0, cd, per_direction=True)
     ref = port_gru.gru_recurrence_plain(gi, w, b, h0, cd)
     f32 = cd == torch.float32
     torch.testing.assert_close(ys, ref, atol=2e-5 if f32 else BF16_ULPS, rtol=0)
@@ -180,6 +207,52 @@ def test_cuda_dir_kernels_match_plain(hidden, cd):
         torch.testing.assert_close(a.reshape(r.shape), r, atol=tol, rtol=0)
     assert kernels.LAUNCHES["gru_dir"] == before["gru_dir"] + 1
     assert kernels.LAUNCHES["gru_dir_bwd"] == before["gru_dir_bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 1024, 600])
+@pytest.mark.parametrize("b,t", [(64, 89), (3, 89), (64, 1), (3, 1)], ids=["B64T89", "B3T89", "B64T1", "B3T1"])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_dir_fwd_matches_plain(hidden, b, t, cd):
+    """The per-direction forward kernel alone, at the batch and length edges
+    (B = 3: one ragged 32-row tile; T = 1: h0 is the only carry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gi, w, bias, h0, _ = (torch.from_numpy(a).cuda() for a in _inputs(10, hidden, t, b))
+    ys = port_gru._fwd_kernel(gi, w, bias, h0, cd, per_direction=True)
+    ref = port_gru.gru_recurrence_plain(gi, w, bias, h0, cd)
+    torch.testing.assert_close(ys, ref, atol=2e-5 if cd == torch.float32 else BF16_ULPS, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 1024, 600])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_dir_gradients_match_plain_autograd(hidden, cd):
+    """Autograd through gru_recurrence_dir on the card (the forward kernel,
+    then the backward kernels and the f32 dW) against the plain versions: at
+    f32 the autograd of gru_recurrence_plain; at bf16 the plain twins (the
+    plain loop's autograd rounds the carry's gradient after its product,
+    where the JAX kernel rounds dgh before it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(11, hidden, 89, 64)]
+    g = arrays.pop()
+    leaves = [a.clone().requires_grad_(True) for a in arrays]
+    ys = port_gru.gru_recurrence_dir(*leaves, cd)
+    ys.backward(g)
+    got = [ys.detach()] + [a.grad for a in leaves]
+    if cd == torch.float32:
+        ref_leaves = [a.clone().requires_grad_(True) for a in arrays]
+        ref_ys = port_gru.gru_recurrence_plain(*ref_leaves, cd)
+        ref_ys.backward(g)
+        want = [ref_ys.detach()] + [a.grad for a in ref_leaves]
+    else:
+        ref_ys = port_gru.gru_recurrence_plain(*arrays, cd)
+        dgi, dw, db, dh0 = port_gru.gru_recurrence_bwd_plain(*arrays, ref_ys, g, cd, per_direction=True)
+        want = [ref_ys, dgi, dw, db.reshape(arrays[2].shape), dh0]
+    for a, r in zip(got, want):
+        tol = (2e-5 if cd == torch.float32 else BF16_ULPS) * max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a, r, atol=tol, rtol=0)
 
 
 @pytest.mark.cuda

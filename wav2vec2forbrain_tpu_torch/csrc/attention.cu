@@ -36,10 +36,37 @@
 // sum are warp shuffles (whole-row f32 softmax; the ragged edge of T = 89 is
 // just the loop bound), the dropout mask is hashed in place, and then lanes
 // own output columns and sum p * V over all keys. Scores and probabilities
-// never leave shared memory.
+// never leave shared memory. Where a head's K and V do not fit (T > 393 at
+// D = 64), the wrapper takes a second kernel that streams 64-key tiles
+// twice, as the dq launch below does: the row max and sum, then p = exp(s -
+// m) / l masked, rounded and summed into p_cd . v_cd (any T, D <= 128).
 //
-// Backward design: two launches whose shared memory does not grow with T
-// (any T the forward takes; D <= 128), no atomics, deterministic.
+// Backward at bf16 compute (the main path): two launches on the tensor cores
+// (mma.sync.m16n8k16, bf16 inputs, f32 accumulators), the same split as the
+// SIMT kernels below, so no atomics and a deterministic result. Tiles are
+// staged in shared memory as bf16, rounded on the way in from an f32 stream
+// (the JAX `.astype(cd)`), head columns zero-padded to 64 or 128.
+//  1. dq and the row statistics, over (64 query rows, head, batch row);
+//     each warp owns 16 rows and streams 64-key tiles of K and V twice.
+//     Pass 1: S = Q K^T and dP = dO V^T in registers; per thread an online
+//     max, sum and sum of dp * mask * e over its columns, combined over the
+//     4 threads of a row into m, l and D_i = sum_j dp_ij p_ij (dp masked and
+//     scaled, p before dropout: not FlashAttention's rowsum(dO o O), since O
+//     was formed from pd rounded to bf16). Pass 2: ds = p * (dp - D_i) from
+//     the accumulators, rounded, packed straight into A fragments; dQ +=
+//     ds_cd . K with K's fragments gathered by ldmatrix.trans.
+//  2. dk and dv, over (64 keys, head, batch row); each warp owns 16 keys and
+//     streams 64-query tiles of q and dO with their statistics: S^T = K Q^T,
+//     dP^T = V dO^T, then pd = p * mask / keep and ds rounded as A
+//     fragments: dV += pd_cd^T . dO, dK += ds_cd^T . Q.
+// The mask is hashed per accumulator element from its (row, column) in the
+// fragment layout, with common.cuh's attn_keep. The scale is applied after
+// the dq and dk products, as in JAX. Columns past T take no part in the
+// statistics or the sums; rows past T are never stored.
+//
+// Backward at f32 compute: two SIMT launches (TF32 would change the
+// numbers) whose shared memory does not grow with T (any T; D <= 128), no
+// atomics, deterministic.
 //  1. dq, over (query tile of 16 rows, head, batch row); 4 warps of 4 rows,
 //     as in the forward. The block streams 64-key tiles of K and V (rounded
 //     to the compute dtype) through shared memory twice. Pass 1: lanes over
@@ -170,8 +197,8 @@ __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restric
   }
 }
 
-constexpr int kQT = kWarps * kRows;  // query rows per block of the dq kernel
-constexpr int kKT = 64;              // keys per tile it streams
+constexpr int kQT = kWarps * kRows;  // query rows per block of the dq and streaming forward kernels
+constexpr int kKT = 64;              // keys per tile they stream
 constexpr int kKeys = 4;             // keys a warp takes at once in the dk/dv kernel
 constexpr int kKT2 = kWarps * kKeys;  // keys per block there
 constexpr int kQT2 = 32;             // queries per tile it streams, one per lane
@@ -188,6 +215,124 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
     dst[r * (D + 1) + c] =
         r0 + r < Tn ? w2vb::round_cd(w2vb::to_f32(src[base + (size_t)(r0 + r) * HD + c]), cd_bf16)
                     : 0.f;
+  }
+}
+
+// The forward where a head's K and V do not fit in shared memory (T' > 393
+// at D = 64): one block per (query tile of kQT rows, head, batch row), 4
+// warps of 4 rows, streaming 64-key tiles twice, as the dq kernel does.
+// Pass 1: lane-local online row max and sum over the lane's keys, combined
+// by warp shuffles. Pass 2: p = exp(s - m) / l, masked and scaled, rounded
+// to the compute dtype into a per-warp buffer, then lanes over columns sum
+// p_cd . v_cd. p is normalised before it is rounded, as the JAX kernel does
+// (no single-pass online softmax, which would round unnormalised values).
+template <typename T>
+__global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                            const T* __restrict__ v, T* __restrict__ o, int Tn,
+                                            int NH, int D, float scale, bool cd_bf16, bool drop,
+                                            uint32_t seed, float keep_prob, float inv_keep) {
+  extern __shared__ float sm[];
+  const int ld = D + 1;
+  float* qs = sm;               // [kQT][D + 1]
+  float* ks = qs + kQT * ld;    // [kKT][D + 1]
+  float* vs = ks + kKT * ld;    // [kKT][D + 1]
+  float* pb = vs + kKT * ld;    // [kWarps][kRows][kKT] p, rounded to cd
+  const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
+  const int HD = NH * D;
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const uint32_t mix = w2vb::attn_mix(seed, b, h);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* qw = qs + warp * kRows * ld;
+  float* pw = pb + warp * kRows * kKT;
+  const int r0 = q0 + warp * kRows;
+  load_rows(qs, q, base, q0, kQT, Tn, HD, D, cd_bf16);
+
+  auto scores = [&](int jj, float (&s)[kRows]) {
+    const float* kr = ks + jj * ld;
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) s[rr] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kv = kr[d];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) s[rr] = fmaf(qw[rr * ld + d], kv, s[rr]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) s[rr] *= scale;
+  };
+
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    m[rr] = __int_as_float(0xff800000);  // -inf
+    l[rr] = 0.f;
+  }
+  for (int j0 = 0; j0 < Tn; j0 += kKT) {
+    __syncthreads();  // the previous tile is done with
+    load_rows(ks, k, base, j0, kKT, Tn, HD, D, cd_bf16);
+    __syncthreads();
+    for (int jj = lane; jj < kKT && j0 + jj < Tn; jj += 32) {
+      float s[kRows];
+      scores(jj, s);
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        if (s[rr] > m[rr]) {
+          l[rr] = fmaf(l[rr], expf(m[rr] - s[rr]), 1.f);
+          m[rr] = s[rr];
+        } else {
+          l[rr] += expf(s[rr] - m[rr]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const float mx = w2vb::warp_max(m[rr]);
+    l[rr] = w2vb::warp_sum(l[rr] > 0.f ? l[rr] * expf(m[rr] - mx) : 0.f);  // a lane that saw no key has l = 0
+    m[rr] = mx;
+  }
+
+  float acc[kRows][kMaxCols];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < kMaxCols; ++cc) acc[rr][cc] = 0.f;
+  for (int j0 = 0; j0 < Tn; j0 += kKT) {
+    __syncthreads();
+    load_rows(ks, k, base, j0, kKT, Tn, HD, D, cd_bf16);
+    load_rows(vs, v, base, j0, kKT, Tn, HD, D, cd_bf16);
+    __syncthreads();
+    const int nk = min(kKT, Tn - j0);
+    for (int jj = lane; jj < nk; jj += 32) {
+      float s[kRows];
+      scores(jj, s);
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        float p = expf(s[rr] - m[rr]) / l[rr];
+        if (drop) p = w2vb::attn_keep(mix, r0 + rr, j0 + jj, keep_prob) ? p * inv_keep : 0.f;
+        pw[rr * kKT + jj] = w2vb::round_cd(p, cd_bf16);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int cc = 0; cc < kMaxCols; ++cc) {
+      const int c = lane + 32 * cc;
+      if (c >= D) break;
+      for (int j = 0; j < nk; ++j) {
+        const float vv = vs[j * ld + c];
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr) acc[rr][cc] = fmaf(pw[rr * kKT + j], vv, acc[rr][cc]);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (r0 + rr >= Tn) break;
+#pragma unroll
+    for (int cc = 0; cc < kMaxCols; ++cc) {
+      const int c = lane + 32 * cc;
+      if (c < D) o[base + (size_t)(r0 + rr) * HD + c] = w2vb::from_f32<T>(acc[rr][cc]);
+    }
   }
 }
 
@@ -442,26 +587,418 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
   }
 }
 
+// ---- the backward at bf16 compute, on the tensor cores (header note) ----
+
+constexpr int kMmaRows = 64;  // query rows (dq) or keys (dk/dv) per block: 4 warps x 16
+
+template <int DP>
+struct MmaTile {
+  static constexpr int kN = DP <= 64 ? 64 : 32;  // keys (dq) or queries (dk/dv) per streamed tile
+  static constexpr int kLd = DP + 8;             // bf16 row pitch: 16-byte rows, conflict-free fragments
+  static constexpr size_t kSmem = (size_t)(2 * kMmaRows + 2 * kN) * kLd * 2;  // + 3 kN f32 for dk/dv
+};
+
+using w2vb::ld_pair;
+using w2vb::mma_bf16;
+
+// two f32 values rounded to nearest-even bf16, packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of rows m0 .. m0 + 15, columns kk .. kk + 15 of a row-major tile
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* t, int ld, int m0, int kk) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* p = t + (m0 + gq) * ld + kk + 2 * tq;
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * ld);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * ld + 8);
+}
+
+// B fragments (k = kk .. kk + 15, n = n0 .. n0 + 7) of B = T^T, T a
+// row-major [n][k] tile: the pairs along k are contiguous
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const __nv_bfloat16* t, int ld, int n0, int kk) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* p = t + (n0 + gq) * ld + kk + 2 * tq;
+  b[0] = ld_pair(p);
+  b[1] = ld_pair(p + 8);
+}
+
+// B fragments of two n-tiles (n0, n0 + 8), k = k0 .. k0 + 15, of B = T, T a
+// row-major [k][n] tile: ldmatrix.trans gathers the pairs along k
+__device__ __forceinline__ void frag_b_trans(uint32_t (&b)[2][2], const __nv_bfloat16* t, int ld, int k0,
+                                             int n0) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* p = t + (k0 + (mat & 1) * 8 + r) * ld + n0 + (mat >> 1) * 8;
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
+               : "r"(addr));
+}
+
+// rows [r0, r0 + n) of one head into a bf16 tile [n][DP + 8], rounded to
+// nearest even; rows at or past Tn and columns at or past D are zero. vec:
+// D % 8 == 0 and 16-byte aligned operands, so 8 columns load as one or two
+// 16-byte vectors
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const T* __restrict__ src, size_t base,
+                                               int r0, int n, int Tn, int HD, int D, bool vec) {
+  constexpr int kChunks = DP / 8;
+  for (int p = threadIdx.x; p < n * kChunks; p += blockDim.x) {
+    const int r = p / kChunks, c = (p % kChunks) * 8;
+    const int row = r0 + r;
+    const T* g = src + base + (size_t)row * HD + c;
+    uint4 out;
+    if (row < Tn && vec && c < D) {
+      if constexpr (sizeof(T) == 2) {
+        out = *reinterpret_cast<const uint4*>(g);
+      } else {
+        const float4 x = reinterpret_cast<const float4*>(g)[0];
+        const float4 y = reinterpret_cast<const float4*>(g)[1];
+        out = make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+      }
+    } else {
+      float f[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = row < Tn && c + e < D ? w2vb::to_f32(g[e]) : 0.f;
+      out = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    }
+    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c) = out;
+  }
+}
+
+// acc (a warp's 16 x 8 NT outputs, NT n-tiles) += a (16 x 16) . T[k0 .. k0 +
+// 16, 0 .. 8 NT], T a row-major [k][n] tile
+template <int NT>
+__device__ __forceinline__ void mma_rows(float* acc, const uint32_t (&a)[4], const __nv_bfloat16* t, int ld,
+                                         int k0) {
+#pragma unroll
+  for (int n = 0; n < NT; n += 2) {
+    uint32_t b[2][2];
+    frag_b_trans(b, t, ld, k0, 8 * n);
+    mma_bf16(acc + 4 * n, a, b[0]);
+    mma_bf16(acc + 4 * n + 4, a, b[1]);
+  }
+}
+
+// dq and the row statistics: block (64 query rows, head, batch row); warp w
+// owns rows 16 w .. +16. Accumulator element (j, e) of a warp: row gq (e <
+// 2) or gq + 8, column 8 j + 2 tq + (e & 1).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWarps * 32)
+    attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ stats,
+                                int Tn, int NH, int D, float scale, bool drop, uint32_t seed,
+                                float keep_prob, float inv_keep, bool vec) {
+  using L = MmaTile<DP>;
+  constexpr int kN = L::kN, kLd = L::kLd, kNT = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLd]
+  __nv_bfloat16* gs = qs + kMmaRows * kLd;                          // [64][kLd]
+  __nv_bfloat16* ks = gs + kMmaRows * kLd;                          // [kN][kLd]
+  __nv_bfloat16* vs = ks + kN * kLd;                                // [kN][kLd]
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int HD = NH * D;
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const uint32_t mix = w2vb::attn_mix(seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * warp;
+  const int rows[2] = {q0 + m0 + gq, q0 + m0 + gq + 8};
+  load_tile_bf16<T, DP>(qs, q, base, q0, kMmaRows, Tn, HD, D, vec);
+  load_tile_bf16<T, DP>(gs, g, base, q0, kMmaRows, Tn, HD, D, vec);
+
+  // s (scaled) = q . k^T and dp = g . v^T of the warp's rows against the staged keys
+  float s[4 * kNT], dp[4 * kNT];
+  auto scores = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t aq[4], ag[4];
+      frag_a(aq, qs, kLd, m0, kk);
+      frag_a(ag, gs, kLd, m0, kk);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t b[2];
+        frag_b(b, ks, kLd, 8 * j, kk);
+        mma_bf16(s + 4 * j, aq, b);
+        frag_b(b, vs, kLd, 8 * j, kk);
+        mma_bf16(dp + 4 * j, ag, b);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) s[i] *= scale;
+  };
+  auto load_keys = [&](int j0) {
+    __syncthreads();  // the previous tile is done with
+    load_tile_bf16<T, DP>(ks, k, base, j0, kN, Tn, HD, D, vec);
+    load_tile_bf16<T, DP>(vs, v, base, j0, kN, Tn, HD, D, vec);
+    __syncthreads();
+  };
+
+  // pass 1: per thread, online max, sum and sum of dp * mask * e over its
+  // columns; then the 4 threads of a row (tq) combine
+  float m[2], l[2], dn[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    m[rr] = __int_as_float(0xff800000);  // -inf
+    l[rr] = dn[rr] = 0.f;
+  }
+  for (int j0 = 0; j0 < Tn; j0 += kN) {
+    load_keys(j0);
+    scores();
+    float tm[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i)
+      if (j0 + 8 * (i >> 2) + 2 * tq + (i & 1) < Tn) tm[(i >> 1) & 1] = fmaxf(tm[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (tm[rr] > m[rr]) {
+        const float f = expf(m[rr] - tm[rr]);
+        l[rr] *= f;
+        dn[rr] *= f;
+        m[rr] = tm[rr];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      const int col = j0 + 8 * (i >> 2) + 2 * tq + (i & 1), rr = (i >> 1) & 1;
+      if (col < Tn) {
+        const float e = expf(s[i] - m[rr]);
+        l[rr] += e;
+        dn[rr] = fmaf(dp[i] * keep_scale(drop, mix, rows[rr], col, keep_prob, inv_keep), e, dn[rr]);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = m[rr];
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float f = l[rr] > 0.f ? expf(m[rr] - mx) : 0.f;  // a thread that saw no key has l = 0
+    float ls = l[rr] * f, ds = dn[rr] * f;
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ds += __shfl_xor_sync(0xffffffffu, ds, 1);
+    ds += __shfl_xor_sync(0xffffffffu, ds, 2);
+    m[rr] = mx;
+    l[rr] = ls;
+    dn[rr] = ds / ls;
+  }
+  if (tq == 0) {
+    const size_t nrow = (size_t)gridDim.z * NH * Tn;
+    float* st = stats + ((size_t)b * NH + h) * Tn;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (rows[rr] < Tn) {
+        st[rows[rr]] = m[rr];
+        st[nrow + rows[rr]] = l[rr];
+        st[2 * nrow + rows[rr]] = dn[rr];
+      }
+    }
+  }
+
+  // pass 2: ds = p * (dp - D_i), rounded, straight from the accumulators
+  // into A fragments; dq += ds_cd . k_cd
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < Tn; j0 += kN) {
+    load_keys(j0);
+    scores();
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      const int col = j0 + 8 * (i >> 2) + 2 * tq + (i & 1), rr = (i >> 1) & 1;
+      const float p = expf(s[i] - m[rr]) / l[rr];
+      const float dpm = dp[i] * keep_scale(drop, mix, rows[rr], col, keep_prob, inv_keep);
+      s[i] = col < Tn ? p * (dpm - dn[rr]) : 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const float* c0 = s + 8 * kk;  // n-tiles 2 kk and 2 kk + 1: keys 16 kk .. +16
+      const uint32_t a[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]), pack_bf16(c0[4], c0[5]),
+                             pack_bf16(c0[6], c0[7])};
+      mma_rows<DP / 8>(acc, a, ks, kLd, 16 * kk);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) {
+    const int row = rows[(i >> 1) & 1], col = 8 * (i >> 2) + 2 * tq + (i & 1);
+    if (row < Tn && col < D) dq[base + (size_t)row * HD + col] = w2vb::from_f32<T>(acc[i] * scale);
+  }
+}
+
+// dk and dv: block (64 keys, head, batch row); warp w owns keys 16 w .. +16
+// and streams query tiles with their statistics: s^T = k . q^T, dp^T = v .
+// g^T, then pd and ds (rounded) as A fragments: dv += pd^T . g, dk += ds^T . q
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWarps * 32)
+    attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                  const T* __restrict__ g, const float* __restrict__ stats,
+                                  T* __restrict__ dk, T* __restrict__ dv, int Tn, int NH, int D, float scale,
+                                  bool drop, uint32_t seed, float keep_prob, float inv_keep, bool vec) {
+  using L = MmaTile<DP>;
+  constexpr int kN = L::kN, kLd = L::kLd, kNT = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLd]
+  __nv_bfloat16* vs = ks + kMmaRows * kLd;                          // [64][kLd]
+  __nv_bfloat16* qs = vs + kMmaRows * kLd;                          // [kN][kLd]
+  __nv_bfloat16* gs = qs + kN * kLd;                                // [kN][kLd]
+  float* st = reinterpret_cast<float*>(gs + kN * kLd);              // [3][kN] m, l, D of the staged rows
+  const int k0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int HD = NH * D;
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const uint32_t mix = w2vb::attn_mix(seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * warp;
+  const int keys[2] = {k0 + m0 + gq, k0 + m0 + gq + 8};
+  const size_t nrow = (size_t)gridDim.z * NH * Tn;
+  const float* sb = stats + ((size_t)b * NH + h) * Tn;
+  load_tile_bf16<T, DP>(ks, k, base, k0, kMmaRows, Tn, HD, D, vec);
+  load_tile_bf16<T, DP>(vs, v, base, k0, kMmaRows, Tn, HD, D, vec);
+
+  float ak[DP / 2], av[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) ak[i] = av[i] = 0.f;
+  for (int i0 = 0; i0 < Tn; i0 += kN) {
+    __syncthreads();  // the previous tile is done with
+    load_tile_bf16<T, DP>(qs, q, base, i0, kN, Tn, HD, D, vec);
+    load_tile_bf16<T, DP>(gs, g, base, i0, kN, Tn, HD, D, vec);
+    for (int i = threadIdx.x; i < kN; i += blockDim.x) {
+      const bool in = i0 + i < Tn;
+      st[i] = in ? sb[i0 + i] : 0.f;
+      st[kN + i] = in ? sb[nrow + i0 + i] : 1.f;
+      st[2 * kN + i] = in ? sb[2 * nrow + i0 + i] : 0.f;
+    }
+    __syncthreads();
+    float s[4 * kNT], dp[4 * kNT];
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t ak_[4], av_[4];
+      frag_a(ak_, ks, kLd, m0, kk);
+      frag_a(av_, vs, kLd, m0, kk);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t b[2];
+        frag_b(b, qs, kLd, 8 * j, kk);
+        mma_bf16(s + 4 * j, ak_, b);
+        frag_b(b, gs, kLd, 8 * j, kk);
+        mma_bf16(dp + 4 * j, av_, b);
+      }
+    }
+    // element i: key keys[(i >> 1) & 1], query i0 + 8 (i >> 2) + 2 tq + (i & 1)
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      const int qq = 8 * (i >> 2) + 2 * tq + (i & 1), qi = i0 + qq;
+      float pd = 0.f, ds = 0.f;
+      if (qi < Tn) {
+        const float p = expf(s[i] * scale - st[qq]) / st[kN + qq];
+        const float mk = keep_scale(drop, mix, qi, keys[(i >> 1) & 1], keep_prob, inv_keep);
+        pd = p * mk;
+        ds = p * (dp[i] * mk - st[2 * kN + qq]);
+      }
+      s[i] = pd;
+      dp[i] = ds;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const float* p0 = s + 8 * kk;
+      const float* d0 = dp + 8 * kk;
+      const uint32_t apd[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]), pack_bf16(p0[4], p0[5]),
+                               pack_bf16(p0[6], p0[7])};
+      const uint32_t ads[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]), pack_bf16(d0[4], d0[5]),
+                               pack_bf16(d0[6], d0[7])};
+      mma_rows<DP / 8>(av, apd, gs, kLd, 16 * kk);
+      mma_rows<DP / 8>(ak, ads, qs, kLd, 16 * kk);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) {
+    const int key = keys[(i >> 1) & 1], col = 8 * (i >> 2) + 2 * tq + (i & 1);
+    if (key < Tn && col < D) {
+      dk[base + (size_t)key * HD + col] = w2vb::from_f32<T>(ak[i] * scale);
+      dv[base + (size_t)key * HD + col] = w2vb::from_f32<T>(av[i]);
+    }
+  }
+}
+
+template <typename T, int DP>
+int launch_bwd_mma(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv, float* stats, int B,
+                   int Tn, int NH, int D, float scale, uint32_t seed, float keep_prob, float inv_keep,
+                   cudaStream_t s) {
+  using L = MmaTile<DP>;
+  const bool drop = keep_prob < 1.f;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
+  const bool vec = D % 8 == 0 && addr % 16 == 0;
+  const size_t smem_kv = L::kSmem + 3 * L::kN * sizeof(float);
+  cudaError_t e = w2vb::allow_smem(attention_bwd_dq_mma_kernel<T, DP>, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = w2vb::allow_smem(attention_bwd_dkdv_mma_kernel<T, DP>, smem_kv);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Tn + kMmaRows - 1) / kMmaRows, NH, B);
+  attention_bwd_dq_mma_kernel<T, DP><<<grid, kWarps * 32, L::kSmem, s>>>(
+      q, k, v, g, dq, stats, Tn, NH, D, scale, drop, seed, keep_prob, inv_keep, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_bwd_dkdv_mma_kernel<T, DP><<<grid, kWarps * 32, smem_kv, s>>>(
+      q, k, v, g, stats, dk, dv, Tn, NH, D, scale, drop, seed, keep_prob, inv_keep, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stream_keys: the streaming kernel (the wrapper chooses it where the
+// resident kernel's K and V do not fit in shared memory; D <= 128 there)
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int Tn, int NH, int D,
-               float scale, bool cd_bf16, uint32_t seed, float keep_prob, float inv_keep,
-               cudaStream_t s) {
+               float scale, bool cd_bf16, bool stream_keys, uint32_t seed, float keep_prob,
+               float inv_keep, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const bool drop = keep_prob < 1.f;
+  if (stream_keys) {
+    if (D > 32 * kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = ((size_t)(kQT + 2 * kKT) * (D + 1) + kWarps * kRows * kKT) * sizeof(float);
+    cudaError_t e = w2vb::allow_smem(attention_fwd_stream_kernel<T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attention_fwd_stream_kernel<T><<<dim3((Tn + kQT - 1) / kQT, NH, B), kWarps * 32, smem, s>>>(
+        qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, cd_bf16, drop, seed, keep_prob, inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem =
       ((size_t)Tn * (2 * D + 1) + (size_t)kWarps * kRows * (D + Tn)) * sizeof(float);
   cudaError_t e = w2vb::allow_smem(attention_fwd_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(NH, B);
-  attention_fwd_kernel<T><<<grid, kWarps * 32, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Tn, NH, D, scale, cd_bf16, keep_prob < 1.f, seed, keep_prob, inv_keep);
+  attention_fwd_kernel<T><<<dim3(NH, B), kWarps * 32, smem, s>>>(
+      qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, cd_bf16, drop, seed, keep_prob, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 compute: the tensor-core kernels (head columns padded to 64 or
+// 128); f32 compute: the SIMT kernels (TF32 would change the numbers)
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
                void* dv, float* stats, int B, int Tn, int NH, int D, float scale, bool cd_bf16,
                uint32_t seed, float keep_prob, float inv_keep, cudaStream_t s) {
   if (D > 32 * kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+  if (cd_bf16) {
+    const auto* qt = static_cast<const T*>(q);
+    const auto* kt = static_cast<const T*>(k);
+    const auto* vt = static_cast<const T*>(v);
+    const auto* gt = static_cast<const T*>(g);
+    auto* dqt = static_cast<T*>(dq);
+    auto* dkt = static_cast<T*>(dk);
+    auto* dvt = static_cast<T*>(dv);
+    if (D <= 64)
+      return launch_bwd_mma<T, 64>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
+                                   keep_prob, inv_keep, s);
+    return launch_bwd_mma<T, 128>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
+                                  keep_prob, inv_keep, s);
+  }
   const bool drop = keep_prob < 1.f;
   const size_t smem_dq = ((size_t)(2 * kQT + 2 * kKT) * (D + 1) + kWarps * kRows * kKT) * sizeof(float);
   const size_t smem_kv =
@@ -490,17 +1027,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
 // io_bf16: q/k/v/o are bf16 (the activation stream dtype) rather than f32;
 // cd_bf16: the compute dtype is bf16. keep_prob < 1 turns the dropout on
 // (keep_prob and inv_keep = 1/keep_prob as f32, seed the site's int32).
+// stream_keys: the streaming kernel instead of the one that holds a head's K
+// and V in shared memory.
 extern "C" int w2vb_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                  int io_bf16, int cd_bf16, int B, int T, int NH, int D,
-                                  float scale, int seed, float keep_prob, float inv_keep,
+                                  int io_bf16, int cd_bf16, int stream_keys, int B, int T, int NH,
+                                  int D, float scale, int seed, float keep_prob, float inv_keep,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t sd = static_cast<uint32_t>(seed);
   if (io_bf16)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, sd, keep_prob,
-                                     inv_keep, s);
-  return launch_fwd<float>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, sd, keep_prob, inv_keep,
-                           s);
+    return launch_fwd<__nv_bfloat16>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, stream_keys != 0,
+                                     sd, keep_prob, inv_keep, s);
+  return launch_fwd<float>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, stream_keys != 0, sd,
+                           keep_prob, inv_keep, s);
 }
 
 // g, dq, dk, dv share q's dtype (io_bf16); stats is a (3, B, NH, T) f32

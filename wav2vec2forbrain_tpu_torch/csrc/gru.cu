@@ -1,9 +1,9 @@
 // Bidirectional GRU recurrence, forward (both directions in one launch).
 //
 // Replaces: wav2vec2forbrain_tpu/ops/pallas_gru.py::_fwd_impl (the Pallas
-// kernel _fwd_kernel) and, for the forward, ::_fwd_impl_dir (the same math
-// one direction after the other, used there for H = 512 / 1024). Per
-// direction d and step t:
+// kernel _fwd_kernel); ::_fwd_impl_dir (the same math one direction after
+// the other, used there for H = 512 / 1024) has a kernel of its own, the
+// per-direction forward at the end of this note. Per direction d and step t:
 //   gh = h_cd @ W_hh[d]_cd + b_hh[d]          (f32 accumulation)
 //   r = sig(gi_r + gh_r); z = sig(gi_z + gh_z); n = tanh(gi_n + r * gh_n)
 //   h' = (1 - z) * n + z * h                  (h carried in f32)
@@ -98,6 +98,26 @@
 // = B to 32, zeros in the padding; so every chunk is whole and 16-byte
 // aligned, any H and B are taken, and only the last step's writes mask
 // the ragged edge.
+//
+// Per-direction forward (replaces ::_fwd_impl_dir, the Pallas kernel
+// _fwd_kernel_dir): the forward counterpart of the step launches above.
+// What bounds it: the same sequential dependence; per step, gh = h_cd[t-1]
+// . W_cd reads all of W_hh from L2. The fused forward's layout (a block per
+// direction and 4 batch rows, W_hh read as scalars) left 100 SMs idle:
+// 20 ms at H = 1024, B = 64, 4x cuDNN. Design: one launch per time step
+// (the host function loops t = 0 .. T-1) over the same 32-unit x 32-row x
+// direction blocks. Step t in a block: gh = h_cd[t-1] . W_cd[:, the
+// block's 32 units of each gate] over K = Hp, through the 3-deep cp.async
+// pipeline (mma.sync at bf16, SIMT f32 FMAs at f32); then the gates with
+// b_hh added after the product and the f32 carry read from ys[t-1] (h0 at
+// t = 0); then ys[t] (f32) and h_cd[t], rounded, into a zero-padded
+// ping-pong buffer that every block of step t+1 reads whole. W_hh goes in
+// transposed, laid out once per call as (ND, 3 Hp, Hp), so that the
+// block's 3 x 32 gate rows are K-contiguous and the mma B fragments load as
+// 32-bit pairs (as the backward's carry product does); the backward's
+// (Hp, 3 Hp) layout would need 16-bit scalar packing (the gh launch's) or
+// ldmatrix.trans on the step's critical path. The copy is ~12 MB at H =
+// 1024, once per call.
 #include "common.cuh"
 
 namespace {
@@ -428,7 +448,8 @@ struct DirTile {
   static constexpr int kVec = 16 / sizeof(W);  // elements per 16-byte copy; also the row padding
   static constexpr int kLdA = kKC + kVec;      // A rows, and B rows of the carry product
   static constexpr int kLdB2 = 3 * kU + kVec;  // B rows of the gh product (one per k)
-  static constexpr int kBSize = kKC * kLdB2 > kU * kLdA ? kKC * kLdB2 : kU * kLdA;
+  // B: K rows of 3 kU columns, or up to 3 kU rows of K (the forward's W^T)
+  static constexpr int kBSize = kKC * kLdB2 > 3 * kU * kLdA ? kKC * kLdB2 : 3 * kU * kLdA;
   static constexpr int kStage = kBB * kLdA + kBSize;  // elements of one pipeline stage
   // the shared memory of a block: the stages, then the product in f32
   static constexpr size_t kSmem =
@@ -463,25 +484,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using w2vb::ld_pair;
+using w2vb::mma_bf16;
+
 __device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
-// The two products share one pipeline. NK (the carry product): B is kU
-// rows of W, K contiguous. !NK (the gh product): B is K rows of W, of which
-// the kU columns at g * seg (g = 0, 1, 2) are taken: N = 3 kU. A is kBB rows.
-template <typename W, bool NK>
+// The products share one pipeline; N = NG kU columns in NG segments of kU.
+// NK (the backward's carry product, NG = 1; the forward's gh, NG = 3): B is
+// N rows, K contiguous, segment g's kU rows at row g * seg of Bm. !NK (the
+// backward's gh, NG = 3): B is K rows of W, of which the kU columns at
+// column g * seg are taken. A is kBB rows.
+template <typename W, bool NK, int NG>
 __device__ __forceinline__ void load_chunk(W* st, const W* A, int lda, const W* Bm, int ldb,
                                            int seg, int c) {
   using L = DirTile<W>;
@@ -494,12 +510,12 @@ __device__ __forceinline__ void load_chunk(W* st, const W* A, int lda, const W* 
     cp_async16(as + r * L::kLdA + q, A + (size_t)r * lda + k0 + q);
   }
   if constexpr (NK) {
-    for (int p = threadIdx.x; p < kU * kPerRow; p += kDirThreads) {
+    for (int p = threadIdx.x; p < NG * kU * kPerRow; p += kDirThreads) {
       const int r = p / kPerRow, q = (p % kPerRow) * L::kVec;
-      cp_async16(bs + r * L::kLdA + q, Bm + (size_t)r * ldb + k0 + q);
+      cp_async16(bs + r * L::kLdA + q, Bm + (size_t)((r / kU) * seg + r % kU) * ldb + k0 + q);
     }
   } else {
-    constexpr int kPerK = 3 * kU / L::kVec;
+    constexpr int kPerK = NG * kU / L::kVec;
     for (int p = threadIdx.x; p < L::kKC * kPerK; p += kDirThreads) {
       const int kk = p / kPerK, col = (p % kPerK) * L::kVec;
       cp_async16(bs + kk * L::kLdB2 + col,
@@ -509,8 +525,8 @@ __device__ __forceinline__ void load_chunk(W* st, const W* A, int lda, const W* 
 }
 
 // bf16: warp w takes rows 16 (w / 2) .. +16 and units 16 (w % 2) .. +16 (of
-// each gate for !NK): n-tile j covers columns (j / 2) kU + 16 (w % 2) + 8 (j % 2).
-template <bool NK>
+// each segment): n-tile j covers columns (j / 2) kU + 16 (w % 2) + 8 (j % 2).
+template <bool NK, int NG>
 __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* acc) {
   using L = DirTile<__nv_bfloat16>;
   const __nv_bfloat16* as = st;
@@ -526,7 +542,7 @@ __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* ac
     af[2] = ld_pair(ap + 8);
     af[3] = ld_pair(ap + 8 * L::kLdA + 8);
 #pragma unroll
-    for (int j = 0; j < (NK ? 2 : 6); ++j) {
+    for (int j = 0; j < 2 * NG; ++j) {
       const int n = (j >> 1) * kU + nu + 8 * (j & 1) + gq;
       uint32_t bf[2];
       if constexpr (NK) {
@@ -544,11 +560,11 @@ __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* ac
 }
 
 // f32: thread i takes rows 2 (i / 8), +1 and units i % 8 + 8 j (j < 4; of
-// each gate for !NK); acc[j] row 2 (i / 8), acc[nj + j] the next row.
-template <bool NK>
+// each segment); acc[j] row 2 (i / 8), acc[nj + j] the next row.
+template <bool NK, int NG>
 __device__ __forceinline__ void compute_chunk(const float* st, float* acc) {
   using L = DirTile<float>;
-  constexpr int nj = NK ? 4 : 12;
+  constexpr int nj = 4 * NG;
   const float* as = st;
   const float* bs = st + kBB * L::kLdA;
   const int r0 = (threadIdx.x >> 3) * 2, u0 = threadIdx.x & 7;
@@ -565,13 +581,13 @@ __device__ __forceinline__ void compute_chunk(const float* st, float* acc) {
   }
 }
 
-template <typename W, bool NK>
+template <typename W, int NG>
 __device__ __forceinline__ void store_acc(const float* acc, float* C, int ldc) {
   if constexpr (sizeof(W) == 2) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
     const int row = 16 * (warp >> 1) + gq;
 #pragma unroll
-    for (int j = 0; j < (NK ? 2 : 6); ++j) {
+    for (int j = 0; j < 2 * NG; ++j) {
       const int col = (j >> 1) * kU + 16 * (warp & 1) + 8 * (j & 1) + 2 * tq;
       C[row * ldc + col] = acc[4 * j];
       C[row * ldc + col + 1] = acc[4 * j + 1];
@@ -579,7 +595,7 @@ __device__ __forceinline__ void store_acc(const float* acc, float* C, int ldc) {
       C[(row + 8) * ldc + col + 1] = acc[4 * j + 3];
     }
   } else {
-    constexpr int nj = NK ? 4 : 12;
+    constexpr int nj = 4 * NG;
     const int r0 = (threadIdx.x >> 3) * 2, u0 = threadIdx.x & 7;
 #pragma unroll
     for (int j = 0; j < nj; ++j) {
@@ -591,17 +607,17 @@ __device__ __forceinline__ void store_acc(const float* acc, float* C, int ldc) {
 }
 
 // C = A . B over nchunks chunks of K (see load_chunk), into shared memory
-template <typename W, bool NK>
+template <typename W, bool NK, int NG>
 __device__ void block_product(W* stage, const W* A, int lda, const W* Bm, int ldb, int seg,
                               int nchunks, float* C, int ldc) {
   using L = DirTile<W>;
   constexpr int kStage = L::kStage;
-  float acc[NK ? 8 : 24];
+  float acc[8 * NG];
 #pragma unroll
-  for (int j = 0; j < (NK ? 8 : 24); ++j) acc[j] = 0.f;
+  for (int j = 0; j < 8 * NG; ++j) acc[j] = 0.f;
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
-    if (c < nchunks) load_chunk<W, NK>(stage + c * kStage, A, lda, Bm, ldb, seg, c);
+    if (c < nchunks) load_chunk<W, NK, NG>(stage + c * kStage, A, lda, Bm, ldb, seg, c);
     cp_async_commit();
   }
   for (int c = 0; c < nchunks; ++c) {
@@ -609,13 +625,13 @@ __device__ void block_product(W* stage, const W* A, int lda, const W* Bm, int ld
     __syncthreads();  // chunk c is in; every thread is done with chunk c - 1's stage
     const int nxt = c + kStages - 1;
     if (nxt < nchunks)
-      load_chunk<W, NK>(stage + (nxt % kStages) * kStage, A, lda, Bm, ldb, seg, nxt);
+      load_chunk<W, NK, NG>(stage + (nxt % kStages) * kStage, A, lda, Bm, ldb, seg, nxt);
     cp_async_commit();
-    compute_chunk<NK>(stage + (c % kStages) * kStage, acc);
+    compute_chunk<NK, NG>(stage + (c % kStages) * kStage, acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the stages are free for the next product
-  store_acc<W, NK>(acc, C, ldc);
+  store_acc<W, NG>(acc, C, ldc);
 }
 
 // hpc[t, d, b, k] = hprev (ys[t-1], h0 at t = 0) in the compute dtype; 0 in the padding
@@ -650,8 +666,8 @@ __global__ void __launch_bounds__(kDirThreads) gru_dir_gh_kernel(DirArgs<W> a) {
   const int H3p = 3 * a.Hp;
   const W* wd = a.w + (size_t)d * a.Hp * H3p;
   const size_t row0 = ((size_t)t * a.ND + d) * a.Bp + b0;
-  block_product<W, false>(stage, a.hpc + row0 * a.Hp, a.Hp, wd + i0, H3p, a.Hp, a.Hp / L::kKC, c2,
-                          kLdC2);
+  block_product<W, false, 3>(stage, a.hpc + row0 * a.Hp, a.Hp, wd + i0, H3p, a.Hp, a.Hp / L::kKC, c2,
+                             kLdC2);
   __syncthreads();
   for (int e = threadIdx.x; e < kBB * 3 * kU; e += kDirThreads) {
     const int r = e / (3 * kU), col = e % (3 * kU);
@@ -672,8 +688,8 @@ __global__ void __launch_bounds__(kDirThreads) gru_dir_bwd_step_kernel(DirArgs<W
   const bool first = t == a.T - 1;  // no carry yet
   if (!first) {  // (a) c1 = dgh_cd[t+1] . W[S, :]^T
     const W* arows = a.dghc + ((size_t)(((t + 1) & 1) * a.ND + d) * a.Bp + b0) * H3p;
-    block_product<W, true>(stage, arows, H3p, wd + (size_t)i0 * H3p, H3p, 0, H3p / L::kKC, c1,
-                           kLdC1);
+    block_product<W, true, 1>(stage, arows, H3p, wd + (size_t)i0 * H3p, H3p, 0, H3p / L::kKC, c1,
+                              kLdC1);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kBB * kU; e += kDirThreads) {
@@ -747,6 +763,70 @@ int launch_dir_bwd(const DirArgs<W>& a, cudaStream_t s) {
   return 0;
 }
 
+// ---- per-direction forward: one launch per step (header note above) ----
+
+template <typename W>
+struct DirFwdArgs {
+  const float* gi;    // (T, ND, B, 3H)
+  const W* wt;        // (ND, 3 Hp, Hp): W_hh^T in the compute dtype, gate g's rows at g Hp
+  const float* b_hh;  // (ND, 3H)
+  const float* h0;    // (ND, B, H)
+  W* hc;              // (2, ND, Bp, Hp): h in the compute dtype, ping-pong (h0 in slot 0), zero padded
+  float* ys;          // (T, ND, B, H)
+  int T, ND, B, H, Bp, Hp;
+};
+
+// Step t: gh = h_cd[t-1] . W_cd[:, the block's units of each gate], then the
+// gates; writes ys[t] and h_cd[t] (slot (t + 1) & 1)
+template <typename W>
+__global__ void __launch_bounds__(kDirThreads) gru_dir_fwd_step_kernel(DirFwdArgs<W> a, int t) {
+  using L = DirTile<W>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stage = reinterpret_cast<W*>(smem_raw);
+  float* c = reinterpret_cast<float*>(smem_raw + (size_t)kStages * L::kStage * sizeof(W));
+  const int i0 = blockIdx.x * kU, b0 = blockIdx.y * kBB, d = blockIdx.z;
+  const int H = a.H, H3 = 3 * H, Hp = a.Hp;
+  const W* arows = a.hc + ((size_t)((t & 1) * a.ND + d) * a.Bp + b0) * Hp;
+  block_product<W, true, 3>(stage, arows, Hp, a.wt + ((size_t)d * 3 * Hp + i0) * Hp, Hp, Hp,
+                            Hp / L::kKC, c, kLdC2);
+  __syncthreads();
+  W* hn = a.hc + (size_t)(((t + 1) & 1) * a.ND + d) * a.Bp * Hp;
+  const float* bh = a.b_hh + (size_t)d * H3;
+  for (int e = threadIdx.x; e < kBB * kU; e += kDirThreads) {
+    const int r = e / kU, u = e % kU;
+    const int b = b0 + r, i = i0 + u;
+    if (b >= a.B || i >= H) continue;
+    const size_t row = ((size_t)t * a.ND + d) * a.B + b;
+    const float* gr = a.gi + row * H3;
+    const float* cr = c + r * kLdC2 + u;
+    const float gh_n = cr[2 * kU] + bh[2 * H + i];
+    const float rg = w2vb::sigmoidf(gr[i] + (cr[0] + bh[i]));
+    const float z = w2vb::sigmoidf(gr[H + i] + (cr[kU] + bh[H + i]));
+    const float n = tanhf(gr[2 * H + i] + rg * gh_n);
+    const float hprev = t > 0 ? a.ys[(row - (size_t)a.ND * a.B) * H + i]
+                              : a.h0[((size_t)d * a.B + b) * H + i];
+    const float h = (1.f - z) * n + z * hprev;
+    a.ys[row * H + i] = h;
+    hn[(size_t)b * Hp + i] = w2vb::from_f32<W>(h);
+  }
+}
+
+template <typename W>
+int launch_dir_fwd(const DirFwdArgs<W>& a, cudaStream_t s) {
+  using L = DirTile<W>;
+  if (a.Hp % 64 || a.Bp % kBB || a.Hp < a.H || a.Bp < a.B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = w2vb::allow_smem(gru_dir_fwd_step_kernel<W>, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.H + kU - 1) / kU, a.Bp / kBB, a.ND);
+  for (int t = 0; t < a.T; ++t) {
+    gru_dir_fwd_step_kernel<W><<<grid, kDirThreads, L::kSmem, s>>>(a, t);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // w_bf16: W_hh is bf16 (compute dtype bfloat16) rather than f32.
@@ -770,6 +850,24 @@ extern "C" int w2vb_gru_bwd(const float* gi, const void* w_hh, const void* w_t, 
     return launch_bwd<__nv_bfloat16>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND,
                                      B, H, s);
   return launch_bwd<float>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, s);
+}
+
+// Per-direction forward (ys; DirFwdArgs above for the layouts). wt and hc
+// are in the compute dtype (w_bf16); hc must hold h0 in slot 0 and zeros in
+// its padding. Hp % 64 == 0, Bp % 32 == 0.
+extern "C" int w2vb_gru_dir_fwd(const float* gi, const void* wt, int w_bf16, const float* b_hh,
+                                const float* h0, void* hc, float* ys, int T, int ND, int B, int H,
+                                int Bp, int Hp, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_bf16) {
+    using W = __nv_bfloat16;
+    const DirFwdArgs<W> a{gi, static_cast<const W*>(wt), b_hh, h0, static_cast<W*>(hc), ys,
+                          T, ND, B, H, Bp, Hp};
+    return launch_dir_fwd(a, s);
+  }
+  const DirFwdArgs<float> a{gi, static_cast<const float*>(wt), b_hh, h0, static_cast<float*>(hc), ys,
+                            T, ND, B, H, Bp, Hp};
+  return launch_dir_fwd(a, s);
 }
 
 // Per-direction backward (dgi, dgh, dh0; DirArgs above for the layouts).

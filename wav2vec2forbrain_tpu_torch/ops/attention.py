@@ -17,8 +17,11 @@ frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
 the kernel, the plain versions and the JAX package all drop the same
 probabilities.
 
-The forward kernel holds a head's K and V in shared memory, so it takes T
-up to 393 at D = 64; the backward kernels stream tiles and take any T.
+The forward has two kernels, chosen by shape (`_fwd_streams`): where a
+head's K and V fit in shared memory (T up to 393 at D = 64) one block holds
+them; beyond that a second kernel streams 64-key tiles in two passes (any T
+at D <= 128). The backward is two launches that stream tiles (any T, D <=
+128): on the tensor cores at bf16 compute, SIMT FMAs at f32 compute.
 """
 
 import math
@@ -32,7 +35,7 @@ from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 _MAX_SMEM = 227 * 1024
 _WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the forward kernel
-_BWD_MAX_HEAD_DIM = 128  # the backward kernels' columns per lane (4) x 32; any T
+_MAX_HEAD_DIM = 128  # the streaming kernels' widest head (SIMT: 4 columns per lane x 32); any T
 
 
 def _heads(x, num_heads, cd):
@@ -111,20 +114,26 @@ def _dropout_args(dropout_rate, seed):
     return int(seed), float(keep), float(1.0 / keep)
 
 
+def _fwd_streams(t, d):
+    """Whether the forward streams key tiles: the kernel that holds a head's K
+    and V (f32) in shared memory, with 4 x 4 rows of q and p, does not fit."""
+    return (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4 > _MAX_SMEM
+
+
 def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
     _check("mha_fused_bth", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
-    smem = (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"mha_fused_bth: T={t}, D={d} needs {smem} B of shared memory (> 227 KB)")
+    streams = _fwd_streams(t, d)
+    if streams and d > _MAX_HEAD_DIM:
+        raise ValueError(f"mha_fused_bth: head dim {d} > {_MAX_HEAD_DIM} at T={t}")
     kernels.require_cuda("mha_fused_bth", q, k, v)
     o = torch.empty_like(q)
     lib = kernels.lib()
     with torch.cuda.device(q.device):
         code = lib.w2vb_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(streams),
             b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
             kernels.stream_of(q),
         )
@@ -137,8 +146,8 @@ def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed)
     _check("mha_fused_bth backward", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
-    if d > _BWD_MAX_HEAD_DIM:
-        raise ValueError(f"mha_fused_bth backward: head dim {d} > {_BWD_MAX_HEAD_DIM}")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"mha_fused_bth backward: head dim {d} > {_MAX_HEAD_DIM}")
     g = g.to(q.dtype).contiguous()
     kernels.require_cuda("mha_fused_bth backward", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -16,15 +16,16 @@ needs lane-aligned gates; its backward takes H <= 2400.
 
 `gru_recurrence_dir` is the counterpart of the JAX package's per-direction
 variant (::gru_recurrence_dir, which it runs for H = 512 / 1024). Its
-forward is the fused entry's kernel, for any H <= 3584 (counted as
-"gru_dir"). Its backward ("gru_dir_bwd") is a kernel of its own that runs
-one launch per time step over (H / 32) x (B / 32) x 2 blocks and computes
-dgi and dh0; dW_hh and db_hh follow, as in JAX (::_vjp_bwd_dir), from an
-f32 product over all steps outside the kernel (`gru_dir_dw_db`), with hprev
-and dgh not rounded, where `gru_recurrence` rounds them to the compute
-dtype (the JAX `_mm` inside `_bwd_kernel`). At f32 compute the two entries
-compute the same function. LAUNCHES["gru_dir_bwd"] counts entry calls that
-launched the kernel, not its per-step launches.
+forward ("gru_dir") and backward ("gru_dir_bwd") are kernels of their own
+that run one launch per time step over (H / 32) x (B / 32) x 2 blocks, at
+any H and B (padded to Hp, Bp; the forward takes W_hh transposed,
+`dir_fwd_weight`). The backward computes dgi and dh0; dW_hh and db_hh
+follow, as in JAX (::_vjp_bwd_dir), from an f32 product over all steps
+outside the kernel (`gru_dir_dw_db`), with hprev and dgh not rounded, where
+`gru_recurrence` rounds them to the compute dtype (the JAX `_mm` inside
+`_bwd_kernel`). At f32 compute the two entries compute the same function.
+LAUNCHES["gru_dir"] and ["gru_dir_bwd"] count entry calls that launched
+the kernels, not their per-step launches.
 """
 
 import torch
@@ -33,8 +34,10 @@ from wav2vec2forbrain_tpu_torch.ops import kernels
 
 _MAX_SMEM = 227 * 1024
 _K_BATCH = 4  # batch rows per block of the fused kernels in csrc/gru.cu
-DIR_MAX_HIDDEN = 3584  # the forward kernel's shared memory (4 x _K_BATCH x H f32) at 227 KB
-_DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # per-direction backward: Bp, Hp are multiples of these
+# the fused forward kernel's widest H (shared memory 4 x _K_BATCH x H f32 at
+# 227 KB); models/gru.py routes per direction up to it
+DIR_MAX_HIDDEN = 3584
+_DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # per-direction kernels: Bp, Hp are multiples of these
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,10 +140,12 @@ def _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=True):
     return t, nd, b, h
 
 
-def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, name="gru"):
-    """The forward kernel, counted under `name`: the entry that launched it
-    ("gru" or "gru_dir"; the numbers are the same)."""
-    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, name == "gru")
+def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, per_direction=False):
+    """The forward kernel of the fused entry, or with per_direction that of
+    gru_recurrence_dir (the numbers are the same)."""
+    if per_direction:
+        return _dir_fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype)
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
     if h > DIR_MAX_HIDDEN:
         raise ValueError(f"gru_recurrence: hidden size {h} > {DIR_MAX_HIDDEN} does not fit the kernel")
     w = w_hh.to(compute_dtype).contiguous()
@@ -156,8 +161,8 @@ def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, name="gru"):
             gi.data_ptr(), w.data_ptr(), int(compute_dtype == torch.bfloat16), bias.data_ptr(),
             h0.data_ptr(), ys.data_ptr(), t, nd, b, h, kernels.stream_of(gi),
         )
-    kernels.check(name, code)
-    kernels.LAUNCHES[name] += 1
+    kernels.check("gru", code)
+    kernels.LAUNCHES["gru"] += 1
     return ys
 
 
@@ -194,6 +199,43 @@ def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
 
 def _round_up(n, m):
     return (n + m - 1) // m * m
+
+
+def dir_fwd_weight(w_hh, compute_dtype):
+    """W_hh (D, H, 3H) as the per-direction forward kernel takes it: (D, 3 Hp,
+    Hp) in the compute dtype, row g Hp + j holding gate g's column j of W_hh
+    (K-contiguous), zeros in the padding (Hp = H rounded up to 64)."""
+    nd, h, _ = w_hh.shape
+    hp = _round_up(h, _DIR_HIDDEN_PAD)
+    w = torch.zeros((nd, 3, hp, hp), dtype=compute_dtype, device=w_hh.device)
+    w[:, :, :h, :h] = w_hh.to(compute_dtype).reshape(nd, h, 3, h).permute(0, 2, 3, 1)
+    return w.reshape(nd, 3 * hp, hp)
+
+
+def _dir_fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype):
+    """The per-direction forward kernel (one launch per step): ys (T, D, B,
+    H) f32, any H and B (csrc/gru.cu)."""
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=False)
+    cd, dev = compute_dtype, gi.device
+    hp, bp = _round_up(h, _DIR_HIDDEN_PAD), _round_up(b, _DIR_BATCH_PAD)
+    wt = dir_fwd_weight(w_hh, cd)
+    bias = b_hh.reshape(nd, 3 * h).float().contiguous()
+    gi, h0 = gi.contiguous(), h0.contiguous()
+    kernels.require_cuda("gru_recurrence_dir", gi, wt, bias, h0)
+    ys = torch.empty((t, nd, b, h), dtype=torch.float32, device=dev)
+    if t == 0:
+        return ys
+    hc = torch.zeros((2, nd, bp, hp), dtype=cd, device=dev)  # h_cd ping-pong; padding stays 0
+    hc[0, :, :b, :h] = h0.to(cd)
+    lib = kernels.lib()
+    with torch.cuda.device(dev):
+        code = lib.w2vb_gru_dir_fwd(
+            gi.data_ptr(), wt.data_ptr(), int(cd == torch.bfloat16), bias.data_ptr(), h0.data_ptr(),
+            hc.data_ptr(), ys.data_ptr(), t, nd, b, h, bp, hp, kernels.stream_of(gi),
+        )
+    kernels.check("gru_dir", code)
+    kernels.LAUNCHES["gru_dir"] += 1  # once per entry call, not per step launch
+    return ys
 
 
 def _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
@@ -242,7 +284,7 @@ class _GruRecurrence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, h0, compute_dtype, per_direction):
         if gi.is_cuda:
-            ys = _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, "gru_dir" if per_direction else "gru")
+            ys = _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, per_direction)
         else:
             ys = gru_recurrence_plain(gi, w_hh, b_hh, h0, compute_dtype)
         # the backward recomputes the gates from ys, as the JAX _vjp_fwd saves it
@@ -266,7 +308,7 @@ def gru_recurrence(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
 
 
 def gru_recurrence_dir(gi, w_hh, b_hh, h0, compute_dtype=torch.float32):
-    """gru_recurrence with the per-direction variant's backward and its f32
+    """gru_recurrence with the per-direction variant's kernels and its f32
     dW_hh product (counterpart of the JAX gru_recurrence_dir; see the
-    module docstring). Any H <= DIR_MAX_HIDDEN on CUDA tensors."""
+    module docstring). Any H and B on CUDA tensors."""
     return _GruRecurrence.apply(gi, w_hh, b_hh, h0, compute_dtype, True)

@@ -56,10 +56,12 @@ _SIGNATURES = {
     "w2vb_gru_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # gi, w_hh, w_t, w_bf16, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, stream
     "w2vb_gru_bwd": [_vp, _vp, _vp, _i] + [_vp] * 9 + [_i] * 4 + [_vp],
+    # gi, wt, w_bf16, b_hh, h0, hc, ys, T, ND, B, H, Bp, Hp, stream
+    "w2vb_gru_dir_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _vp] + [_i] * 6 + [_vp],
     # gi, w, w_bf16, b_hh, h0, ys, g, hpc, dghc, dhz, gh, dgi, dgh, dh0, T, ND, B, H, Bp, Hp, stream
     "w2vb_gru_dir_bwd": [_vp, _vp, _i] + [_vp] * 11 + [_i] * 6 + [_vp],
-    # q, k, v, o, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
-    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 6 + [_f, _i, _f, _f, _vp],
+    # q, k, v, o, io_bf16, cd_bf16, stream_keys, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
+    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 7 + [_f, _i, _f, _f, _vp],
     # q, k, v, g, dq, dk, dv, stats, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob,
     # inv_keep, stream
     "w2vb_attention_bwd": [_vp] * 8 + [_i] * 6 + [_f, _i, _f, _f, _vp],
