@@ -18,17 +18,23 @@ Phases, each of which exits nonzero on failure:
      without its f32 dW product); attention at T'=89, B=32, 16 heads, scale
      1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8 and scale 1
      (wav2vec2-base), with dropout 0 and 0.1 against the dense version with
-     the same seed (the backward on the tensor cores at bf16 compute), at
-     T'=169 (about 700 frames) and at T'=400, B=8 (about 1,600 frames, past
-     the 393 where the forward switches to its streaming kernel); the
-     LayerNorm at both encoders' shapes with an f32 and a bf16 stream.
-     Each row: max-abs error beside its tolerance, the median time of
-     kernel vs plain (CUDA events, after warm-up, L2 warm), the bound (the
-     larger of the bytes over 3.35 TB/s and the operations over the peak
-     rate of their type) and, where one PyTorch call computes the same
-     function, that call's time (SDPA at rate 0, F.layer_norm, and for the
-     GRU a bidirectional cuDNN nn.GRU fed gi through an identity W_ih: an
-     upper bound, as it adds that projection).
+     the same seed (forward and backward on the tensor cores at bf16
+     compute, SIMT at f32 compute), at T'=169 (about 700 frames) and at
+     T'=400, B=8 (about 1,600 frames: the tensor-core forward streams its
+     key tiles there, and at f32 compute the SIMT forward switches to its
+     streaming kernel past T'=393); the LayerNorm at both encoders' shapes
+     with an f32 and a bf16 stream (the vector kernel at C 768 and 1024).
+     Each row: max-abs error beside its tolerance; the kernel's device time
+     with the queue kept full (`device_ms`: calls queued behind a spin
+     kernel run back to back, so the host's launch overhead drops out) and
+     its time per lone call (CUDA events around one call after the queue
+     drained, the host's launch overhead included); the plain
+     version's time per call; the bound (the larger of the bytes over 3.35
+     TB/s and the operations over the peak rate of their type) and, where
+     one PyTorch call computes the same function, that call's time both ways
+     (SDPA at rate 0, F.layer_norm, and for the GRU a bidirectional cuDNN
+     nn.GRU fed gi through an identity W_ih: an upper bound, as it adds
+     that projection). L2 warm throughout.
   3. conformer serving: the full-width conformer-rope-large serving forward
      (24 layers, d=1024; random weights from a fixed seed) answers 4
      requests of 32 samples x 384 frames through predict.py with the `auto`
@@ -158,6 +164,53 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+_SPIN_MS_PER_CYCLE = []  # device ms per cycle of torch.cuda._sleep, measured once
+
+
+def device_ms(fn, reps: int = 10, trials: int = 5) -> float:
+    """Device time of fn() in ms with the queue kept full: the stream is held
+    by a spin kernel while reps calls are queued behind it, so the calls run
+    back to back and the host's launch overhead drops out (as it does in a
+    device-bound step). Median over trials of (end - start) / reps. A trial
+    in which queueing took longer on the host clock than the spin lasted on
+    the device is run again with a longer spin; after the longest one it is
+    kept, with a note: either the launch queue was full (many launches a
+    call, as the per-direction GRU's: the device was busy throughout) or
+    the host was slower than the device (host time is in it)."""
+    import torch
+
+    if not _SPIN_MS_PER_CYCLE:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        b.synchronize()
+        _SPIN_MS_PER_CYCLE.append(a.elapsed_time(b) / 20_000_000)
+        print(f"  (device_ms: a spin of 2e7 cycles holds the stream {a.elapsed_time(b):.3f} ms)")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times, spin = [], 5_000_000
+    while len(times) < trials:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        starved = 1e3 * (time.perf_counter() - t0) > spin * _SPIN_MS_PER_CYCLE[0]
+        end.synchronize()
+        if starved and spin < 500_000_000:
+            spin *= 4
+            continue
+        if starved:
+            print("  (device_ms: queueing outlasted the longest spin: a full launch queue, or host time included)")
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -201,17 +254,20 @@ def compare(name, label, kernel_fn, plain_fn, tol_of, results, inputs, flops, li
             err, tol = e, t
     bound, bound_by = bound_ms(nbytes(*inputs, *outs), flops)
     del outs, refs
-    ms = timed_ms(kernel_fn)
+    ms = device_ms(kernel_fn)
+    call_ms = timed_ms(kernel_fn)
     plain_ms = timed_ms(plain_fn, iters=5, warmup=1)
-    library_ms = None if library_fn is None else timed_ms(library_fn)
+    library_ms = None if library_fn is None else device_ms(library_fn)
+    library_call_ms = None if library_fn is None else timed_ms(library_fn)
     torch.cuda.synchronize()
-    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-    print(f"  {name:13s} {label:42s} max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms{lib}  bound {bound:.4f} ms ({bound_by})  {'ok' if ok else 'MISMATCH'}")
+    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms (call {library_call_ms:.4f})"
+    print(f"  {name:13s} {label:42s} max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms "
+          f"(call {call_ms:.4f})  plain {plain_ms:.4f} ms{lib}  bound {bound:.4f} ms ({bound_by})  "
+          f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} [{label}]: kernel disagrees with its plain version ({err} > {tol})")
-    results.append(dict(name=name, label=label, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=bound_by, library_ms=library_ms))
+    results.append(dict(name=name, label=label, err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
 
 
 def cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys):
@@ -447,11 +503,14 @@ def kernel_phases(dev, results):
     preproc_rows(g_w2v, 64, 1.5)
     attention_rows(g_w2v, 64, 12, 1.0, 0.125)
     # 7. attention at T'=169 (B=32, 16 heads: the conformer's shape at ~700 frames) and at T'=400 (B=8,
-    # ~1,600 frames: the streaming forward), the training setting
+    # ~1,600 frames: key tiles streamed), the training setting; at T'=400 also at f32 compute (the
+    # streaming SIMT forward)
     attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169,
                    only=(f32, bf16, 0.1))
     attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400,
                    only=(f32, bf16, 0.1))
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400,
+                   only=(f32, f32, 0.1))
 
 
 def _spec_and_batch(family):
@@ -791,6 +850,7 @@ def main() -> None:
             "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in mine),
             "ms": at["ms"],
+            "call_ms": at["call_ms"],
             "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"],

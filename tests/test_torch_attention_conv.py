@@ -77,15 +77,36 @@ def test_dense_attention_matches_jax_at_a_long_sequence(rate):
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("t,streams", [(89, False), (393, False), (394, True), (400, True)])
+@pytest.mark.parametrize("t,streams", [(1, False), (89, False), (169, False), (393, False), (394, True),
+                                       (400, True), (700, True)])
 def test_attention_fwd_wrapper_takes_any_sequence_length(t, streams):
-    """The forward wrapper chooses its kernel by shape (the one holding K and
-    V in shared memory up to T = 393 at D = 64, the streaming one beyond)
-    and refuses only operands that are not on a card, never a length."""
+    """The forward wrapper chooses its kernel by compute dtype and shape: at
+    bf16 compute the tensor-core kernel at every T (head dims 64 and 80
+    alike), at f32 compute the SIMT one holding K and V in shared memory up
+    to T = 393 at D = 64 and the streaming one beyond. It refuses only
+    operands that are not on a card, never a length."""
     assert port_attn._fwd_streams(t, 64) is streams
+    for d in (64, 80):
+        assert port_attn._fwd_route(t, d, torch.bfloat16) == "mma"
+    assert port_attn._fwd_route(t, 64, torch.float32) == ("stream" if streams else "resident")
     q = torch.zeros((1, t, 128))
+    for cd in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.1, cd, 0)
+
+
+def test_attention_fwd_wrapper_refuses_heads_its_kernels_do_not_take():
+    """Heads wider than 128: the tensor-core kernel (bf16 compute) refuses
+    them at every T, the f32 kernels only where they stream (the resident
+    SIMT kernel takes any D whose K and V fit)."""
+    q = torch.zeros((1, 89, 2 * 192))
+    with pytest.raises(ValueError, match="head dim 192"):
+        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.bfloat16, 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.1, torch.bfloat16, 0)
+        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.float32, 0)
+    q = torch.zeros((1, 400, 2 * 192))
+    with pytest.raises(ValueError, match="head dim 192"):
+        port_attn._fwd_kernel(q, q, q, 2, 0.125, 0.0, torch.float32, 0)
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
@@ -139,7 +160,8 @@ def test_cuda_attention_kernel_matches_plain(sd, cd):
                                    (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
 def test_cuda_attention_kernel_long_sequences_match_plain(t, sd, cd, rate):
-    """The streaming forward kernel (T' past 393 at D = 64), 16 heads of 64."""
+    """The forward past T' = 393, 16 heads of 64: at f32 compute the
+    streaming SIMT kernel, at bf16 compute the tensor-core one."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(t)
     q, k, v = (torch.randn((2, t, 1024), generator=g, device=dev).to(sd) for _ in range(3))
@@ -147,6 +169,44 @@ def test_cuda_attention_kernel_long_sequences_match_plain(t, sd, cd, rate):
     ref = port_attn.mha_dense_bth(q, k, v, 16, 0.125, rate, cd, 5)
     atol = 2e-5 if cd == torch.float32 else 2.0**-6 * max(1.0, ref.float().abs().max().item())
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def _bf16_tol(ref):
+    """chip_smoke's bf16 tolerance: two bf16 ulps of the largest output."""
+    return 2.0**-6 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [89, 169, 400, 700])
+@pytest.mark.parametrize("sd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("d", [64, 80, 100])
+def test_cuda_attention_mma_fwd_matches_plain(t, sd, rate, d):
+    """The tensor-core forward (bf16 compute) against mha_dense_bth, B 2:
+    T' 89 and 169 with the key tiles resident (at D 64), 400 and 700
+    streamed; head dims 64 (16 heads), 80 (padded to 128 columns) and 100
+    (not a multiple of 8: scalar loads and stores), 8 heads."""
+    dev = _cuda()
+    heads = 16 if d == 64 else 8
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    q, k, v = (torch.randn((2, t, heads * d), generator=g, device=dev).to(sd) for _ in range(3))
+    assert port_attn._fwd_route(t, d, torch.bfloat16) == "mma"
+    out = port_attn._fwd_kernel(q, k, v, heads, d**-0.5, rate, torch.bfloat16, 9)
+    ref = port_attn.mha_dense_bth(q, k, v, heads, d**-0.5, rate, torch.bfloat16, 9)
+    assert out.dtype == sd
+    torch.testing.assert_close(out.float(), ref.float(), atol=_bf16_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [89, 400])
+def test_cuda_attention_mma_fwd_is_deterministic(t):
+    """Two runs of the tensor-core forward on the same inputs are bitwise
+    equal (no atomics; every sum in a fixed order)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((4, t, 1024), generator=g, device=dev) for _ in range(3))
+    runs = [port_attn._fwd_kernel(q, k, v, 16, 0.125, 0.1, torch.bfloat16, 21) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda

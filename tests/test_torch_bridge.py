@@ -1,7 +1,10 @@
 """Params bridge between the JAX package and the PyTorch port: round trips
 are bit-exact for the per-layer and the scan-stacked conformer layouts, and
 the port's own init builds the same tree (keys, shapes, fixed values) as the
-JAX init."""
+JAX init. The bridge and the step RNG put their tensors on the card unless
+the caller names another device."""
+
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -10,9 +13,10 @@ import torch
 
 from wav2vec2forbrain_tpu.models import assembly as jax_assembly
 from wav2vec2forbrain_tpu.models.conformer import ConformerEncoderConfig as JaxConformerConfig
-from wav2vec2forbrain_tpu_torch.bridge import params_from_jax, params_to_jax
+from wav2vec2forbrain_tpu_torch.bridge import opt_state_from_jax, params_from_jax, params_to_jax
 from wav2vec2forbrain_tpu_torch.models import assembly as port_assembly
 from wav2vec2forbrain_tpu_torch.models.conformer import ConformerEncoderConfig
+from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 
 torch.set_num_threads(1)
 
@@ -47,7 +51,7 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize("stacked", [False, True], ids=["per_layer", "scan_stacked"])
 def test_round_trip_is_bit_exact(stacked):
     params, state = _jax_tiny(stacked, learnable_h0=True)
-    tp, ts = params_from_jax(params, state)
+    tp, ts = params_from_jax(params, state, device="cpu")
     assert len(tp["w2v"]["encoder"]["layers"]) == 2
     assert isinstance(tp["brain"]["gru"]["layers"][0]["directions"][0]["w_hh"], torch.Tensor)
     back_p, back_s = params_to_jax(tp, ts, stacked=stacked)
@@ -60,8 +64,8 @@ def test_round_trip_is_bit_exact(stacked):
 
 
 def test_stacked_and_per_layer_give_the_same_port_params():
-    pa, sa = params_from_jax(*_jax_tiny(False))
-    pb, sb = params_from_jax(*_jax_tiny(True))
+    pa, sa = params_from_jax(*_jax_tiny(False), device="cpu")
+    pb, sb = params_from_jax(*_jax_tiny(True), device="cpu")
     fa, fb = _flat((pa, sa)), _flat((pb, sb))
     assert fa.keys() == fb.keys()
     for key in fa:
@@ -90,3 +94,38 @@ def test_port_init_matches_jax_tree_and_fixed_values():
     assert np.abs(w_ih).max() <= 1.0 / np.sqrt(128)
     fc = ft["/0/brain/fc/layers/0/kernel"]
     assert np.abs(fc).max() <= 1.0 / np.sqrt(256) and np.abs(fc).max() > 0.5 * bound
+
+
+def test_params_and_step_rng_default_to_the_card():
+    """Without a device argument params_from_jax and StepRng place their
+    tensors on the card; where there is none they raise rather than hand
+    back CPU tensors that predict() and train_batches() would then run on."""
+    params, state = _jax_tiny(False)
+    if torch.cuda.is_available():
+        tp, ts = params_from_jax(params, state)
+        assert all(t.is_cuda for t in _flat((tp, ts)).values())
+        assert StepRng(0).normal((2,), "cuda").is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError)):  # torch built without CUDA, or no card
+        params_from_jax(params, state)
+    with pytest.raises(RuntimeError):
+        StepRng(0)
+    with pytest.raises(RuntimeError):
+        StepRng(replay=[])
+    tp, _ = params_from_jax(params, state, device="cpu")
+    assert not any(t.is_cuda for t in _flat(tp).values())
+    assert StepRng(0, "cpu", replay=[]).normal((2,), "cpu").device.type == "cpu"
+
+
+def test_opt_state_follows_the_device_of_its_params():
+    """opt_state_from_jax puts the moments beside the params it is given
+    unless the caller names a device (an optax-like Adam state: count, mu,
+    nu)."""
+    jax_state = SimpleNamespace(count=np.asarray(2, np.int32), mu={"w": np.full(3, 0.5, np.float32)},
+                                nu={"w": np.full(3, 0.25, np.float32)})
+    moments = opt_state_from_jax(jax_state, {"w": torch.zeros(3)})
+    assert moments.count == 2 and moments.mu["w"].device.type == "cpu"
+    np.testing.assert_array_equal(moments.nu["w"].numpy(), jax_state.nu["w"])
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            opt_state_from_jax(jax_state, {"w": torch.zeros(3)}, device="cuda")

@@ -143,3 +143,25 @@ def test_cuda_kernels_match_plain(shape, dtype):
     for out, r in zip(port_ln._bwd_kernel(x, scale, dy, EPS), port_ln.layer_norm_bwd_plain(x, scale, dy, EPS)):
         assert out.dtype == r.dtype and out.shape == r.shape
         torch.testing.assert_close(out.float(), r.float(), atol=tol(r, 2e-5), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_forward_takes_rows_off_the_16_byte_grid(dtype):
+    """x at C = 768 but 4 or 2 bytes off a 16-byte boundary: the forward
+    takes its generic kernel (scalar loads) and agrees with the plain
+    version as the vector kernel does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (5, 89, 768)
+    flat = (torch.randn(1 + 5 * 89 * 768, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = 1 + 0.3 * torch.randn(768, generator=g, device=dev)
+    bias = 0.2 * torch.randn(768, generator=g, device=dev)
+    y = port_ln._fwd_kernel(x, scale, bias, EPS)
+    ref = port_ln.layer_norm_plain(x, scale, bias, EPS)
+    atol = BF16_ULPS * max(1.0, ref.float().abs().max().item()) if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)

@@ -81,7 +81,7 @@ def test_adam_matches_jax_for_three_steps(wd, mu_dtype, nu_dtype):
     np.testing.assert_array_equal(tparams["brain"]["preproc"]["inp_layers"].numpy(),
                                   params["brain"]["preproc"]["inp_layers"])
     # the JAX state's two groups (one Adam state each), merged through the bridge
-    jmoments = bridge.opt_state_from_jax(jax.device_get(jstate), tparams)
+    jmoments = bridge.opt_state_from_jax(jax.device_get(jstate), tparams, device="cpu")
     assert jmoments.count == 3
     for name, dt in (("mu", mu_dtype), ("nu", nu_dtype)):
         pairs = list(_walk(getattr(jmoments, name), getattr(pstate, name)))

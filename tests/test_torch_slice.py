@@ -89,7 +89,8 @@ def _run_both(compute: str, seed: int = 0):
         "logit_lens": np.asarray(out["logit_lens"]),
         "pred_ids": np.asarray(jnp.argmax(out["logits"], axis=-1)),
     }
-    tp, ts = params_from_jax(jax.tree_util.tree_map(np.asarray, p), jax.tree_util.tree_map(np.asarray, s))
+    tp, ts = params_from_jax(jax.tree_util.tree_map(np.asarray, p), jax.tree_util.tree_map(np.asarray, s),
+                             device="cpu")
     loss, logits, logit_lens, pred_ids, metrics = build_eval_step(tspec)(tp, ts, to_device(batch, "cpu"))
     port_out = {
         "loss": float(loss),

@@ -40,10 +40,10 @@ def test_train_batches_equals_the_steps_by_hand_and_the_jax_train_evaluator():
     batches = make_requests(3, 4, 160, seed=0)
 
     params, state, opt, step = _setup()
-    run = train_batches(step, params, opt.init(params), state, batches, StepRng(5), BRAIN_LR, W2V_LR)
+    run = train_batches(step, params, opt.init(params), state, batches, StepRng(5, "cpu"), BRAIN_LR, W2V_LR)
 
     p2, s2, opt2, step2 = _setup()
-    o2, rng = opt2.init(p2), StepRng(5)
+    o2, rng = opt2.init(p2), StepRng(5, "cpu")
     jax_eval = JaxEvaluator(JaxTokenizer(), "train", lm_decoder=None)
     for host_batch in batches:
         out = step2(p2, o2, s2, to_device(host_batch, "cpu"), rng, BRAIN_LR, W2V_LR)

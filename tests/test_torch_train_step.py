@@ -143,11 +143,11 @@ def _run(variant: str, n_steps: int = 2):
     host = _batch()
     jbatch = B2tBatch(*(None if a is None else jnp.asarray(a) for a in host))
 
-    tp, ts = bridge.params_from_jax(_np(params), _np(state))
+    tp, ts = bridge.params_from_jax(_np(params), _np(state), device="cpu")
     port_labels = port_assembly.param_labels(tp, v["strategy"])
     assert port_labels == bridge.labels_from_jax(labels)
     opt = port_optim.make_optimizer(port_labels, "adam", 0.0, EPS)
-    port_opt_state = bridge.opt_state_from_jax(_np(opt_state), tp)
+    port_opt_state = bridge.opt_state_from_jax(_np(opt_state), tp, device="cpu")
     pcfg = port_steps.StepConfig(v["clip"], 0.0, 0.0)
     grad_fn = port_steps.build_grad_fn(tspec, port_labels, pcfg)
     train_step = port_steps.build_train_step(tspec, port_labels, opt, pcfg)
@@ -180,8 +180,9 @@ def _run(variant: str, n_steps: int = 2):
 
             fwd = jax_seed_streams(k_model, jspec)
             replay = [fwd, ForwardRng(*(SeedStream(seeds=s._seeds, layerdrop=s._layerdrop) for s in fwd))]
-            pout, pgrads, _ = grad_fn(tp, ts, tbatch, StepRng(replay=replay[:1]))
-            tout = train_step(tp, port_opt_state, ts, tbatch, StepRng(replay=replay[1:]), BRAIN_LR, W2V_LR)
+            pout, pgrads, _ = grad_fn(tp, ts, tbatch, StepRng(device="cpu", replay=replay[:1]))
+            tout = train_step(tp, port_opt_state, ts, tbatch, StepRng(device="cpu", replay=replay[1:]),
+                              BRAIN_LR, W2V_LR)
             port_opt_state, ts = tout.opt_state, tout.model_state
             results.append(dict(
                 jax=dict(loss=float(jloss), grads=_np(jgrads), state=_np(jstate),

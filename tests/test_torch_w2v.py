@@ -122,7 +122,7 @@ def _flat(tree, prefix=""):
 def test_w2v_bridge_round_trip_is_bit_exact(stacked):
     params, state = _jax_tiny(stacked)
     assert state == {"encoder": {}}
-    tp, ts = bridge.params_from_jax(params, state)
+    tp, ts = bridge.params_from_jax(params, state, device="cpu")
     enc = tp["w2v"]["encoder"]
     assert len(enc["layers"]) == 2 and ts == {"encoder": {}}
     assert tuple(enc["pos_conv"]["weight_g"].shape) == (1, 1, 16)

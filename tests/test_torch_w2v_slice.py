@@ -84,7 +84,7 @@ def eval_run():
                   targets=batch.target, target_lens=batch.target_lens)
     finally:
         jax_select.set_kernel_policy("auto")
-    tp, ts = bridge.params_from_jax(_np(p), _np(s))
+    tp, ts = bridge.params_from_jax(_np(p), _np(s), device="cpu")
     got = build_eval_step(tspec)(tp, ts, to_device(batch, "cpu"))
     return out, got, (tp, ts, tspec)
 

@@ -7,9 +7,18 @@ Pallas kernel on the ported path is a hand-written CUDA C++ kernel for
 Hopper (`csrc/*.cu`), built with nvcc at first use and bound with ctypes
 (`ops/kernels.py`).
 
-Ported so far: the eval-mode serving forward of `b2p2t_gru+w2v_conformer`
-(preprocessing -> biGRU -> FC -> Wav2Vec2-Conformer-RoPE -> CTC head),
-`train/steps.py::eval_step` and the prediction loop in `predict.py`.
+Ported: both model families, `b2p2t_gru+w2v_conformer`
+(conformer-rope-large) and `b2p2t_gru+w2v` (wav2vec2-base), each
+preprocessing -> biGRU -> FC -> encoder -> CTC head, for serving
+(`predict.py::predict`, `train/steps.py::build_eval_step`) and for train
+steps (`train/steps.py::build_train_step`, the Adam port in
+`train/optim.py`, the loop `train/train_loop.py::train_batches`). All 11
+`pl.pallas_call` sites of the JAX package's `ops/` have a CUDA counterpart,
+forward and backward: preproc, the biGRU (fused and per direction),
+attention with hash dropout, GLU -> depthwise conv and LayerNorm. The
+entry points put their tensors on the card unless the caller names
+another device (`bridge.py`, `models/seeds.py::StepRng`). Not ported: the
+Trainer's epochs and checkpoints, the CLI, LM decoding, multi-GPU.
 
 This package never imports jax, optax, flax, transformers or pydantic.
 """

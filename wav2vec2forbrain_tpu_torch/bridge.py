@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from wav2vec2forbrain_tpu_torch.tree import tree_map
+from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
 
 
 def _unstack(stacked: dict) -> list:
@@ -46,9 +46,11 @@ def _stack(layers: list) -> dict:
     return go(layers)
 
 
-def params_from_jax(params: dict, state: dict, device="cpu") -> Tuple[dict, dict]:
+def params_from_jax(params: dict, state: dict, device="cuda") -> Tuple[dict, dict]:
     """JAX (params, state) as numpy pytrees -> the port's (params, state),
-    tensors on `device`. Accepts per-layer and scan-stacked encoders."""
+    tensors on `device` (the card unless the caller asks for another;
+    raises where there is no card). Accepts per-layer and scan-stacked
+    encoders."""
     params = dict(params)
     w2v = dict(params["w2v"])
     enc = dict(w2v["encoder"])
@@ -121,12 +123,16 @@ def _merge_moments(trees, params, device, dtype_of):
     return go(params, trees)
 
 
-def opt_state_from_jax(jax_opt_state, params: dict, device="cpu"):
+def opt_state_from_jax(jax_opt_state, params: dict, device=None):
     """A JAX optimizer state (make_optimizer's multi_transform over the
     trainable tree, pulled to the host with jax.device_get) -> the port's
-    train/optim.py AdamState for `params` (the port's tree). Moments keep
-    their dtype (f32, or bf16 under --adam_mu_dtype / --adam_nu_dtype)."""
+    train/optim.py AdamState for `params` (the port's tree), its moments on
+    `device`, by default the device of `params`. Moments keep their dtype
+    (f32, or bf16 under --adam_mu_dtype / --adam_nu_dtype)."""
     from wav2vec2forbrain_tpu_torch.train.optim import AdamState
+
+    if device is None:
+        device = tree_leaves(params)[0].device
 
     states = _adam_states(jax_opt_state)
     if not states:

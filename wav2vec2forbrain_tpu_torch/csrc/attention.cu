@@ -22,24 +22,42 @@
 //
 // What bounds it on the H100: nothing big. At the slice's shape (B=32,
 // T=89, 16 heads of 64) one layer's forward reads and writes 4 x 11.7 MB
-// and does ~1 GFLOP; the (T, T) scores of one head are 32 KB. The cost is
-// latency, shared-memory load instructions and the number of blocks in
-// flight.
+// (~14 us at 3.35 TB/s) and does ~1 GFLOP (~1 us on the bf16 tensor cores);
+// the (T, T) scores of one head are 32 KB. The cost is latency: the loads
+// of each block's tiles and the blocks in flight.
 //
-// Forward design: one block (4 warps) per (batch, head), 512 blocks at the
-// slice's shape. The head's K and V (T x 64 each, rounded to the compute
-// dtype, f32) sit in shared memory; K rows are padded to D + 1 floats so
-// that 32 lanes reading 32 different keys hit 32 different banks. Each warp
-// takes four query rows at a time, so every K and V value it reads from
-// shared memory feeds four FMAs: lanes compute the scores of keys lane,
-// lane+32, ... for the four rows into a per-warp buffer, each row's max and
-// sum are warp shuffles (whole-row f32 softmax; the ragged edge of T = 89 is
-// just the loop bound), the dropout mask is hashed in place, and then lanes
-// own output columns and sum p * V over all keys. Scores and probabilities
-// never leave shared memory. Where a head's K and V do not fit (T > 393 at
-// D = 64), the wrapper takes a second kernel that streams 64-key tiles
-// twice, as the dq launch below does: the row max and sum, then p = exp(s -
-// m) / l masked, rounded and summed into p_cd . v_cd (any T, D <= 128).
+// Forward at bf16 compute (the main path): one kernel on the tensor cores
+// (mma.sync.m16n8k16, bf16 inputs, f32 accumulators) for any T' and D <=
+// 128, one block of 4 warps per (64 query rows, head, batch row), 1,024
+// blocks at the slice's shape. Q, K and V are staged in shared memory as
+// bf16, rounded on the way in from an f32 stream, head columns zero-padded
+// to 64 or 128; each warp keeps its 16 rows' Q fragments in registers. A
+// head's key tiles stay resident while the block's shared memory stays under
+// 72 KB (T' <= 192 at D <= 64), else they stream through one tile buffer.
+// Two passes over the key tiles, as the dq launch below: pass 1 S = Q K^T and
+// the row max and sum (RowStats: per thread, then over the 4 threads of a
+// row); pass 2 S again, p = exp(s - m) / l, the mask hashed per accumulator
+// element from its (row, column), rounded to bf16 straight into A fragments,
+// O += P V with V's fragments gathered by ldmatrix.trans. p is normalised
+// before it is rounded, as JAX does (a one-pass FlashAttention rescale would
+// round unnormalised p: another function). S is recomputed in pass 2 even
+// where all keys are resident: keeping it in registers would cost 32
+// registers per 64-key tile and a shape-dependent count of them.
+//
+// Forward at f32 compute (TF32 would change the numbers): SIMT kernels. One
+// block (4 warps) per (batch, head): the head's K and V (T x D each, f32)
+// sit in shared memory; K rows are padded to D + 1 floats so that 32 lanes
+// reading 32 different keys hit 32 different banks. Each warp takes four
+// query rows at a time, so every K and V value it reads from shared memory
+// feeds four FMAs: lanes compute the scores of keys lane, lane+32, ... for
+// the four rows into a per-warp buffer, each row's max and sum are warp
+// shuffles (whole-row f32 softmax; the ragged edge of T = 89 is just the
+// loop bound), the dropout mask is hashed in place, and then lanes own
+// output columns and sum p * V over all keys. Where a head's K and V do not
+// fit (T > 393 at D = 64), the wrapper takes a second kernel that streams
+// 64-key tiles twice: the row max and sum, then p = exp(s - m) / l masked
+// and summed into p . v (any T, D <= 128). Both are bound by
+// shared-memory load instructions of the broadcast q and p rows.
 //
 // Backward at bf16 compute (the main path): two launches on the tensor cores
 // (mma.sync.m16n8k16, bf16 inputs, f32 accumulators), the same split as the
@@ -68,19 +86,18 @@
 // numbers) whose shared memory does not grow with T (any T; D <= 128), no
 // atomics, deterministic.
 //  1. dq, over (query tile of 16 rows, head, batch row); 4 warps of 4 rows,
-//     as in the forward. The block streams 64-key tiles of K and V (rounded
-//     to the compute dtype) through shared memory twice. Pass 1: lanes over
-//     keys compute s and dp = g . v for the warp's 4 rows and keep a
-//     lane-local online softmax max m, sum l and sum of dp * mask * e; warp
-//     shuffles combine the lanes into the row statistics m, l and D_i =
-//     sum_j dp_ij p_ij (dp masked and scaled), written to a (3, B, heads, T)
-//     f32 scratch. Pass 2: p = exp(s - m) / l, ds = p * (dp - D_i) rounded to
-//     the compute dtype into a per-warp buffer, then lanes over columns sum
-//     ds . k for the 4 rows.
+//     as in the forward. The block streams 64-key tiles of K and V through
+//     shared memory twice. Pass 1: lanes over keys compute s and dp = g . v
+//     for the warp's 4 rows and keep a lane-local online softmax max m, sum
+//     l and sum of dp * mask * e; warp shuffles combine the lanes into the
+//     row statistics m, l and D_i = sum_j dp_ij p_ij (dp masked and
+//     scaled), written to a (3, B, heads, T) f32 scratch. Pass 2: p = exp(s
+//     - m) / l, ds = p * (dp - D_i) into a per-warp buffer, then lanes over
+//     columns sum ds . k for the 4 rows.
 //  2. dk and dv, over (key tile of 16 keys, head, batch row); each warp
 //     takes 4 keys. The block streams 32-query tiles of q and g with their
 //     row statistics; lanes over queries recompute s, dp, p and the mask and
-//     store the rounded pd = p * mask / keep and ds, then lanes over columns
+//     store pd = p * mask / keep and ds, then lanes over columns
 //     sum pd^T . g and ds^T . q for the 4 keys.
 // Each score is recomputed three times (the price of shared memory linear
 // in tiles instead of the old kernel's (T, T) tiles, which stopped at T =
@@ -95,7 +112,7 @@ constexpr int kRows = 4;  // query rows a warp takes at once
 template <typename T>
 __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      const T* __restrict__ v, T* __restrict__ o, int Tn, int NH,
-                                     int D, float scale, bool cd_bf16, bool drop, uint32_t seed,
+                                     int D, float scale, bool drop, uint32_t seed,
                                      float keep_prob, float inv_keep) {
   extern __shared__ float sm[];
   const int ldk = D + 1;
@@ -113,8 +130,8 @@ __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restric
     const int r = i / D;
     const int c = i - r * D;
     const size_t g = base + (size_t)r * HD + c;
-    ks[r * ldk + c] = w2vb::round_cd(w2vb::to_f32(k[g]), cd_bf16);
-    vs[r * D + c] = w2vb::round_cd(w2vb::to_f32(v[g]), cd_bf16);
+    ks[r * ldk + c] = w2vb::to_f32(k[g]);
+    vs[r * D + c] = w2vb::to_f32(v[g]);
   }
   __syncthreads();
 
@@ -129,8 +146,7 @@ __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restric
     for (int i = lane; i < kRows * D; i += 32) {
       const int rr = i / D;
       const int c = i - rr * D;
-      qw[i] = rr < nr ? w2vb::round_cd(w2vb::to_f32(q[base + (size_t)(r0 + rr) * HD + c]), cd_bf16)
-                      : 0.f;
+      qw[i] = rr < nr ? w2vb::to_f32(q[base + (size_t)(r0 + rr) * HD + c]) : 0.f;
     }
     __syncwarp();
 
@@ -175,7 +191,7 @@ __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restric
       for (int rr = 0; rr < kRows; ++rr) {
         float p = pw[rr * Tn + c] / sum[rr];
         if (drop) p = w2vb::attn_keep(mix, r0 + rr, c, keep_prob) ? p * inv_keep : 0.f;
-        pw[rr * Tn + c] = w2vb::round_cd(p, cd_bf16);
+        pw[rr * Tn + c] = p;
       }
     }
     __syncwarp();
@@ -204,17 +220,16 @@ constexpr int kKT2 = kWarps * kKeys;  // keys per block there
 constexpr int kQT2 = 32;             // queries per tile it streams, one per lane
 constexpr int kMaxCols = 4;          // head columns per lane: D <= 128
 
-// rows [r0, r0 + n) of one head into shared memory [n][D + 1], rounded to
-// the compute dtype; rows at or past Tn are zero
+// rows [r0, r0 + n) of one head into shared memory [n][D + 1] as f32; rows
+// at or past Tn are zero
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, size_t base, int r0,
-                                          int n, int Tn, int HD, int D, bool cd_bf16) {
+                                          int n, int Tn, int HD, int D) {
   for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
     const int r = i / D;
     const int c = i - r * D;
     dst[r * (D + 1) + c] =
-        r0 + r < Tn ? w2vb::round_cd(w2vb::to_f32(src[base + (size_t)(r0 + r) * HD + c]), cd_bf16)
-                    : 0.f;
+        r0 + r < Tn ? w2vb::to_f32(src[base + (size_t)(r0 + r) * HD + c]) : 0.f;
   }
 }
 
@@ -222,21 +237,19 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
 // at D = 64): one block per (query tile of kQT rows, head, batch row), 4
 // warps of 4 rows, streaming 64-key tiles twice, as the dq kernel does.
 // Pass 1: lane-local online row max and sum over the lane's keys, combined
-// by warp shuffles. Pass 2: p = exp(s - m) / l, masked and scaled, rounded
-// to the compute dtype into a per-warp buffer, then lanes over columns sum
-// p_cd . v_cd. p is normalised before it is rounded, as the JAX kernel does
-// (no single-pass online softmax, which would round unnormalised values).
+// by warp shuffles. Pass 2: p = exp(s - m) / l, masked and scaled, into a
+// per-warp buffer, then lanes over columns sum p . v.
 template <typename T>
 __global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                             const T* __restrict__ v, T* __restrict__ o, int Tn,
-                                            int NH, int D, float scale, bool cd_bf16, bool drop,
+                                            int NH, int D, float scale, bool drop,
                                             uint32_t seed, float keep_prob, float inv_keep) {
   extern __shared__ float sm[];
   const int ld = D + 1;
   float* qs = sm;               // [kQT][D + 1]
   float* ks = qs + kQT * ld;    // [kKT][D + 1]
   float* vs = ks + kKT * ld;    // [kKT][D + 1]
-  float* pb = vs + kKT * ld;    // [kWarps][kRows][kKT] p, rounded to cd
+  float* pb = vs + kKT * ld;    // [kWarps][kRows][kKT] p
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
@@ -245,7 +258,7 @@ __global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __
   const float* qw = qs + warp * kRows * ld;
   float* pw = pb + warp * kRows * kKT;
   const int r0 = q0 + warp * kRows;
-  load_rows(qs, q, base, q0, kQT, Tn, HD, D, cd_bf16);
+  load_rows(qs, q, base, q0, kQT, Tn, HD, D);
 
   auto scores = [&](int jj, float (&s)[kRows]) {
     const float* kr = ks + jj * ld;
@@ -268,7 +281,7 @@ __global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __
   }
   for (int j0 = 0; j0 < Tn; j0 += kKT) {
     __syncthreads();  // the previous tile is done with
-    load_rows(ks, k, base, j0, kKT, Tn, HD, D, cd_bf16);
+    load_rows(ks, k, base, j0, kKT, Tn, HD, D);
     __syncthreads();
     for (int jj = lane; jj < kKT && j0 + jj < Tn; jj += 32) {
       float s[kRows];
@@ -298,8 +311,8 @@ __global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __
     for (int cc = 0; cc < kMaxCols; ++cc) acc[rr][cc] = 0.f;
   for (int j0 = 0; j0 < Tn; j0 += kKT) {
     __syncthreads();
-    load_rows(ks, k, base, j0, kKT, Tn, HD, D, cd_bf16);
-    load_rows(vs, v, base, j0, kKT, Tn, HD, D, cd_bf16);
+    load_rows(ks, k, base, j0, kKT, Tn, HD, D);
+    load_rows(vs, v, base, j0, kKT, Tn, HD, D);
     __syncthreads();
     const int nk = min(kKT, Tn - j0);
     for (int jj = lane; jj < nk; jj += 32) {
@@ -309,7 +322,7 @@ __global__ void attention_fwd_stream_kernel(const T* __restrict__ q, const T* __
       for (int rr = 0; rr < kRows; ++rr) {
         float p = expf(s[rr] - m[rr]) / l[rr];
         if (drop) p = w2vb::attn_keep(mix, r0 + rr, j0 + jj, keep_prob) ? p * inv_keep : 0.f;
-        pw[rr * kKT + jj] = w2vb::round_cd(p, cd_bf16);
+        pw[rr * kKT + jj] = p;
       }
     }
     __syncwarp();
@@ -345,7 +358,7 @@ template <typename T>
 __global__ void attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                         const T* __restrict__ v, const T* __restrict__ g,
                                         T* __restrict__ dq, float* __restrict__ stats, int Tn,
-                                        int NH, int D, float scale, bool cd_bf16, bool drop,
+                                        int NH, int D, float scale, bool drop,
                                         uint32_t seed, float keep_prob, float inv_keep) {
   extern __shared__ float sm[];
   const int ld = D + 1;
@@ -353,7 +366,7 @@ __global__ void attention_bwd_dq_kernel(const T* __restrict__ q, const T* __rest
   float* gs = qs + kQT * ld;     // [kQT][D + 1]
   float* ks = gs + kQT * ld;     // [kKT][D + 1]
   float* vs = ks + kKT * ld;     // [kKT][D + 1]
-  float* dsb = vs + kKT * ld;    // [kWarps][kRows][kKT] ds, rounded to cd
+  float* dsb = vs + kKT * ld;    // [kWarps][kRows][kKT] ds
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
@@ -363,8 +376,8 @@ __global__ void attention_bwd_dq_kernel(const T* __restrict__ q, const T* __rest
   const float* gw = gs + warp * kRows * ld;
   float* dw = dsb + warp * kRows * kKT;
   const int r0 = q0 + warp * kRows;
-  load_rows(qs, q, base, q0, kQT, Tn, HD, D, cd_bf16);
-  load_rows(gs, g, base, q0, kQT, Tn, HD, D, cd_bf16);
+  load_rows(qs, q, base, q0, kQT, Tn, HD, D);
+  load_rows(gs, g, base, q0, kQT, Tn, HD, D);
 
   // s (scaled) and dp of the warp's rows against key jj of the staged tile
   auto dots = [&](int jj, float (&s)[kRows], float (&dp)[kRows]) {
@@ -385,8 +398,8 @@ __global__ void attention_bwd_dq_kernel(const T* __restrict__ q, const T* __rest
   };
   auto load_keys = [&](int j0) {
     __syncthreads();  // the previous tile is done with
-    load_rows(ks, k, base, j0, kKT, Tn, HD, D, cd_bf16);
-    load_rows(vs, v, base, j0, kKT, Tn, HD, D, cd_bf16);
+    load_rows(ks, k, base, j0, kKT, Tn, HD, D);
+    load_rows(vs, v, base, j0, kKT, Tn, HD, D);
     __syncthreads();
   };
 
@@ -455,7 +468,7 @@ __global__ void attention_bwd_dq_kernel(const T* __restrict__ q, const T* __rest
         for (int rr = 0; rr < kRows; ++rr) {
           const float p = expf(s[rr] - m[rr]) / l[rr];
           const float dpm = dp[rr] * keep_scale(drop, mix, r0 + rr, j0 + jj, keep_prob, inv_keep);
-          dw[rr * kKT + jj] = w2vb::round_cd(p * (dpm - dn[rr]), cd_bf16);
+          dw[rr * kKT + jj] = p * (dpm - dn[rr]);
         }
       } else {
 #pragma unroll
@@ -491,7 +504,7 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
                                           const T* __restrict__ v, const T* __restrict__ g,
                                           const float* __restrict__ stats, T* __restrict__ dk,
                                           T* __restrict__ dv, int Tn, int NH, int D, float scale,
-                                          bool cd_bf16, bool drop, uint32_t seed, float keep_prob,
+                                          bool drop, uint32_t seed, float keep_prob,
                                           float inv_keep) {
   extern __shared__ float sm[];
   const int ld = D + 1;
@@ -500,8 +513,8 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
   float* qs = vs + kKT2 * ld;          // [kQT2][D + 1]
   float* gs = qs + kQT2 * ld;          // [kQT2][D + 1]
   float* st = gs + kQT2 * ld;          // [3][kQT2] m, l, D of the staged rows
-  float* pdb = st + 3 * kQT2;          // [kWarps][kKeys][kQT2] pd, rounded to cd
-  float* dsb = pdb + kWarps * kKeys * kQT2;  // [kWarps][kKeys][kQT2] ds, rounded to cd
+  float* pdb = st + 3 * kQT2;          // [kWarps][kKeys][kQT2] pd
+  float* dsb = pdb + kWarps * kKeys * kQT2;  // [kWarps][kKeys][kQT2] ds
   const int k0 = blockIdx.x * kKT2, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
@@ -512,8 +525,8 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
   float* dw = dsb + warp * kKeys * kQT2;
   const size_t nrow = (size_t)gridDim.z * NH * Tn;
   const float* sb = stats + ((size_t)b * NH + h) * Tn;
-  load_rows(ks, k, base, k0, kKT2, Tn, HD, D, cd_bf16);
-  load_rows(vs, v, base, k0, kKT2, Tn, HD, D, cd_bf16);
+  load_rows(ks, k, base, k0, kKT2, Tn, HD, D);
+  load_rows(vs, v, base, k0, kKT2, Tn, HD, D);
 
   float ak[kKeys][kMaxCols], av[kKeys][kMaxCols];
 #pragma unroll
@@ -522,8 +535,8 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
     for (int cc = 0; cc < kMaxCols; ++cc) ak[kk][cc] = av[kk][cc] = 0.f;
   for (int i0 = 0; i0 < Tn; i0 += kQT2) {
     __syncthreads();  // the previous tile is done with
-    load_rows(qs, q, base, i0, kQT2, Tn, HD, D, cd_bf16);
-    load_rows(gs, g, base, i0, kQT2, Tn, HD, D, cd_bf16);
+    load_rows(qs, q, base, i0, kQT2, Tn, HD, D);
+    load_rows(gs, g, base, i0, kQT2, Tn, HD, D);
     for (int i = threadIdx.x; i < kQT2; i += blockDim.x) {
       const bool in = i0 + i < Tn;
       st[i] = in ? sb[i0 + i] : 0.f;
@@ -551,8 +564,8 @@ __global__ void attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __re
       if (i < Tn) {
         const float p = expf(s[kk] * scale - st[lane]) / st[kQT2 + lane];
         const float mk = keep_scale(drop, mix, i, k0 + kw + kk, keep_prob, inv_keep);
-        pd = w2vb::round_cd(p * mk, cd_bf16);
-        ds = w2vb::round_cd(p * (dp[kk] * mk - st[2 * kQT2 + lane]), cd_bf16);
+        pd = p * mk;
+        ds = p * (dp[kk] * mk - st[2 * kQT2 + lane]);
       }
       pw[kk * kQT2 + lane] = pd;
       dw[kk * kQT2 + lane] = ds;
@@ -600,12 +613,7 @@ struct MmaTile {
 
 using w2vb::ld_pair;
 using w2vb::mma_bf16;
-
-// two f32 values rounded to nearest-even bf16, packed (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using w2vb::pack_bf16;
 
 // A fragment of rows m0 .. m0 + 15, columns kk .. kk + 15 of a row-major tile
 __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* t, int ld, int m0, int kk) {
@@ -638,34 +646,58 @@ __device__ __forceinline__ void frag_b_trans(uint32_t (&b)[2][2], const __nv_bfl
                : "r"(addr));
 }
 
-// rows [r0, r0 + n) of one head into a bf16 tile [n][DP + 8], rounded to
-// nearest even; rows at or past Tn and columns at or past D are zero. vec:
-// D % 8 == 0 and 16-byte aligned operands, so 8 columns load as one or two
-// 16-byte vectors
-template <typename T, int DP>
+// rows [r0, r0 + kRows) of one head into a bf16 tile [kRows][DP + 8],
+// rounded to nearest even; rows at or past Tn and columns at or past D are
+// zero. Each of the block's threads takes kRows x DP / 8 / 128 chunks of 8
+// columns, a count fixed at compile time, and issues all its loads before
+// its first store, so a tile costs one round trip to L2 and not one per
+// chunk. vec: D % 8 == 0 and 16-byte aligned operands, so a chunk loads as
+// one or two 16-byte vectors
+template <typename T, int DP, int kRows>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const T* __restrict__ src, size_t base,
-                                               int r0, int n, int Tn, int HD, int D, bool vec) {
-  constexpr int kChunks = DP / 8;
-  for (int p = threadIdx.x; p < n * kChunks; p += blockDim.x) {
-    const int r = p / kChunks, c = (p % kChunks) * 8;
-    const int row = r0 + r;
-    const T* g = src + base + (size_t)row * HD + c;
-    uint4 out;
-    if (row < Tn && vec && c < D) {
+                                               int r0, int Tn, int HD, int D, bool vec) {
+  constexpr int kChunks = DP / 8, kThreads = kWarps * 32, kPer = kRows * kChunks / kThreads;
+  static_assert(kPer * kThreads == kRows * kChunks, "a tile is a whole number of chunks per thread");
+  uint4 out[kPer];
+  if (vec) {
+    constexpr int kW = sizeof(T) == 2 ? 1 : 2;  // 16-byte loads per chunk
+    uint4 raw[kPer][kW];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int p = threadIdx.x + i * kThreads, row = r0 + p / kChunks, c = (p % kChunks) * 8;
+      const uint4* g = reinterpret_cast<const uint4*>(src + base + (size_t)row * HD + c);
+      const bool ok = row < Tn && c < D;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) raw[i][w] = ok ? g[w] : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
       if constexpr (sizeof(T) == 2) {
-        out = *reinterpret_cast<const uint4*>(g);
+        out[i] = raw[i][0];
       } else {
-        const float4 x = reinterpret_cast<const float4*>(g)[0];
-        const float4 y = reinterpret_cast<const float4*>(g)[1];
-        out = make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+        const uint4 x = raw[i][0], y = raw[i][kW - 1];
+        out[i] = make_uint4(pack_bf16(__uint_as_float(x.x), __uint_as_float(x.y)),
+                            pack_bf16(__uint_as_float(x.z), __uint_as_float(x.w)),
+                            pack_bf16(__uint_as_float(y.x), __uint_as_float(y.y)),
+                            pack_bf16(__uint_as_float(y.z), __uint_as_float(y.w)));
       }
-    } else {
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int p = threadIdx.x + i * kThreads, row = r0 + p / kChunks, c = (p % kChunks) * 8;
+      const T* g = src + base + (size_t)row * HD + c;
       float f[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) f[e] = row < Tn && c + e < D ? w2vb::to_f32(g[e]) : 0.f;
-      out = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+      out[i] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                          pack_bf16(f[6], f[7]));
     }
-    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c) = out;
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    *reinterpret_cast<uint4*>(dst + (p / kChunks) * (DP + 8) + (p % kChunks) * 8) = out[i];
   }
 }
 
@@ -683,9 +715,189 @@ __device__ __forceinline__ void mma_rows(float* acc, const uint32_t (&a)[4], con
   }
 }
 
+// Accumulator element i of a warp's 16 x 8 NT fragment: row gq (i & 2 == 0)
+// or gq + 8, column 8 (i >> 2) + 2 tq + (i & 1).
+__device__ __forceinline__ int frag_col(int i, int tq) { return 8 * (i >> 2) + 2 * tq + (i & 1); }
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The online softmax statistics of a warp's two fragment rows (gq, gq + 8):
+// each thread keeps the max m and the sum l of exp(s - m) over its own
+// columns, tile by tile; `combine` then merges the 4 threads of a row (tq).
+// A sum kept beside l (the backward's sum of dp * e) is rescaled by the
+// factors that `fold_max` and `combine` return.
+struct RowStats {
+  float m[2], l[2];
+
+  __device__ __forceinline__ RowStats() {
+    m[0] = m[1] = __int_as_float(0xff800000);  // -inf
+    l[0] = l[1] = 0.f;
+  }
+
+  // the tile's max over its valid columns (j0 + column < Tn) into m;
+  // f[rr]: the factor l[rr] was multiplied by
+  template <int N>
+  __device__ __forceinline__ void fold_max(const float (&s)[N], int j0, int Tn, int tq, float (&f)[2]) {
+    float tm[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (j0 + frag_col(i, tq) < Tn) tm[(i >> 1) & 1] = fmaxf(tm[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      f[rr] = 1.f;
+      if (tm[rr] > m[rr]) {
+        f[rr] = expf(m[rr] - tm[rr]);
+        l[rr] *= f[rr];
+        m[rr] = tm[rr];
+      }
+    }
+  }
+
+  // e = exp(s - m) of a valid element of row rr, added to l
+  __device__ __forceinline__ float add(int rr, float s) {
+    const float e = expf(s - m[rr]);
+    l[rr] += e;
+    return e;
+  }
+
+  // m and l of the whole row, the same in the row's 4 threads; f[rr]: the
+  // factor for this thread's sums before they are added over the 4
+  __device__ __forceinline__ void combine(float (&f)[2]) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float mx = quad_max(m[rr]);
+      f[rr] = l[rr] > 0.f ? expf(m[rr] - mx) : 0.f;  // a thread that saw no key has l = 0
+      l[rr] = quad_sum(l[rr] * f[rr]);
+      m[rr] = mx;
+    }
+  }
+};
+
+// The forward at bf16 compute, on the tensor cores: block (64 query rows,
+// head, batch row), warp w owns rows 16 w .. +16 and holds their Q
+// fragments in registers. Key tiles of kN are either all resident in shared
+// memory (n_res tiles, loaded once, where they fit) or streamed through one
+// tile buffer, twice. Pass 1: S = Q K^T, the row statistics m, l. Pass 2: S
+// again, p = exp(s - m) / l masked and scaled, rounded to bf16 straight into
+// A fragments, O += P V with V's fragments from ldmatrix.trans. p is
+// normalised before it is rounded, as JAX and mha_dense_bth do.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWarps * 32)
+    attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                             T* __restrict__ o, int Tn, int NH, int D, float scale, bool drop, uint32_t seed,
+                             float keep_prob, float inv_keep, bool vec, int n_res) {
+  using L = MmaTile<DP>;
+  constexpr int kN = L::kN, kLd = L::kLd, kNT = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLd]
+  __nv_bfloat16* ks = qs + kMmaRows * kLd;                          // [n_res or 1][kN][kLd]
+  __nv_bfloat16* vs = ks + (n_res > 0 ? n_res : 1) * kN * kLd;      // the same for V
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int HD = NH * D;
+  const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
+  const uint32_t mix = w2vb::attn_mix(seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * warp;
+  const int rows[2] = {q0 + m0 + gq, q0 + m0 + gq + 8};
+  const int n_tiles = (Tn + kN - 1) / kN;
+  const bool resident = n_res > 0;
+  load_tile_bf16<T, DP, kMmaRows>(qs, q, base, q0, Tn, HD, D, vec);
+  if (resident) {
+    for (int t = 0; t < n_tiles; ++t) {
+      load_tile_bf16<T, DP, kN>(ks + t * kN * kLd, k, base, t * kN, Tn, HD, D, vec);
+      load_tile_bf16<T, DP, kN>(vs + t * kN * kLd, v, base, t * kN, Tn, HD, D, vec);
+    }
+  }
+  __syncthreads();
+  uint32_t qa[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) frag_a(qa[kk], qs, kLd, m0, 16 * kk);
+
+  // the tile's K (and V) in shared memory: resident, or loaded now
+  auto stage = [&](int t, bool with_v) -> int {
+    if (resident) return t * kN * kLd;
+    __syncthreads();  // the previous tile is done with
+    load_tile_bf16<T, DP, kN>(ks, k, base, t * kN, Tn, HD, D, vec);
+    if (with_v) load_tile_bf16<T, DP, kN>(vs, v, base, t * kN, Tn, HD, D, vec);
+    __syncthreads();
+    return 0;
+  };
+  float s[4 * kNT];
+  auto scores = [&](const __nv_bfloat16* kt) {
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t bf[2];
+        frag_b(bf, kt, kLd, 8 * j, 16 * kk);
+        mma_bf16(s + 4 * j, qa[kk], bf);
+      }
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) s[i] *= scale;
+  };
+
+  RowStats rs;
+  for (int t = 0; t < n_tiles; ++t) {
+    scores(ks + stage(t, false));
+    float f[2];
+    rs.fold_max(s, t * kN, Tn, tq, f);
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i)
+      if (t * kN + frag_col(i, tq) < Tn) rs.add((i >> 1) & 1, s[i]);
+  }
+  float f[2];
+  rs.combine(f);
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int off = stage(t, true);
+    scores(ks + off);
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      const int col = t * kN + frag_col(i, tq), rr = (i >> 1) & 1;
+      const float p = expf(s[i] - rs.m[rr]) / rs.l[rr];
+      s[i] = col < Tn ? p * keep_scale(drop, mix, rows[rr], col, keep_prob, inv_keep) : 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const float* c0 = s + 8 * kk;  // n-tiles 2 kk and 2 kk + 1: keys 16 kk .. +16
+      const uint32_t a[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]), pack_bf16(c0[4], c0[5]),
+                             pack_bf16(c0[6], c0[7])};
+      mma_rows<DP / 8>(acc, a, vs + off, kLd, 16 * kk);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = rows[(i >> 1) & 1], col = frag_col(i, tq);
+    if (row >= Tn || col >= D) continue;
+    T* dst = o + base + (size_t)row * HD + col;
+    if (vec) {  // col even, D % 8 == 0: the pair is whole and aligned
+      if constexpr (sizeof(T) == 2) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      } else {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[i], acc[i + 1]);
+      }
+    } else {
+      dst[0] = w2vb::from_f32<T>(acc[i]);
+      if (col + 1 < D) dst[1] = w2vb::from_f32<T>(acc[i + 1]);
+    }
+  }
+}
+
 // dq and the row statistics: block (64 query rows, head, batch row); warp w
-// owns rows 16 w .. +16. Accumulator element (j, e) of a warp: row gq (e <
-// 2) or gq + 8, column 8 j + 2 tq + (e & 1).
+// owns rows 16 w .. +16 (accumulator elements as frag_col).
 template <typename T, int DP>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -706,8 +918,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * warp;
   const int rows[2] = {q0 + m0 + gq, q0 + m0 + gq + 8};
-  load_tile_bf16<T, DP>(qs, q, base, q0, kMmaRows, Tn, HD, D, vec);
-  load_tile_bf16<T, DP>(gs, g, base, q0, kMmaRows, Tn, HD, D, vec);
+  load_tile_bf16<T, DP, kMmaRows>(qs, q, base, q0, Tn, HD, D, vec);
+  load_tile_bf16<T, DP, kMmaRows>(gs, g, base, q0, Tn, HD, D, vec);
 
   // s (scaled) = q . k^T and dp = g . v^T of the warp's rows against the staged keys
   float s[4 * kNT], dp[4 * kNT];
@@ -733,60 +945,37 @@ __global__ void __launch_bounds__(kWarps * 32)
   };
   auto load_keys = [&](int j0) {
     __syncthreads();  // the previous tile is done with
-    load_tile_bf16<T, DP>(ks, k, base, j0, kN, Tn, HD, D, vec);
-    load_tile_bf16<T, DP>(vs, v, base, j0, kN, Tn, HD, D, vec);
+    load_tile_bf16<T, DP, kN>(ks, k, base, j0, Tn, HD, D, vec);
+    load_tile_bf16<T, DP, kN>(vs, v, base, j0, Tn, HD, D, vec);
     __syncthreads();
   };
 
   // pass 1: per thread, online max, sum and sum of dp * mask * e over its
   // columns; then the 4 threads of a row (tq) combine
-  float m[2], l[2], dn[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    m[rr] = __int_as_float(0xff800000);  // -inf
-    l[rr] = dn[rr] = 0.f;
-  }
+  RowStats rs;
+  float dn[2] = {0.f, 0.f};
   for (int j0 = 0; j0 < Tn; j0 += kN) {
     load_keys(j0);
     scores();
-    float tm[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
-#pragma unroll
-    for (int i = 0; i < 4 * kNT; ++i)
-      if (j0 + 8 * (i >> 2) + 2 * tq + (i & 1) < Tn) tm[(i >> 1) & 1] = fmaxf(tm[(i >> 1) & 1], s[i]);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      if (tm[rr] > m[rr]) {
-        const float f = expf(m[rr] - tm[rr]);
-        l[rr] *= f;
-        dn[rr] *= f;
-        m[rr] = tm[rr];
-      }
-    }
+    float f[2];
+    rs.fold_max(s, j0, Tn, tq, f);
+    dn[0] *= f[0];
+    dn[1] *= f[1];
 #pragma unroll
     for (int i = 0; i < 4 * kNT; ++i) {
-      const int col = j0 + 8 * (i >> 2) + 2 * tq + (i & 1), rr = (i >> 1) & 1;
+      const int col = j0 + frag_col(i, tq), rr = (i >> 1) & 1;
       if (col < Tn) {
-        const float e = expf(s[i] - m[rr]);
-        l[rr] += e;
+        const float e = rs.add(rr, s[i]);
         dn[rr] = fmaf(dp[i] * keep_scale(drop, mix, rows[rr], col, keep_prob, inv_keep), e, dn[rr]);
       }
     }
   }
+  float f[2];
+  rs.combine(f);
+  const float* m = rs.m;
+  const float* l = rs.l;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float mx = m[rr];
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float f = l[rr] > 0.f ? expf(m[rr] - mx) : 0.f;  // a thread that saw no key has l = 0
-    float ls = l[rr] * f, ds = dn[rr] * f;
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    ds += __shfl_xor_sync(0xffffffffu, ds, 1);
-    ds += __shfl_xor_sync(0xffffffffu, ds, 2);
-    m[rr] = mx;
-    l[rr] = ls;
-    dn[rr] = ds / ls;
-  }
+  for (int rr = 0; rr < 2; ++rr) dn[rr] = quad_sum(dn[rr] * f[rr]) / l[rr];
   if (tq == 0) {
     const size_t nrow = (size_t)gridDim.z * NH * Tn;
     float* st = stats + ((size_t)b * NH + h) * Tn;
@@ -810,7 +999,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     scores();
 #pragma unroll
     for (int i = 0; i < 4 * kNT; ++i) {
-      const int col = j0 + 8 * (i >> 2) + 2 * tq + (i & 1), rr = (i >> 1) & 1;
+      const int col = j0 + frag_col(i, tq), rr = (i >> 1) & 1;
       const float p = expf(s[i] - m[rr]) / l[rr];
       const float dpm = dp[i] * keep_scale(drop, mix, rows[rr], col, keep_prob, inv_keep);
       s[i] = col < Tn ? p * (dpm - dn[rr]) : 0.f;
@@ -825,7 +1014,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) {
-    const int row = rows[(i >> 1) & 1], col = 8 * (i >> 2) + 2 * tq + (i & 1);
+    const int row = rows[(i >> 1) & 1], col = frag_col(i, tq);
     if (row < Tn && col < D) dq[base + (size_t)row * HD + col] = w2vb::from_f32<T>(acc[i] * scale);
   }
 }
@@ -856,16 +1045,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int keys[2] = {k0 + m0 + gq, k0 + m0 + gq + 8};
   const size_t nrow = (size_t)gridDim.z * NH * Tn;
   const float* sb = stats + ((size_t)b * NH + h) * Tn;
-  load_tile_bf16<T, DP>(ks, k, base, k0, kMmaRows, Tn, HD, D, vec);
-  load_tile_bf16<T, DP>(vs, v, base, k0, kMmaRows, Tn, HD, D, vec);
+  load_tile_bf16<T, DP, kMmaRows>(ks, k, base, k0, Tn, HD, D, vec);
+  load_tile_bf16<T, DP, kMmaRows>(vs, v, base, k0, Tn, HD, D, vec);
 
   float ak[DP / 2], av[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) ak[i] = av[i] = 0.f;
   for (int i0 = 0; i0 < Tn; i0 += kN) {
     __syncthreads();  // the previous tile is done with
-    load_tile_bf16<T, DP>(qs, q, base, i0, kN, Tn, HD, D, vec);
-    load_tile_bf16<T, DP>(gs, g, base, i0, kN, Tn, HD, D, vec);
+    load_tile_bf16<T, DP, kN>(qs, q, base, i0, Tn, HD, D, vec);
+    load_tile_bf16<T, DP, kN>(gs, g, base, i0, Tn, HD, D, vec);
     for (int i = threadIdx.x; i < kN; i += blockDim.x) {
       const bool in = i0 + i < Tn;
       st[i] = in ? sb[i0 + i] : 0.f;
@@ -893,7 +1082,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     // element i: key keys[(i >> 1) & 1], query i0 + 8 (i >> 2) + 2 tq + (i & 1)
 #pragma unroll
     for (int i = 0; i < 4 * kNT; ++i) {
-      const int qq = 8 * (i >> 2) + 2 * tq + (i & 1), qi = i0 + qq;
+      const int qq = frag_col(i, tq), qi = i0 + qq;
       float pd = 0.f, ds = 0.f;
       if (qi < Tn) {
         const float p = expf(s[i] * scale - st[qq]) / st[kN + qq];
@@ -918,7 +1107,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) {
-    const int key = keys[(i >> 1) & 1], col = 8 * (i >> 2) + 2 * tq + (i & 1);
+    const int key = keys[(i >> 1) & 1], col = frag_col(i, tq);
     if (key < Tn && col < D) {
       dk[base + (size_t)key * HD + col] = w2vb::from_f32<T>(ak[i] * scale);
       dv[base + (size_t)key * HD + col] = w2vb::from_f32<T>(av[i]);
@@ -950,8 +1139,34 @@ int launch_bwd_mma(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// stream_keys: the streaming kernel (the wrapper chooses it where the
-// resident kernel's K and V do not fit in shared memory; D <= 128 there)
+// a head's K and V tiles stay resident in the tensor-core forward while its
+// block's shared memory stays under this (three blocks an SM): T' <= 192 at
+// D <= 64, T' <= 96 at D <= 128; longer rows stream one tile at a time
+constexpr size_t kResidentSmem = 72 * 1024;
+
+template <typename T, int DP>
+int launch_fwd_mma(const T* q, const T* k, const T* v, T* o, int B, int Tn, int NH, int D, float scale,
+                   uint32_t seed, float keep_prob, float inv_keep, cudaStream_t s) {
+  using L = MmaTile<DP>;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const bool vec = D % 8 == 0 && addr % 16 == 0;
+  const int n_tiles = (Tn + L::kN - 1) / L::kN;
+  const size_t q_bytes = (size_t)kMmaRows * L::kLd * sizeof(__nv_bfloat16);
+  const size_t tile_bytes = (size_t)L::kN * L::kLd * sizeof(__nv_bfloat16);
+  const int n_res = q_bytes + 2 * n_tiles * tile_bytes <= kResidentSmem ? n_tiles : 0;
+  const size_t smem = q_bytes + 2 * (n_res > 0 ? n_res : 1) * tile_bytes;
+  cudaError_t e = w2vb::allow_smem(attention_fwd_mma_kernel<T, DP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_fwd_mma_kernel<T, DP><<<dim3((Tn + kMmaRows - 1) / kMmaRows, NH, B), kWarps * 32, smem, s>>>(
+      q, k, v, o, Tn, NH, D, scale, keep_prob < 1.f, seed, keep_prob, inv_keep, vec, n_res);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 compute: the tensor-core kernel (any T', D <= 128); f32 compute: the
+// SIMT kernels (TF32 would change the numbers), stream_keys choosing the
+// streaming one (the wrapper chooses it where the resident kernel's K and V
+// do not fit in shared memory; D <= 128 there)
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int Tn, int NH, int D,
                float scale, bool cd_bf16, bool stream_keys, uint32_t seed, float keep_prob,
@@ -959,6 +1174,14 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int 
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
+  if (cd_bf16) {
+    if (D > 32 * kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+    if (D <= 64)
+      return launch_fwd_mma<T, 64>(qt, kt, vt, static_cast<T*>(o), B, Tn, NH, D, scale, seed, keep_prob,
+                                   inv_keep, s);
+    return launch_fwd_mma<T, 128>(qt, kt, vt, static_cast<T*>(o), B, Tn, NH, D, scale, seed, keep_prob,
+                                  inv_keep, s);
+  }
   const bool drop = keep_prob < 1.f;
   if (stream_keys) {
     if (D > 32 * kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
@@ -966,7 +1189,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int 
     cudaError_t e = w2vb::allow_smem(attention_fwd_stream_kernel<T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attention_fwd_stream_kernel<T><<<dim3((Tn + kQT - 1) / kQT, NH, B), kWarps * 32, smem, s>>>(
-        qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, cd_bf16, drop, seed, keep_prob, inv_keep);
+        qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, drop, seed, keep_prob, inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem =
@@ -974,7 +1197,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int 
   cudaError_t e = w2vb::allow_smem(attention_fwd_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_fwd_kernel<T><<<dim3(NH, B), kWarps * 32, smem, s>>>(
-      qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, cd_bf16, drop, seed, keep_prob, inv_keep);
+      qt, kt, vt, static_cast<T*>(o), Tn, NH, D, scale, drop, seed, keep_prob, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1012,23 +1235,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(g);
   attention_bwd_dq_kernel<T><<<dim3((Tn + kQT - 1) / kQT, NH, B), kWarps * 32, smem_dq, s>>>(
-      qt, kt, vt, gt, static_cast<T*>(dq), stats, Tn, NH, D, scale, cd_bf16, drop, seed, keep_prob,
+      qt, kt, vt, gt, static_cast<T*>(dq), stats, Tn, NH, D, scale, drop, seed, keep_prob,
       inv_keep);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_bwd_dkdv_kernel<T><<<dim3((Tn + kKT2 - 1) / kKT2, NH, B), kWarps * 32, smem_kv, s>>>(
-      qt, kt, vt, gt, stats, static_cast<T*>(dk), static_cast<T*>(dv), Tn, NH, D, scale, cd_bf16,
-      drop, seed, keep_prob, inv_keep);
+      qt, kt, vt, gt, stats, static_cast<T*>(dk), static_cast<T*>(dv), Tn, NH, D, scale, drop,
+      seed, keep_prob, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // io_bf16: q/k/v/o are bf16 (the activation stream dtype) rather than f32;
-// cd_bf16: the compute dtype is bf16. keep_prob < 1 turns the dropout on
-// (keep_prob and inv_keep = 1/keep_prob as f32, seed the site's int32).
-// stream_keys: the streaming kernel instead of the one that holds a head's K
-// and V in shared memory.
+// cd_bf16: the compute dtype is bf16 (the tensor-core kernel). keep_prob < 1
+// turns the dropout on (keep_prob and inv_keep = 1/keep_prob as f32, seed the
+// site's int32). stream_keys, at f32 compute: the streaming SIMT kernel
+// instead of the one that holds a head's K and V in shared memory.
 extern "C" int w2vb_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                   int io_bf16, int cd_bf16, int stream_keys, int B, int T, int NH,
                                   int D, float scale, int seed, float keep_prob, float inv_keep,

@@ -42,6 +42,12 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// two f32 values rounded to nearest-even bf16, packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // c (a 16 x 8 f32 tile's fragment) += a (16 x 16) . b (16 x 8) on the tensor
 // cores, bf16 inputs (mma.sync.m16n8k16).
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], const uint32_t (&b)[2]) {

@@ -123,10 +123,12 @@ class StepRng:
     """A train step's random source.
 
     seed: seeds a CPU generator (dropout seeds, LayerDrop) and a generator
-    on `device` (augmentation noise). replay: a list of ForwardRng, one per
-    step, handed out in order instead of generated ones (tests)."""
+    on `device` (augmentation noise; the card unless the caller asks for
+    another, and it raises where there is no card). replay: a list of
+    ForwardRng, one per step, handed out in order instead of generated ones
+    (tests)."""
 
-    def __init__(self, seed: int = 0, device="cpu", replay: Optional[List[ForwardRng]] = None):
+    def __init__(self, seed: int = 0, device="cuda", replay: Optional[List[ForwardRng]] = None):
         self._host = torch.Generator().manual_seed(int(seed))
         self._device = torch.Generator(device=device).manual_seed(int(seed))
         self._replay = None if replay is None else list(replay)

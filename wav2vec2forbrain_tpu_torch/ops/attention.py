@@ -17,11 +17,13 @@ frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
 the kernel, the plain versions and the JAX package all drop the same
 probabilities.
 
-The forward has two kernels, chosen by shape (`_fwd_streams`): where a
-head's K and V fit in shared memory (T up to 393 at D = 64) one block holds
-them; beyond that a second kernel streams 64-key tiles in two passes (any T
-at D <= 128). The backward is two launches that stream tiles (any T, D <=
-128): on the tensor cores at bf16 compute, SIMT FMAs at f32 compute.
+The forward kernel is chosen by the compute dtype and shape (`_fwd_route`):
+at bf16 compute one tensor-core kernel takes every T (D <= 128); at f32
+compute (SIMT FMAs: TF32 would change the numbers) one block holds a
+head's K and V where they fit in shared memory (T up to 393 at D = 64) and
+a second kernel streams 64-key tiles in two passes beyond (any T at D <=
+128). The backward is two launches that stream tiles (any T, D <= 128): on
+the tensor cores at bf16 compute, SIMT FMAs at f32 compute.
 """
 
 import math
@@ -35,7 +37,7 @@ from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 _MAX_SMEM = 227 * 1024
 _WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the forward kernel
-_MAX_HEAD_DIM = 128  # the streaming kernels' widest head (SIMT: 4 columns per lane x 32); any T
+_MAX_HEAD_DIM = 128  # the widest head of the tensor-core and streaming kernels; any T
 
 
 def _heads(x, num_heads, cd):
@@ -120,20 +122,29 @@ def _fwd_streams(t, d):
     return (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4 > _MAX_SMEM
 
 
+def _fwd_route(t, d, compute_dtype):
+    """The forward kernel for the shape: "mma" (bf16 compute, the tensor
+    cores, any T), else "resident" or "stream" (f32 compute, SIMT) by
+    _fwd_streams."""
+    if compute_dtype == torch.bfloat16:
+        return "mma"
+    return "stream" if _fwd_streams(t, d) else "resident"
+
+
 def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
     _check("mha_fused_bth", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
-    streams = _fwd_streams(t, d)
-    if streams and d > _MAX_HEAD_DIM:
-        raise ValueError(f"mha_fused_bth: head dim {d} > {_MAX_HEAD_DIM} at T={t}")
+    route = _fwd_route(t, d, compute_dtype)
+    if route != "resident" and d > _MAX_HEAD_DIM:
+        raise ValueError(f"mha_fused_bth: head dim {d} > {_MAX_HEAD_DIM} at T={t} ({route} kernel)")
     kernels.require_cuda("mha_fused_bth", q, k, v)
     o = torch.empty_like(q)
     lib = kernels.lib()
     with torch.cuda.device(q.device):
         code = lib.w2vb_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(streams),
+            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(route == "stream"),
             b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
             kernels.stream_of(q),
         )
