@@ -34,7 +34,9 @@ Phases, each of which exits nonzero on failure:
      one PyTorch call computes the same function, that call's time both ways
      (SDPA at rate 0, F.layer_norm, and for the GRU a bidirectional cuDNN
      nn.GRU fed gi through an identity W_ih: an upper bound, as it adds
-     that projection). L2 warm throughout.
+     that projection). L2 warm throughout. The fused GRU backward's rows
+     are followed by a split: each kernel's own device time per call
+     (torch.profiler; without the gaps between launches).
   3. conformer serving: the full-width conformer-rope-large serving forward
      (24 layers, d=1024; random weights from a fixed seed) answers 4
      requests of 32 samples x 384 frames through predict.py with the `auto`
@@ -270,6 +272,26 @@ def compare(name, label, kernel_fn, plain_fn, tol_of, results, inputs, flops, li
                         bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
 
 
+def kernel_split(label, fn, reps: int = 5, top: int = 6) -> None:
+    """Print the device time of each kernel that fn() launches, per call
+    (torch.profiler over reps calls; each kernel's own time, without the
+    gaps between launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vec2forbrain_tpu_torch.profile_predict import _device_us, _on_device
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages() if _on_device(e)), reverse=True)
+    parts = "; ".join(f"{name[:48]} {us / reps / 1e3:.4f} ms x{n // reps}" for us, n, name in rows[:top])
+    print(f"  {'':13s} {label:42s} split: {parts}")
+
+
 def cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys):
     """The library yardstick of the GRU rows: (forward, backward) of one
     bidirectional nn.GRU call (cuDNN) that computes the recurrence on gi.
@@ -433,7 +455,9 @@ def kernel_phases(dev, results):
                         f32_rel_tol(f"{name}_bwd") if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0, ys, gy),
                         [(2 * step, cd_name(cd)), (step, "float32" if per_dir else cd_name(cd))], lib_bwd)
-                if per_dir:  # the step launches alone, without the f32 dW / db product that follows them
+                if not per_dir:  # the backward's kernels: hprev, gh, the step launches, dW
+                    kernel_split(label, lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd))
+                else:  # the step launches alone, without the f32 dW / db product that follows them
                     rec_ms = timed_ms(lambda: gru._dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, gy, cd))
                     print(f"  {'':13s} {label:42s} recurrence alone {rec_ms:.4f} ms "
                           f"(the entry: {results[-1]['ms']:.4f} ms)")

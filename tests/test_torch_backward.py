@@ -282,24 +282,66 @@ def test_cuda_conv_glu_bwd_matches_plain(sd, cd):
     torch.testing.assert_close(dk, dk_ref, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_cuda_gru_bwd_matches_plain(cd):
-    dev = _cuda()
-    gen = torch.Generator(device=dev).manual_seed(2)
-    t, b, h = 89, 8, 256
+def _cuda_gru_inputs(dev, seed, t, b, h):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     gi = torch.randn((t, 2, b, 3 * h), generator=gen, device=dev)
-    w = (torch.rand((2, h, 3 * h), generator=gen, device=dev) * 2 - 1) / 16
-    bias = (torch.rand((2, 1, 3 * h), generator=gen, device=dev) * 2 - 1) / 16
+    w = (torch.rand((2, h, 3 * h), generator=gen, device=dev) * 2 - 1) / h**0.5
+    bias = (torch.rand((2, 1, 3 * h), generator=gen, device=dev) * 2 - 1) / h**0.5
     h0 = torch.randn((2, b, h), generator=gen, device=dev) * 0.5
     g = torch.randn((t, 2, b, h), generator=gen, device=dev)
+    return gi, w, bias, h0, g
+
+
+def _gru_bwd_tol(r, cd):
+    # bf16: the carried dh and dgh are rounded to bf16 before each product
+    return 1e-4 if cd == torch.float32 else 2.0**-6 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [32, 128, 256, 480])
+@pytest.mark.parametrize("b", [3, 32])
+@pytest.mark.parametrize("t", [1, 89])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_gru_bwd_matches_plain(h, b, t, cd):
+    """The fused entry's backward at every width the model routes to it (H
+    32 .. 480: 16 x 16 step tiles up to H 480 at B 32, Hp padding 32 -> 64
+    at H 32 and 480 -> 512), a ragged and a full 32-row batch tile, one
+    step and the conformer's 89."""
+    dev = _cuda()
+    gi, w, bias, h0, g = _cuda_gru_inputs(dev, 2, t, b, h)
     ys = port_gru.gru_recurrence_plain(gi, w, bias, h0, cd)
     got = port_gru._bwd_kernel(gi, w, bias, h0, ys, g, cd)
     want = port_gru.gru_recurrence_bwd_plain(gi, w, bias, h0, ys, g, cd)
     for a, r in zip(got, want):
-        # bf16: the carried dh and dgh are rounded to bf16 before each product
-        tol = 1e-4 if cd == torch.float32 else 2.0**-6 * max(1.0, r.abs().max().item())
-        torch.testing.assert_close(a.reshape(r.shape), r, atol=tol, rtol=1e-5)
+        torch.testing.assert_close(a.reshape(r.shape), r, atol=_gru_bwd_tol(r, cd), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_gru_bwd_is_deterministic(cd):
+    """No atomics: two runs of the fused backward on the same inputs give
+    bitwise-equal dgi, dW_hh, db_hh and dh0 (the conformer's H256 B32 T89)."""
+    dev = _cuda()
+    gi, w, bias, h0, g = _cuda_gru_inputs(dev, 4, 89, 32, 256)
+    ys = port_gru.gru_recurrence_plain(gi, w, bias, h0, cd)
+    first = port_gru._bwd_kernel(gi, w, bias, h0, ys, g, cd)
+    second = port_gru._bwd_kernel(gi, w, bias, h0, ys, g, cd)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_fused_and_dir_bwd_agree_at_f32():
+    """At f32 compute the fused entry's backward (dW in its own kernel) and
+    the per-direction entry's (dW by the f32 product outside) compute the
+    same function, at H = 256, a width both take."""
+    dev = _cuda()
+    gi, w, bias, h0, g = _cuda_gru_inputs(dev, 6, 89, 32, 256)
+    ys = port_gru.gru_recurrence_plain(gi, w, bias, h0, torch.float32)
+    fused = port_gru._bwd_kernel(gi, w, bias, h0, ys, g, torch.float32)
+    per_dir = port_gru._bwd_kernel(gi, w, bias, h0, ys, g, torch.float32, per_direction=True)
+    for a, r in zip(fused, per_dir):
+        torch.testing.assert_close(a, r, atol=2e-5 * max(1.0, r.abs().max().item()), rtol=0)
 
 
 @pytest.mark.cuda

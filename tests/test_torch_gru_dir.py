@@ -179,6 +179,16 @@ def test_dir_fwd_weight_layout_round_trips(h, cd):
     assert not blocks[:, :, pad].any()
 
 
+@pytest.mark.parametrize("h", [32, 480])
+def test_fused_bwd_takes_the_routed_widths_but_only_cuda_tensors(h):
+    """The fused backward takes every width models/gru.py routes to it (H
+    32 .. 480, multiples of 32): at both ends it gets past every shape
+    check and refuses only operands off the card."""
+    a = _meta(3, 2, h)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_gru._bwd_kernel(*a, a[3][None], a[3][None], torch.bfloat16)
+
+
 def test_dir_bwd_takes_any_hidden_size_but_only_cuda_tensors():
     """The per-direction backward has no hidden-size rule: at H = 100 it
     gets past every shape check and refuses only CPU operands."""

@@ -118,31 +118,67 @@ def test_routed_layer_norm_is_the_plain_math_on_cpu(policy):
     torch.testing.assert_close(y2, port_ln.layer_norm_plain(x[0], scale, bias, EPS), atol=0, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 89, 768), (32, 89, 1024), (3, 8, 100)], ids=["w2v", "conformer", "ragged"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_cuda_kernels_match_plain(shape, dtype):
+def _cuda_inputs(shape, dtype, seed=0):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
     c = shape[-1]
     x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
     scale = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
     bias = 0.2 * torch.randn(c, generator=g, device=dev)
     dy = torch.randn(shape, generator=g, device=dev).to(dtype)
-    y = port_ln._fwd_kernel(x, scale, bias, EPS)
-    ref = port_ln.layer_norm_plain(x, scale, bias, EPS)
-    bf16 = dtype == torch.bfloat16
+    return x, scale, bias, dy
 
-    def tol(r, f32_tol):
-        return (BF16_ULPS if bf16 else f32_tol) * max(1.0, r.float().abs().max().item())
 
-    assert y.dtype == dtype
-    torch.testing.assert_close(y.float(), ref.float(), atol=tol(ref, 0.0) if bf16 else 1e-5, rtol=0)
+def _cuda_tol(r, f32_tol, dtype):
+    return (BF16_ULPS if dtype == torch.bfloat16 else f32_tol) * max(1.0, r.float().abs().max().item())
+
+
+def _check_bwd(x, scale, dy):
     for out, r in zip(port_ln._bwd_kernel(x, scale, dy, EPS), port_ln.layer_norm_bwd_plain(x, scale, dy, EPS)):
         assert out.dtype == r.dtype and out.shape == r.shape
-        torch.testing.assert_close(out.float(), r.float(), atol=tol(r, 2e-5), rtol=0)
+        torch.testing.assert_close(out.float(), r.float(), atol=_cuda_tol(r, 2e-5, x.dtype), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 89, 768), (32, 89, 1024), (3, 8, 100), (64, 1, 768), (5, 37, 1024)],
+                         ids=["w2v", "conformer", "ragged", "T1", "T37"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_kernels_match_plain(shape, dtype):
+    """The encoders' shapes, a ragged C (the generic kernels), one row per
+    batch element (one T chunk), and T = 37 (prime: whatever the chunk count
+    the host picks, a chunk is partial, and the last ones may be empty)."""
+    x, scale, bias, dy = _cuda_inputs(shape, dtype)
+    y = port_ln._fwd_kernel(x, scale, bias, EPS)
+    ref = port_ln.layer_norm_plain(x, scale, bias, EPS)
+    assert y.dtype == dtype
+    atol = _cuda_tol(ref, 0.0, dtype) if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
+    _check_bwd(x, scale, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 3, 4, 9])
+@pytest.mark.parametrize("c", [768, 100], ids=["C768", "C100"])
+def test_cuda_bwd_chunk_edges_match_plain(monkeypatch, chunks, c):
+    """The backward at T = 9 split into a given number of T chunks: one, 3
+    whole chunks, 4 (3 + 3 + 3 + an empty one, whose partial is zero) and
+    one row per chunk; the vector and generic kernels."""
+    x, scale, _, dy = _cuda_inputs((4, 9, c), torch.float32, seed=1)
+    monkeypatch.setattr(port_ln, "_bwd_chunks", lambda *a: chunks)
+    _check_bwd(x, scale, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_bwd_is_deterministic(dtype):
+    """No atomics: two runs of the backward give bitwise-equal dx and partials."""
+    x, scale, _, dy = _cuda_inputs((64, 89, 768), dtype, seed=2)
+    first = port_ln._bwd_kernel(x, scale, dy, EPS)
+    second = port_ln._bwd_kernel(x, scale, dy, EPS)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -1,128 +1,101 @@
-// Bidirectional GRU recurrence, forward (both directions in one launch).
+// Bidirectional GRU recurrence, forward and backward.
 //
-// Replaces: wav2vec2forbrain_tpu/ops/pallas_gru.py::_fwd_impl (the Pallas
-// kernel _fwd_kernel); ::_fwd_impl_dir (the same math one direction after
-// the other, used there for H = 512 / 1024) has a kernel of its own, the
-// per-direction forward at the end of this note. Per direction d and step t:
+// Replaces four Pallas kernels of wav2vec2forbrain_tpu/ops/pallas_gru.py:
+// ::_fwd_impl (_fwd_kernel) and ::_bwd_impl (_bwd_kernel), the fused entry
+// `gru_recurrence` that the conformer's biGRU (H = 256) runs; ::_fwd_impl_dir
+// and ::_bwd_impl_dir (_fwd_kernel_dir, _bwd_kernel_dir), the per-direction
+// entry `gru_recurrence_dir` that JAX runs for H = 512 / 1024. Per direction
+// d and step t:
 //   gh = h_cd @ W_hh[d]_cd + b_hh[d]          (f32 accumulation)
 //   r = sig(gi_r + gh_r); z = sig(gi_z + gh_z); n = tanh(gi_n + r * gh_n)
 //   h' = (1 - z) * n + z * h                  (h carried in f32)
-// where _cd means rounded to the compute dtype (the JAX kernel's `_mm`): the
-// caller passes W_hh already in the compute dtype, and the kernel keeps a
-// rounded copy of h next to the f32 carry. gi = x @ W_ih + b_ih comes in
-// precomputed (one large GEMM outside, as in the JAX package); the backward
-// direction's gi is already time-flipped by the caller.
-//
-// What bounds it on the H100: the sequential dependence over T and the
-// bytes of W_hh each block reads per step. One direction's W_hh at H=256 is
-// 256 x 768 f32 = 768 KiB (384 KiB in bf16), more than the 227 KB of shared
-// memory a block can hold, so the weight cannot stay on chip in one block.
-//
-// Design: W_hh stays in global memory, where it is resident in the 50 MB L2.
-// One block owns one direction and kBatch batch rows for all T steps; it
-// holds h (f32 carry plus its compute-dtype copy) in shared memory, double
-// buffered, and synchronises once per step inside the block. No grid-wide
-// sync is needed because the directions and the batch rows are independent.
-// Thread i owns hidden unit i (and i + blockDim, ...): it accumulates the r,
-// z and n columns of W_hh for all kBatch rows, so each W_hh element read
-// from L2 feeds kBatch FMAs and the reads are coalesced across threads.
-// Any H whose shared memory (16 * kBatch * H bytes) fits takes this kernel.
-// Splitting W_hh across a thread-block cluster (distributed shared memory)
-// is the next step for speed.
-//
-// Backward (replaces ::_bwd_impl, the Pallas kernel _bwd_kernel): reverse-
-// time BPTT from the saved ys. Per step t, going down:
+// where _cd means rounded to the compute dtype (the JAX kernel's `_mm`). gi =
+// x @ W_ih + b_ih comes in precomputed (one large GEMM outside, as in the JAX
+// package); the backward direction's gi is already time-flipped by the caller.
+// Backward, reverse-time BPTT from the saved ys, per step t going down:
 //   hprev = ys[t-1] (h0 at t = 0); gh and the gates recomputed as above
 //   dh = dh_carry + g[t]
 //   dgr, dgz, dgn -> dgi[t];  dgh = [dgr, dgz, dgn * r]
 //   dh_carry = dh * z + dgh_cd @ W_hh_cd^T
-// and, summed over all steps and batch rows,
-//   dW_hh = sum hprev_cd^T dgh_cd   (H x 3H per direction),  db_hh = sum dgh
-// The JAX kernel keeps dW_hh (2 x 256 x 768 f32 = 1.5 MiB at H = 256)
-// resident across the reverse loop; no H100 block can hold that, and a
-// rank-kBatch update of a global partial at every step would move ~90 x
-// 1.5 MiB per block. So the backward is three launches:
-//  1. the recurrence, with the forward's layout (one block per direction
-//     and kBatch batch rows, W_hh read from L2, hprev and the dh carry in
-//     shared memory; the product with W_hh^T reads a transposed copy of
-//     W_hh so that the reads stay coalesced across threads). It writes dgi
-//     and dgh (T, 2, B, 3H) to device memory and dh0 at the end. Two block
-//     barriers per step.
-//  2. dW_hh as a tiled shared-memory product over the T * B rows (2848 at
-//     the conformer slice's shape): one block per 64 x 64 output tile and
-//     direction, 32-row chunks of hprev and dgh staged in shared memory,
-//     4 x 4 outputs per thread. Each output is summed by one thread in a
-//     fixed order: no atomics, deterministic. Both operands are rounded to
-//     the compute dtype first, as the JAX `_mm` in _bwd_kernel does.
-//  3. db_hh: one thread per column sums dgh over the rows in order.
-// cuBLAS is not used: the JAX kernel computes dW_hh in its own body.
-//
-// Per-direction backward (replaces ::_bwd_impl_dir, the Pallas kernel
-// _bwd_kernel_dir): the same BPTT, at the widths where the JAX package runs
-// the directions one after the other (H = 512 / 1024). JAX computes dW_hh
-// and db_hh outside that kernel, as an f32 einsum over all steps
-// (::_vjp_bwd_dir); so does the port (ops/gru.py::gru_dir_dw_db, a plain
-// f32 matmul). The kernel below computes dgi, dgh and dh0 only.
+// and, summed over all steps and batch rows, dW_hh and db_hh: the fused
+// entry as the JAX `_bwd_kernel` forms them in its body, dW_hh = sum hprev_cd^T
+// dgh_cd (both rounded to the compute dtype, f32 sums) and db_hh = sum dgh
+// (f32); the per-direction entry outside the kernels, as an f32 product of the
+// unrounded values (JAX's ::_vjp_bwd_dir einsum; the port's
+// ops/gru.py::gru_dir_dw_db).
 //
 // What bounds it on the H100: the sequential dependence over T. Per step,
-// the carry's product dgh_cd[t+1] . W^T (B x 3H by 3H x H) reads all of
-// W_hh (6 MiB bf16, 12 MiB f32 per direction). Spread over the SMs that is
-// tens of MB per step from the 50 MB L2, where W_hh of both directions
-// stays resident: L2 bandwidth and latency bound a step at ~10-20 us. One
-// block per direction and 4 batch rows (the fused kernel's layout, 32
-// blocks at B = 64) used a quarter of the SMs and streamed W_hh as
-// scalars, twice, ~1 ms a step.
+// the forward's gh = h_cd . W_cd and the backward's carry product dgh_cd .
+// W_cd^T read all of one direction's W_hh (H = 256: 384 KiB bf16; H = 1024:
+// 6 MiB) from the 50 MB L2, where W_hh of both directions stays resident.
+// No block can hold it (227 KB of shared memory), so every step is spread
+// over many blocks, each reading its slice of W_hh from L2: L2 latency and
+// bandwidth and the launch gap bound a step.
 //
-// Design: gh does not depend on the carry, so one launch computes it for
-// every step first: gh = hprev_cd . W_cd over all T x B rows (a block per
-// 32 rows, 32 hidden units of each gate and direction; thousands of
-// blocks). Then one launch per time step; the kernel boundary is the
-// barrier between steps (no grid barrier, no cooperative launch). The host
-// function loops t = T-1 .. 0, then one launch forms dh0. A step's block
-// owns kU = 32 hidden units S of one direction and kBB = 32 batch rows: at
-// H = 1024, B = 64 that is 32 x 2 x 2 = 128 blocks. Step t in a block:
-//  (a) c1 = dgh_cd[t+1] . W_cd[S, :]^T over K = 3H: the whole dgh_cd row of
-//      the previous launch (every block of it wrote its columns) against
-//      the block's kU rows of W, which are contiguous: no transposed copy;
-//  (b) dh = dhz + c1 + g[t] (dhz = the previous step's dh * z of the same
-//      units, kept in device memory), the gates from gi[t] and gh[t], and
-//      the outputs dgi[t], dgh[t] (f32), dgh_cd[t] (ping-pong buffer) and
-//      dhz.
-// Both products (gh's and c1) stage their operands in shared memory in
-// 128-byte K-chunks through a 3-deep cp.async pipeline (an 8-deep one
-// measured no faster for the step's product on the H100).
-// bf16: mma.sync.m16n8k16 (bf16 inputs, f32 accumulators) on the tensor
-// cores, each of the 4 warps a 16-row x 16-unit slab. f32: SIMT f32 FMAs (no TF32), 2 rows x 4 units (x 3 gates)
-// per thread. The wrapper pads: W_hh to (Hp, 3 x Hp) with each gate block
-// Hp wide and hprev_cd / dgh_cd to Bp rows, Hp = H rounded up to 64 and Bp
-// = B to 32, zeros in the padding; so every chunk is whole and 16-byte
-// aligned, any H and B are taken, and only the last step's writes mask
-// the ragged edge.
+// Fused forward (gru_fwd_kernel): one block per direction and kBatch = 4
+// batch rows for all T steps, h (f32 carry and its compute-dtype copy) in
+// shared memory, one block barrier per step; thread i accumulates hidden
+// unit i's r, z, n columns of W_hh (scalar L2 reads) for the kBatch rows.
+// Any H whose shared memory (16 * kBatch * H bytes) fits takes it.
 //
-// Per-direction forward (replaces ::_fwd_impl_dir, the Pallas kernel
-// _fwd_kernel_dir): the forward counterpart of the step launches above.
-// What bounds it: the same sequential dependence; per step, gh = h_cd[t-1]
-// . W_cd reads all of W_hh from L2. The fused forward's layout (a block per
-// direction and 4 batch rows, W_hh read as scalars) left 100 SMs idle:
-// 20 ms at H = 1024, B = 64, 4x cuDNN. Design: one launch per time step
-// (the host function loops t = 0 .. T-1) over the same 32-unit x 32-row x
-// direction blocks. Step t in a block: gh = h_cd[t-1] . W_cd[:, the
-// block's 32 units of each gate] over K = Hp, through the 3-deep cp.async
-// pipeline (mma.sync at bf16, SIMT f32 FMAs at f32); then the gates with
-// b_hh added after the product and the f32 carry read from ys[t-1] (h0 at
-// t = 0); then ys[t] (f32) and h_cd[t], rounded, into a zero-padded
+// Per-direction forward (gru_dir_fwd_step_kernel): one launch per time step
+// (the host function loops t = 0 .. T-1; the kernel boundary is the barrier
+// between steps: no grid barrier, no cooperative launch) over blocks of 32
+// hidden units x 32 batch rows x direction. Step t in a block: gh = h_cd[t-1]
+// . W_cd[:, the block's 32 units of each gate] over K = Hp, then the gates
+// with b_hh added after the product and the f32 carry read from ys[t-1] (h0
+// at t = 0); then ys[t] (f32) and h_cd[t], rounded, into a zero-padded
 // ping-pong buffer that every block of step t+1 reads whole. W_hh goes in
-// transposed, laid out once per call as (ND, 3 Hp, Hp), so that the
-// block's 3 x 32 gate rows are K-contiguous and the mma B fragments load as
-// 32-bit pairs (as the backward's carry product does); the backward's
-// (Hp, 3 Hp) layout would need 16-bit scalar packing (the gh launch's) or
-// ldmatrix.trans on the step's critical path. The copy is ~12 MB at H =
-// 1024, once per call.
+// transposed, laid out once per call as (ND, 3 Hp, Hp), so that the block's
+// 3 x 32 gate rows are K-contiguous and the mma B fragments load as 32-bit
+// pairs.
+//
+// Backward, both entries, one set of kernels (launch_bwd):
+//  1. gru_hprev_kernel: hprev in the compute dtype, row-major (T, ND, Bp, Hp)
+//     for gh; for the fused entry also transposed (ND, Hp, Rp), rows r = t Bp
+//     + b, through a 32 x 32 tile in shared memory.
+//  2. gru_gh_kernel: gh does not depend on the carry, so one launch computes
+//     it for every step: hprev_cd . W_cd over all T x Bp rows (thousands of
+//     blocks).
+//  3. gru_bwd_step_kernel, one launch per step t = T-1 .. 0 and one for dh0.
+//     A block owns BU hidden units S of one direction and BM batch rows:
+//     (a) c1 = dgh_cd[t+1] . W_cd[S, :]^T over K = 3 Hp: the whole dgh_cd row
+//         of the previous launch (every block of it wrote its columns) against
+//         the block's BU rows of W, which are contiguous;
+//     (b) dh = dhz + c1 + g[t] (dhz = the previous step's dh * z of the same
+//         units, in device memory; it, g[t], gi[t], gh[t] and hprev are
+//         loaded before (a) starts), the gates from gi[t] and gh[t], and the
+//         outputs dgi[t], dgh_cd[t] (ping-pong buffer) and dhz; the
+//         per-direction entry also writes dgh[t] (f32) for its dW outside; the
+//         fused entry writes dgh_cd[t] transposed (ND, 3 Hp, Rp) for dW and
+//         adds dgh into a per-batch-row f32 sum dbp (fixed order: step by
+//         step).
+//     The tile: 32 units x 32 rows where that gives at least 64 blocks (H =
+//     1024, B = 64: 128 blocks), else 16 x 16 (H = 256, B = 32: 64 blocks,
+//     where 32 x 32 gave 16). A 16 x 16 tile has one 16 x 16 mma output, so
+//     its 4 warps split each K chunk four ways and add their partials in
+//     shared memory in a fixed order, and its pipeline is 12 chunks deep, so
+//     that a step's K chunks (12 at H = 256, bf16) are all in flight at once.
+//  4. gru_dw_kernel (fused entry): dW_hh[d] = hprev_cd^T . dgh_cd over the Rp
+//     rows of all steps and batch rows, both operands K-contiguous from
+//     their transposed copies: 32 x 96 output tiles, each summed by one
+//     thread (or one mma accumulator) in a fixed order, no atomics; the
+//     blocks of the first row tile also sum dbp over the batch rows into
+//     db_hh. The JAX kernel accumulates dW per step; here one product runs
+//     over the T Bp rows: the same terms in another order.
+// Every product stages its operands in shared memory in 128-byte K chunks
+// through a 3-deep cp.async pipeline. bf16: mma.sync.m16n8k16 (bf16 inputs,
+// f32 accumulators) on the tensor cores; f32: SIMT f32 FMAs (no TF32), 2 rows
+// x 4 units (x gates) per thread. The wrapper pads: W_hh to (Hp, 3 x Hp) with
+// each gate block Hp wide, hprev_cd and dgh_cd to Bp rows and Rp = T Bp
+// rounded up to 64, Hp = H rounded up to 64 and Bp = B to 32, zeros in the
+// padding; so every chunk is whole and 16-byte aligned, any H and B are
+// taken, and only the steps' writes mask the ragged edge.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBatch = 4;  // batch rows per block
+constexpr int kBatch = 4;  // batch rows per block of the fused forward
 
 template <typename W>
 __global__ void gru_fwd_kernel(const float* __restrict__ gi, const W* __restrict__ w_hh,
@@ -214,246 +187,41 @@ int launch(const float* gi, const void* w_hh, const float* b_hh, const float* h0
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename W>
-__global__ void gru_bwd_kernel(const float* __restrict__ gi, const W* __restrict__ w_hh,
-                               const W* __restrict__ w_t, const float* __restrict__ b_hh,
-                               const float* __restrict__ h0, const float* __restrict__ ys,
-                               const float* __restrict__ g, float* __restrict__ dgi,
-                               float* __restrict__ dgh, float* __restrict__ dh0, int T, int ND,
-                               int B, int H) {
-  constexpr bool cd_bf16 = sizeof(W) == 2;
-  extern __shared__ float sm[];
-  const int H3 = 3 * H;
-  float* hp = sm;                   // [kBatch][H] hprev, f32
-  float* hpc = hp + kBatch * H;     // [kBatch][H] hprev rounded to the compute dtype
-  float* dhs = hpc + kBatch * H;    // [kBatch][H] dh carry, f32
-  float* dghc = dhs + kBatch * H;   // [kBatch][3H] dgh rounded to the compute dtype
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * kBatch;
-  const int nb = min(kBatch, B - b0);
-  const W* w = w_hh + (size_t)d * H * H3;
-  const W* wt = w_t + (size_t)d * H3 * H;
-  const float* bh = b_hh + (size_t)d * H3;
+// ---- the step kernels' products (header note above) ----
 
-  // hprev of step t: ys[t-1], or h0 at t = 0
-  auto load_hprev = [&](int t) {
-    for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) {
-      const int bb = i / H;
-      const int j = i - bb * H;
-      float v = 0.f;
-      if (bb < nb)
-        v = t > 0 ? ys[(((size_t)(t - 1) * ND + d) * B + b0 + bb) * H + j]
-                  : h0[((size_t)d * B + b0 + bb) * H + j];
-      hp[i] = v;
-      hpc[i] = w2vb::round_cd(v, cd_bf16);
-    }
-  };
-  for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) dhs[i] = 0.f;
-  load_hprev(T - 1);
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row0 = ((size_t)t * ND + d) * B + b0;
-    for (int i = threadIdx.x; i < H; i += blockDim.x) {
-      float a0[kBatch], a1[kBatch], a2[kBatch];
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) a0[bb] = a1[bb] = a2[bb] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < H; ++j) {
-        const W* wr = w + (size_t)j * H3;
-        const float w0 = w2vb::to_f32(wr[i]);
-        const float w1 = w2vb::to_f32(wr[H + i]);
-        const float w2 = w2vb::to_f32(wr[2 * H + i]);
-#pragma unroll
-        for (int bb = 0; bb < kBatch; ++bb) {
-          const float hv = hpc[bb * H + j];
-          a0[bb] = fmaf(hv, w0, a0[bb]);
-          a1[bb] = fmaf(hv, w1, a1[bb]);
-          a2[bb] = fmaf(hv, w2, a2[bb]);
-        }
-      }
-      const float br = bh[i], bz = bh[H + i], bn = bh[2 * H + i];
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) {
-        float* dc = dghc + bb * H3;
-        if (bb < nb) {
-          const float* gr = gi + (row0 + bb) * H3;
-          const float gh_n = a2[bb] + bn;
-          const float r = w2vb::sigmoidf(gr[i] + (a0[bb] + br));
-          const float z = w2vb::sigmoidf(gr[H + i] + (a1[bb] + bz));
-          const float n = tanhf(gr[2 * H + i] + r * gh_n);
-          const float dh = dhs[bb * H + i] + g[(row0 + bb) * H + i];
-          const float dn = dh * (1.f - z);
-          const float dzv = dh * (hp[bb * H + i] - n);
-          const float dgn = dn * (1.f - n * n);
-          const float dr = dgn * gh_n;
-          const float dgz = dzv * z * (1.f - z);
-          const float dgr = dr * r * (1.f - r);
-          const float dghn = dgn * r;
-          float* o = dgi + (row0 + bb) * H3;
-          o[i] = dgr;
-          o[H + i] = dgz;
-          o[2 * H + i] = dgn;
-          float* oh = dgh + (row0 + bb) * H3;
-          oh[i] = dgr;
-          oh[H + i] = dgz;
-          oh[2 * H + i] = dghn;
-          dc[i] = w2vb::round_cd(dgr, cd_bf16);
-          dc[H + i] = w2vb::round_cd(dgz, cd_bf16);
-          dc[2 * H + i] = w2vb::round_cd(dghn, cd_bf16);
-          dhs[bb * H + i] = dh * z;  // the carry's first term; only this thread touches it
-        } else {
-          dc[i] = dc[H + i] = dc[2 * H + i] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-    // dh_carry = dh * z + dgh_cd @ W_hh_cd^T (W^T row j is contiguous over i)
-    for (int i = threadIdx.x; i < H; i += blockDim.x) {
-      float acc[kBatch];
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) acc[bb] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < H3; ++j) {
-        const float wv = w2vb::to_f32(wt[(size_t)j * H + i]);
-#pragma unroll
-        for (int bb = 0; bb < kBatch; ++bb) acc[bb] = fmaf(dghc[bb * H3 + j], wv, acc[bb]);
-      }
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) dhs[bb * H + i] += acc[bb];
-    }
-    if (t > 0) load_hprev(t - 1);
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) {
-    const int bb = i / H;
-    if (bb < nb) dh0[((size_t)d * B + b0 + bb) * H + (i - bb * H)] = dhs[i];
-  }
-}
-
-constexpr int kTile = 64;   // dW output tile (rows of H x columns of 3H)
-constexpr int kChunk = 32;  // T*B rows staged per step
-
-// dw[d] = sum over rows (t, b) of hprev_cd[t, d, b, :]^T dgh_cd[t, d, b, :]
-__global__ void gru_dw_kernel(const float* __restrict__ h0, const float* __restrict__ ys,
-                              const float* __restrict__ dgh, float* __restrict__ dw, int T,
-                              int ND, int B, int H, bool round_bf16) {
-  __shared__ float as[kChunk][kTile];  // hprev rows, columns i0 ..
-  __shared__ float bs[kChunk][kTile];  // dgh rows, columns j0 ..
-  const int H3 = 3 * H;
-  const int j0 = blockIdx.x * kTile;
-  const int i0 = blockIdx.y * kTile;
-  const int d = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int R = T * B;
-  float acc[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
-
-  for (int r0 = 0; r0 < R; r0 += kChunk) {
-    for (int e = threadIdx.x; e < kChunk * kTile; e += blockDim.x) {
-      const int rr = e / kTile;
-      const int cc = e - rr * kTile;
-      const int r = r0 + rr;
-      float av = 0.f, bv = 0.f;
-      if (r < R) {
-        const int t = r / B;
-        const int bb = r - t * B;
-        const int i = i0 + cc;
-        const int j = j0 + cc;
-        if (i < H)
-          av = t > 0 ? ys[(((size_t)(t - 1) * ND + d) * B + bb) * H + i]
-                     : h0[((size_t)d * B + bb) * H + i];
-        if (j < H3) bv = dgh[(((size_t)t * ND + d) * B + bb) * H3 + j];
-      }
-      as[rr][cc] = w2vb::round_cd(av, round_bf16);
-      bs[rr][cc] = w2vb::round_cd(bv, round_bf16);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kChunk; ++rr) {
-      float a[4], b[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) a[m] = as[rr][ty * 4 + m];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) b[n] = bs[rr][tx + 16 * n];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int i = i0 + ty * 4 + m;
-    if (i >= H) continue;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int j = j0 + tx + 16 * n;
-      if (j < H3) dw[((size_t)d * H + i) * H3 + j] = acc[m][n];
-    }
-  }
-}
-
-// db[d, j] = sum over rows (t, b) of dgh[t, d, b, j], f32, rows in order
-__global__ void gru_db_kernel(const float* __restrict__ dgh, float* __restrict__ db, int T, int ND,
-                              int B, int H3) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int d = blockIdx.y;
-  if (j >= H3) return;
-  float acc = 0.f;
-  for (int t = 0; t < T; ++t)
-    for (int bb = 0; bb < B; ++bb) acc += dgh[(((size_t)t * ND + d) * B + bb) * H3 + j];
-  db[(size_t)d * H3 + j] = acc;
-}
-
-template <typename W>
-int launch_bwd(const float* gi, const void* w_hh, const void* w_t, const float* b_hh,
-               const float* h0, const float* ys, const float* g, float* dgi, float* dgh,
-               float* dw, float* db, float* dh0, int T, int ND, int B, int H, cudaStream_t s) {
-  const size_t smem = (size_t)6 * kBatch * H * sizeof(float);
-  cudaError_t e = w2vb::allow_smem(gru_bwd_kernel<W>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((B + kBatch - 1) / kBatch, ND);
-  const int threads = H < 512 ? ((H + 31) / 32) * 32 : 512;
-  gru_bwd_kernel<W><<<grid, threads, smem, s>>>(gi, static_cast<const W*>(w_hh),
-                                                static_cast<const W*>(w_t), b_hh, h0, ys, g, dgi,
-                                                dgh, dh0, T, ND, B, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gdw((3 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, ND);
-  gru_dw_kernel<<<gdw, 256, 0, s>>>(h0, ys, dgh, dw, T, ND, B, H, sizeof(W) == 2);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gdb((3 * H + 255) / 256, ND);
-  gru_db_kernel<<<gdb, 256, 0, s>>>(dgh, db, T, ND, B, 3 * H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- per-direction backward: one launch per step (header note above) ----
-
-constexpr int kU = 32;           // hidden units per block
-constexpr int kBB = 32;          // batch rows per block
-constexpr int kStages = 3;        // cp.async pipeline depth
 constexpr int kDirThreads = 128;  // 4 warps
-constexpr int kLdC1 = kU + 1;      // c1 [kBB][kU] in shared memory, padded
-constexpr int kLdC2 = 3 * kU + 1;  // c2 [kBB][3 kU]
+constexpr int kMinStepBlocks = 64;  // the 32 x 32 step tile where it gives at least this many blocks
 
-template <typename W>
+// A block's output tile: BM rows (batch rows, or dW rows) x BU units of each
+// gate segment. It has kSub 16 x 16 sub-tiles; where that is fewer than the
+// 4 warps, KS warps (or thread groups, at f32) share each sub-tile, each a
+// 1 / KS share of every K chunk, and their partials are added in a fixed
+// order. S: the cp.async pipeline's depth.
+template <int BM_, int BU_, int S_>
+struct Tile {
+  static constexpr int BM = BM_, BU = BU_, S = S_;
+  static constexpr int kSub = (BM / 16) * (BU / 16);
+  static constexpr int KS = 4 / kSub;
+  static_assert(kSub * KS == 4, "a tile has 1, 2 or 4 sub-tiles of 16 x 16");
+};
+using Big = Tile<32, 32, 3>;
+// all of a 16 x 16 step's K chunks in flight at H = 256 (3 Hp / 64 = 12 at bf16)
+using Small = Tile<16, 16, 12>;
+
+template <typename W, class Tl>
 struct DirTile {
   static constexpr int kKC = 128 / sizeof(W);  // K per chunk: 128 bytes of a row
   static constexpr int kVec = 16 / sizeof(W);  // elements per 16-byte copy; also the row padding
-  static constexpr int kLdA = kKC + kVec;      // A rows, and B rows of the carry product
-  static constexpr int kLdB2 = 3 * kU + kVec;  // B rows of the gh product (one per k)
-  // B: K rows of 3 kU columns, or up to 3 kU rows of K (the forward's W^T)
-  static constexpr int kBSize = kKC * kLdB2 > 3 * kU * kLdA ? kKC * kLdB2 : 3 * kU * kLdA;
-  static constexpr int kStage = kBB * kLdA + kBSize;  // elements of one pipeline stage
-  // the shared memory of a block: the stages, then the product in f32
-  static constexpr size_t kSmem =
-      (size_t)kStages * kStage * sizeof(W) + (size_t)kBB * kLdC2 * sizeof(float);
+  static constexpr int kLdA = kKC + kVec;      // A rows, and B rows of the NK products
+  static constexpr int kLdB2 = 3 * Tl::BU + kVec;  // B rows of the gh product (one per k)
+  // B: K rows of 3 BU columns (gh), or up to 3 BU rows of K (the others)
+  static constexpr int kBSize =
+      kKC * kLdB2 > 3 * Tl::BU * kLdA ? kKC * kLdB2 : 3 * Tl::BU * kLdA;
+  static constexpr int kStage = Tl::BM * kLdA + kBSize;  // elements of one pipeline stage
+  static constexpr int kLdC = 3 * Tl::BU + 1;            // the product in f32, KS copies
+  // the shared memory of a block: the stages, then the product
+  static constexpr size_t kSmem = (size_t)Tl::S * kStage * sizeof(W) +
+                                  (size_t)Tl::KS * Tl::BM * kLdC * sizeof(float);
 };
 
 template <typename W>
@@ -465,13 +233,16 @@ struct DirArgs {
   const float* ys;    // (T, ND, B, H)
   const float* g;     // (T, ND, B, H)
   W* hpc;             // (T, ND, Bp, Hp): hprev in the compute dtype, zero padded
+  W* hpct;            // (ND, Hp, Rp) or null: hpc transposed, rows r = t Bp + b, zero past T Bp
   W* dghc;            // (2, ND, Bp, 3 Hp): dgh in the compute dtype, ping-pong, zero padded
+  W* dghct;           // (ND, 3 Hp, Rp) or null: dgh_cd of every step, transposed like hpct
+  float* dbp;         // (ND, Bp, 3 Hp) or null: dgh summed over the steps, per batch row
   float* dhz;         // (ND, Bp, Hp): dh * z of the last step
   float* dgi;         // (T, ND, B, 3H)
-  float* dgh;         // (T, ND, B, 3H)
+  float* dgh;         // (T, ND, B, 3H) or null
   float* gh;          // (T, ND, Bp, 3 Hp): hprev_cd . W_cd, without b_hh
   float* dh0;         // (ND, B, H)
-  int T, ND, B, H, Bp, Hp;
+  int T, ND, B, H, Bp, Hp, Rp;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -492,49 +263,52 @@ __device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// The products share one pipeline; N = NG kU columns in NG segments of kU.
-// NK (the backward's carry product, NG = 1; the forward's gh, NG = 3): B is
-// N rows, K contiguous, segment g's kU rows at row g * seg of Bm. !NK (the
-// backward's gh, NG = 3): B is K rows of W, of which the kU columns at
-// column g * seg are taken. A is kBB rows.
-template <typename W, bool NK, int NG>
+// The products share one pipeline; N = NG BU columns in NG segments of BU.
+// NK (B is N rows, K contiguous: segment g's BU rows at row g * seg of Bm) or
+// !NK (the gh product: B is K rows of W, of which the BU columns at column g *
+// seg are taken). A is BM rows.
+template <typename W, class Tl, bool NK, int NG>
 __device__ __forceinline__ void load_chunk(W* st, const W* A, int lda, const W* Bm, int ldb,
                                            int seg, int c) {
-  using L = DirTile<W>;
+  using L = DirTile<W, Tl>;
   constexpr int kPerRow = L::kKC / L::kVec;  // 16-byte copies per row of a chunk
   W* as = st;
-  W* bs = st + kBB * L::kLdA;
+  W* bs = st + Tl::BM * L::kLdA;
   const int k0 = c * L::kKC;
-  for (int p = threadIdx.x; p < kBB * kPerRow; p += kDirThreads) {
+  for (int p = threadIdx.x; p < Tl::BM * kPerRow; p += kDirThreads) {
     const int r = p / kPerRow, q = (p % kPerRow) * L::kVec;
     cp_async16(as + r * L::kLdA + q, A + (size_t)r * lda + k0 + q);
   }
   if constexpr (NK) {
-    for (int p = threadIdx.x; p < NG * kU * kPerRow; p += kDirThreads) {
+    for (int p = threadIdx.x; p < NG * Tl::BU * kPerRow; p += kDirThreads) {
       const int r = p / kPerRow, q = (p % kPerRow) * L::kVec;
-      cp_async16(bs + r * L::kLdA + q, Bm + (size_t)((r / kU) * seg + r % kU) * ldb + k0 + q);
+      cp_async16(bs + r * L::kLdA + q,
+                 Bm + (size_t)((r / Tl::BU) * seg + r % Tl::BU) * ldb + k0 + q);
     }
   } else {
-    constexpr int kPerK = NG * kU / L::kVec;
+    constexpr int kPerK = NG * Tl::BU / L::kVec;
     for (int p = threadIdx.x; p < L::kKC * kPerK; p += kDirThreads) {
       const int kk = p / kPerK, col = (p % kPerK) * L::kVec;
       cp_async16(bs + kk * L::kLdB2 + col,
-                 Bm + (size_t)(k0 + kk) * ldb + (col / kU) * seg + col % kU);
+                 Bm + (size_t)(k0 + kk) * ldb + (col / Tl::BU) * seg + col % Tl::BU);
     }
   }
 }
 
-// bf16: warp w takes rows 16 (w / 2) .. +16 and units 16 (w % 2) .. +16 (of
-// each segment): n-tile j covers columns (j / 2) kU + 16 (w % 2) + 8 (j % 2).
-template <bool NK, int NG>
+// bf16: warp w takes sub-tile s = w % kSub (rows mr .. +16, units nu .. +16
+// of each segment) and the k16 steps j of a chunk with j % KS == w / kSub;
+// n-tile j covers columns (j / 2) BU + nu + 8 (j % 2).
+template <class Tl, bool NK, int NG>
 __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* acc) {
-  using L = DirTile<__nv_bfloat16>;
+  using L = DirTile<__nv_bfloat16, Tl>;
   const __nv_bfloat16* as = st;
-  const __nv_bfloat16* bs = st + kBB * L::kLdA;
+  const __nv_bfloat16* bs = st + Tl::BM * L::kLdA;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int mr = 16 * (warp >> 1), nu = 16 * (warp & 1);
+  const int s = warp % Tl::kSub, q = warp / Tl::kSub;
+  const int mr = 16 * (s / (Tl::BU / 16)), nu = 16 * (s % (Tl::BU / 16));
 #pragma unroll
   for (int kk = 0; kk < L::kKC; kk += 16) {
+    if ((kk / 16) % Tl::KS != q) continue;
     uint32_t af[4];
     const __nv_bfloat16* ap = as + (mr + gq) * L::kLdA + kk + 2 * tq;
     af[0] = ld_pair(ap);
@@ -543,7 +317,7 @@ __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* ac
     af[3] = ld_pair(ap + 8 * L::kLdA + 8);
 #pragma unroll
     for (int j = 0; j < 2 * NG; ++j) {
-      const int n = (j >> 1) * kU + nu + 8 * (j & 1) + gq;
+      const int n = (j >> 1) * Tl::BU + nu + 8 * (j & 1) + gq;
       uint32_t bf[2];
       if constexpr (NK) {
         const __nv_bfloat16* bp = bs + n * L::kLdA + kk + 2 * tq;
@@ -559,21 +333,25 @@ __device__ __forceinline__ void compute_chunk(const __nv_bfloat16* st, float* ac
   }
 }
 
-// f32: thread i takes rows 2 (i / 8), +1 and units i % 8 + 8 j (j < 4; of
-// each segment); acc[j] row 2 (i / 8), acc[nj + j] the next row.
-template <bool NK, int NG>
+// f32: the threads form KS groups, group q the K share q of each chunk;
+// thread l of a group takes rows 2 (l / (BU / 4)), +1 and units l % (BU / 4)
+// + (BU / 4) j (j < 4; of each segment); acc[j] the first row, acc[nj + j]
+// the second.
+template <class Tl, bool NK, int NG>
 __device__ __forceinline__ void compute_chunk(const float* st, float* acc) {
-  using L = DirTile<float>;
+  using L = DirTile<float, Tl>;
   constexpr int nj = 4 * NG;
+  constexpr int kGroup = kDirThreads / Tl::KS, kUq = Tl::BU / 4, kK = L::kKC / Tl::KS;
   const float* as = st;
-  const float* bs = st + kBB * L::kLdA;
-  const int r0 = (threadIdx.x >> 3) * 2, u0 = threadIdx.x & 7;
+  const float* bs = st + Tl::BM * L::kLdA;
+  const int q = threadIdx.x / kGroup, l = threadIdx.x % kGroup;
+  const int r0 = 2 * (l / kUq), u0 = l % kUq;
 #pragma unroll 4
-  for (int kk = 0; kk < L::kKC; ++kk) {
+  for (int kk = q * kK; kk < (q + 1) * kK; ++kk) {
     const float a0 = as[r0 * L::kLdA + kk], a1 = as[(r0 + 1) * L::kLdA + kk];
 #pragma unroll
     for (int j = 0; j < nj; ++j) {
-      const int u = (j >> 2) * kU + u0 + 8 * (j & 3);
+      const int u = (j >> 2) * Tl::BU + u0 + kUq * (j & 3);
       const float bv = NK ? bs[u * L::kLdA + kk] : bs[kk * L::kLdB2 + u];
       acc[j] = fmaf(a0, bv, acc[j]);
       acc[nj + j] = fmaf(a1, bv, acc[nj + j]);
@@ -581,186 +359,322 @@ __device__ __forceinline__ void compute_chunk(const float* st, float* acc) {
   }
 }
 
-template <typename W, int NG>
+// The accumulators into C (BM rows of ldc), K share q into copy q; with KS >
+// 1 the copies are then added into copy 0 in the order q = 0, 1, ...
+template <typename W, class Tl, int NG>
 __device__ __forceinline__ void store_acc(const float* acc, float* C, int ldc) {
   if constexpr (sizeof(W) == 2) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-    const int row = 16 * (warp >> 1) + gq;
+    const int s = warp % Tl::kSub;
+    float* Cq = C + (warp / Tl::kSub) * Tl::BM * ldc;
+    const int row = 16 * (s / (Tl::BU / 16)) + gq, nu = 16 * (s % (Tl::BU / 16));
 #pragma unroll
     for (int j = 0; j < 2 * NG; ++j) {
-      const int col = (j >> 1) * kU + 16 * (warp & 1) + 8 * (j & 1) + 2 * tq;
-      C[row * ldc + col] = acc[4 * j];
-      C[row * ldc + col + 1] = acc[4 * j + 1];
-      C[(row + 8) * ldc + col] = acc[4 * j + 2];
-      C[(row + 8) * ldc + col + 1] = acc[4 * j + 3];
+      const int col = (j >> 1) * Tl::BU + nu + 8 * (j & 1) + 2 * tq;
+      Cq[row * ldc + col] = acc[4 * j];
+      Cq[row * ldc + col + 1] = acc[4 * j + 1];
+      Cq[(row + 8) * ldc + col] = acc[4 * j + 2];
+      Cq[(row + 8) * ldc + col + 1] = acc[4 * j + 3];
     }
   } else {
     constexpr int nj = 4 * NG;
-    const int r0 = (threadIdx.x >> 3) * 2, u0 = threadIdx.x & 7;
+    constexpr int kGroup = kDirThreads / Tl::KS, kUq = Tl::BU / 4;
+    const int l = threadIdx.x % kGroup;
+    float* Cq = C + (threadIdx.x / kGroup) * Tl::BM * ldc;
+    const int r0 = 2 * (l / kUq), u0 = l % kUq;
 #pragma unroll
     for (int j = 0; j < nj; ++j) {
-      const int col = (j >> 2) * kU + u0 + 8 * (j & 3);
-      C[r0 * ldc + col] = acc[j];
-      C[(r0 + 1) * ldc + col] = acc[nj + j];
+      const int col = (j >> 2) * Tl::BU + u0 + kUq * (j & 3);
+      Cq[r0 * ldc + col] = acc[j];
+      Cq[(r0 + 1) * ldc + col] = acc[nj + j];
+    }
+  }
+  if constexpr (Tl::KS > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < Tl::BM * NG * Tl::BU; e += kDirThreads) {
+      const int idx = (e / (NG * Tl::BU)) * ldc + e % (NG * Tl::BU);
+      float v = C[idx];
+#pragma unroll
+      for (int q = 1; q < Tl::KS; ++q) v += C[q * Tl::BM * ldc + idx];
+      C[idx] = v;
     }
   }
 }
 
 // C = A . B over nchunks chunks of K (see load_chunk), into shared memory
-template <typename W, bool NK, int NG>
+template <typename W, class Tl, bool NK, int NG>
 __device__ void block_product(W* stage, const W* A, int lda, const W* Bm, int ldb, int seg,
                               int nchunks, float* C, int ldc) {
-  using L = DirTile<W>;
+  using L = DirTile<W, Tl>;
   constexpr int kStage = L::kStage;
   float acc[8 * NG];
 #pragma unroll
   for (int j = 0; j < 8 * NG; ++j) acc[j] = 0.f;
 #pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) {
-    if (c < nchunks) load_chunk<W, NK, NG>(stage + c * kStage, A, lda, Bm, ldb, seg, c);
+  for (int c = 0; c < Tl::S - 1; ++c) {
+    if (c < nchunks) load_chunk<W, Tl, NK, NG>(stage + c * kStage, A, lda, Bm, ldb, seg, c);
     cp_async_commit();
   }
   for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<Tl::S - 2>();
     __syncthreads();  // chunk c is in; every thread is done with chunk c - 1's stage
-    const int nxt = c + kStages - 1;
+    const int nxt = c + Tl::S - 1;
     if (nxt < nchunks)
-      load_chunk<W, NK, NG>(stage + (nxt % kStages) * kStage, A, lda, Bm, ldb, seg, nxt);
+      load_chunk<W, Tl, NK, NG>(stage + (nxt % Tl::S) * kStage, A, lda, Bm, ldb, seg, nxt);
     cp_async_commit();
-    compute_chunk<NK, NG>(stage + (c % kStages) * kStage, acc);
+    compute_chunk<Tl, NK, NG>(stage + (c % Tl::S) * kStage, acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the stages are free for the next product
-  store_acc<W, NG>(acc, C, ldc);
+  store_acc<W, Tl, NG>(acc, C, ldc);
 }
 
-// hpc[t, d, b, k] = hprev (ys[t-1], h0 at t = 0) in the compute dtype; 0 in the padding
+// hpc[t, d, b, k] = hprev (ys[t-1], h0 at t = 0) in the compute dtype, 0 in
+// the padding; with hpct also hpct[d, k, t Bp + b] (through the shared tile,
+// so that both writes are coalesced) and zeros in dghct's rows past T Bp.
+// Block (32, 8) threads over rows r0 .. +32 of the Rp rows, columns k0 .. +32.
 template <typename W>
-__global__ void gru_dir_hprev_kernel(DirArgs<W> a) {
-  const size_t n = (size_t)a.T * a.ND * a.Bp * a.Hp;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int k = static_cast<int>(e % a.Hp);
-    size_t rest = e / a.Hp;
-    const int b = static_cast<int>(rest % a.Bp);
-    rest /= a.Bp;
-    const int d = static_cast<int>(rest % a.ND);
-    const int t = static_cast<int>(rest / a.ND);
+__global__ void gru_hprev_kernel(DirArgs<W> a) {
+  __shared__ float tile[32][33];  // the rounded values, exact in f32
+  const int r0 = blockIdx.x * 32, k0 = blockIdx.y * 32, d = blockIdx.z;
+  const int R = a.T * a.Bp;
+  for (int rr = threadIdx.y; rr < 32; rr += 8) {
+    const int r = r0 + rr, k = k0 + threadIdx.x;
+    const int t = r / a.Bp, b = r % a.Bp;
     float v = 0.f;
-    if (b < a.B && k < a.H)
+    if (r < R && b < a.B && k < a.H)
       v = t > 0 ? a.ys[(((size_t)(t - 1) * a.ND + d) * a.B + b) * a.H + k]
                 : a.h0[((size_t)d * a.B + b) * a.H + k];
-    a.hpc[e] = w2vb::from_f32<W>(v);
+    const W wv = w2vb::from_f32<W>(v);
+    if (r < R) a.hpc[(((size_t)t * a.ND + d) * a.Bp + b) * a.Hp + k] = wv;
+    tile[rr][threadIdx.x] = w2vb::to_f32(wv);
+  }
+  if (a.hpct == nullptr) return;  // the same for every thread of the launch
+  __syncthreads();
+  for (int kk = threadIdx.y; kk < 32; kk += 8) {
+    const int k = k0 + kk, r = r0 + threadIdx.x;
+    a.hpct[((size_t)d * a.Hp + k) * a.Rp + r] = w2vb::from_f32<W>(tile[threadIdx.x][kk]);
+    if (r >= R)
+      for (int gg = 0; gg < 3; ++gg)
+        a.dghct[((size_t)d * 3 * a.Hp + gg * a.Hp + k) * a.Rp + r] = w2vb::from_f32<W>(0.f);
   }
 }
 
-// gh for every step: block (unit tile, tile of kBB rows of the T x Bp rows, direction)
+// gh for every step: block (unit tile, tile of 32 rows of the T x Bp rows, direction)
 template <typename W>
-__global__ void __launch_bounds__(kDirThreads) gru_dir_gh_kernel(DirArgs<W> a) {
-  using L = DirTile<W>;
+__global__ void __launch_bounds__(kDirThreads) gru_gh_kernel(DirArgs<W> a) {
+  using L = DirTile<W, Big>;
+  constexpr int kLdC = L::kLdC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   W* stage = reinterpret_cast<W*>(smem_raw);
-  float* c2 = reinterpret_cast<float*>(smem_raw + (size_t)kStages * L::kStage * sizeof(W));
-  const int i0 = blockIdx.x * kU, d = blockIdx.z;
-  const int t = blockIdx.y * kBB / a.Bp, b0 = blockIdx.y * kBB % a.Bp;  // Bp % kBB == 0
+  float* c2 = reinterpret_cast<float*>(smem_raw + (size_t)Big::S * L::kStage * sizeof(W));
+  const int i0 = blockIdx.x * Big::BU, d = blockIdx.z;
+  const int t = blockIdx.y * Big::BM / a.Bp, b0 = blockIdx.y * Big::BM % a.Bp;  // Bp % 32 == 0
   const int H3p = 3 * a.Hp;
   const W* wd = a.w + (size_t)d * a.Hp * H3p;
   const size_t row0 = ((size_t)t * a.ND + d) * a.Bp + b0;
-  block_product<W, false, 3>(stage, a.hpc + row0 * a.Hp, a.Hp, wd + i0, H3p, a.Hp, a.Hp / L::kKC, c2,
-                             kLdC2);
+  block_product<W, Big, false, 3>(stage, a.hpc + row0 * a.Hp, a.Hp, wd + i0, H3p, a.Hp,
+                                  a.Hp / L::kKC, c2, kLdC);
   __syncthreads();
-  for (int e = threadIdx.x; e < kBB * 3 * kU; e += kDirThreads) {
-    const int r = e / (3 * kU), col = e % (3 * kU);
-    a.gh[(row0 + r) * H3p + (col / kU) * a.Hp + i0 + col % kU] = c2[r * kLdC2 + col];
+  for (int e = threadIdx.x; e < Big::BM * 3 * Big::BU; e += kDirThreads) {
+    const int r = e / (3 * Big::BU), col = e % (3 * Big::BU);
+    a.gh[(row0 + r) * H3p + (col / Big::BU) * a.Hp + i0 + col % Big::BU] = c2[r * kLdC + col];
   }
 }
 
+// The step's operands that do not depend on the carry, per element of a thread
+enum StepOperand { kGiR, kGiZ, kGiN, kGhR, kGhZ, kGhN, kBhR, kBhZ, kBhN, kG, kHprev, kDbR, kDbZ, kDbN, kOps };
+
 // Step t (T-1 down to 0), or t = -1: dh0 = dhz + dgh_cd[0] . W^T
-template <typename W>
-__global__ void __launch_bounds__(kDirThreads) gru_dir_bwd_step_kernel(DirArgs<W> a, int t) {
-  using L = DirTile<W>;
+template <typename W, class Tl>
+__global__ void __launch_bounds__(kDirThreads) gru_bwd_step_kernel(DirArgs<W> a, int t) {
+  using L = DirTile<W, Tl>;
+  constexpr int kLdC = Tl::BU + 1, kPer = Tl::BM * Tl::BU / kDirThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   W* stage = reinterpret_cast<W*>(smem_raw);
-  float* c1 = reinterpret_cast<float*>(smem_raw + (size_t)kStages * L::kStage * sizeof(W));
-  const int i0 = blockIdx.x * kU, b0 = blockIdx.y * kBB, d = blockIdx.z;
-  const int H = a.H, H3 = 3 * H, H3p = 3 * a.Hp;
-  const W* wd = a.w + (size_t)d * a.Hp * H3p;
+  float* c1 = reinterpret_cast<float*>(smem_raw + (size_t)Tl::S * L::kStage * sizeof(W));
+  const int i0 = blockIdx.x * Tl::BU, b0 = blockIdx.y * Tl::BM, d = blockIdx.z;
+  const int H = a.H, H3 = 3 * H, Hp = a.Hp, H3p = 3 * Hp;
+  const W* wd = a.w + (size_t)d * Hp * H3p;
   const bool first = t == a.T - 1;  // no carry yet
+  // Element k of this thread: e = threadIdx.x + k kDirThreads, row e / BU,
+  // unit e % BU. Its operands are loaded before the carry product, so that
+  // their latency hides behind it.
+  float dhz[kPer], op[kPer][kOps];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * kDirThreads;
+    const int b = b0 + e / Tl::BU, i = i0 + e % Tl::BU;
+    dhz[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kOps; ++j) op[k][j] = 0.f;
+    if (i >= H || b >= a.B) continue;
+    if (!first) dhz[k] = a.dhz[((size_t)d * a.Bp + b) * Hp + i];
+    if (t < 0) continue;
+    const size_t row = ((size_t)t * a.ND + d) * a.B + b;
+    const float* gr = a.gi + row * H3 + i;
+    const float* cr = a.gh + (((size_t)t * a.ND + d) * a.Bp + b) * H3p + i;
+    const float* bh = a.b_hh + (size_t)d * H3 + i;
+    op[k][kGiR] = gr[0];
+    op[k][kGiZ] = gr[H];
+    op[k][kGiN] = gr[2 * H];
+    op[k][kGhR] = cr[0];
+    op[k][kGhZ] = cr[Hp];
+    op[k][kGhN] = cr[2 * Hp];
+    op[k][kBhR] = bh[0];
+    op[k][kBhZ] = bh[H];
+    op[k][kBhN] = bh[2 * H];
+    op[k][kG] = a.g[row * H + i];
+    op[k][kHprev] = t > 0 ? a.ys[(row - (size_t)a.ND * a.B) * H + i]
+                          : a.h0[((size_t)d * a.B + b) * H + i];
+    if (a.dbp && !first) {
+      const float* p = a.dbp + ((size_t)d * a.Bp + b) * H3p + i;
+      op[k][kDbR] = p[0];
+      op[k][kDbZ] = p[Hp];
+      op[k][kDbN] = p[2 * Hp];
+    }
+  }
   if (!first) {  // (a) c1 = dgh_cd[t+1] . W[S, :]^T
     const W* arows = a.dghc + ((size_t)(((t + 1) & 1) * a.ND + d) * a.Bp + b0) * H3p;
-    block_product<W, true, 1>(stage, arows, H3p, wd + (size_t)i0 * H3p, H3p, 0, H3p / L::kKC, c1,
-                              kLdC1);
+    block_product<W, Tl, true, 1>(stage, arows, H3p, wd + (size_t)i0 * H3p, H3p, 0, H3p / L::kKC,
+                                  c1, kLdC);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kBB * kU; e += kDirThreads) {
-    const int r = e / kU, u = e % kU;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + k * kDirThreads;
+    const int r = e / Tl::BU, u = e % Tl::BU;
     const int b = b0 + r, i = i0 + u;
-    if (b >= a.B || i >= H) continue;
-    const size_t zi = ((size_t)d * a.Bp + b) * a.Hp + i;
-    float dh = first ? 0.f : a.dhz[zi] + c1[r * kLdC1 + u];
+    if (i >= H) continue;
+    if (b >= a.B) {  // a padding row: zeros in dgh_cd^T, which dW reads over all Bp rows
+      if (t >= 0 && a.dghct)
+        for (int gg = 0; gg < 3; ++gg)
+          a.dghct[((size_t)d * H3p + gg * Hp + i) * a.Rp + (size_t)t * a.Bp + b] =
+              w2vb::from_f32<W>(0.f);
+      continue;
+    }
+    float dh = first ? 0.f : dhz[k] + c1[r * kLdC + u];
     if (t < 0) {
       a.dh0[((size_t)d * a.B + b) * H + i] = dh;
       continue;
     }
-    const size_t row = ((size_t)t * a.ND + d) * a.B + b;
-    dh += a.g[row * H + i];
-    const float* gr = a.gi + row * H3;
-    const float* bh = a.b_hh + (size_t)d * H3;
-    const float* cr = a.gh + (((size_t)t * a.ND + d) * a.Bp + b) * H3p + i;
-    const float gh_n = cr[2 * a.Hp] + bh[2 * H + i];
-    const float rg = w2vb::sigmoidf(gr[i] + (cr[0] + bh[i]));
-    const float z = w2vb::sigmoidf(gr[H + i] + (cr[a.Hp] + bh[H + i]));
-    const float n = tanhf(gr[2 * H + i] + rg * gh_n);
-    const float hprev = t > 0 ? a.ys[(row - (size_t)a.ND * a.B) * H + i]
-                              : a.h0[((size_t)d * a.B + b) * H + i];
+    const float* o_ = op[k];
+    dh += o_[kG];
+    const float gh_n = o_[kGhN] + o_[kBhN];
+    const float rg = w2vb::sigmoidf(o_[kGiR] + (o_[kGhR] + o_[kBhR]));
+    const float z = w2vb::sigmoidf(o_[kGiZ] + (o_[kGhZ] + o_[kBhZ]));
+    const float n = tanhf(o_[kGiN] + rg * gh_n);
     const float dn = dh * (1.f - z);
-    const float dzv = dh * (hprev - n);
+    const float dzv = dh * (o_[kHprev] - n);
     const float dgn = dn * (1.f - n * n);
     const float dr = dgn * gh_n;
     const float dgz = dzv * z * (1.f - z);
     const float dgr = dr * rg * (1.f - rg);
     const float dghn = dgn * rg;
+    const size_t row = ((size_t)t * a.ND + d) * a.B + b;
     float* o = a.dgi + row * H3;
     o[i] = dgr;
     o[H + i] = dgz;
     o[2 * H + i] = dgn;
-    float* oh = a.dgh + row * H3;
-    oh[i] = dgr;
-    oh[H + i] = dgz;
-    oh[2 * H + i] = dghn;
+    if (a.dgh) {
+      float* oh = a.dgh + row * H3;
+      oh[i] = dgr;
+      oh[H + i] = dgz;
+      oh[2 * H + i] = dghn;
+    }
+    const W cgr = w2vb::from_f32<W>(dgr), cgz = w2vb::from_f32<W>(dgz), cgn = w2vb::from_f32<W>(dghn);
     W* dc = a.dghc + ((size_t)((t & 1) * a.ND + d) * a.Bp + b) * H3p;
-    dc[i] = w2vb::from_f32<W>(dgr);
-    dc[a.Hp + i] = w2vb::from_f32<W>(dgz);
-    dc[2 * a.Hp + i] = w2vb::from_f32<W>(dghn);
-    a.dhz[zi] = dh * z;
+    dc[i] = cgr;
+    dc[Hp + i] = cgz;
+    dc[2 * Hp + i] = cgn;
+    if (a.dghct) {
+      W* dt = a.dghct + ((size_t)d * H3p + i) * a.Rp + (size_t)t * a.Bp + b;
+      dt[0] = cgr;
+      dt[(size_t)Hp * a.Rp] = cgz;
+      dt[(size_t)2 * Hp * a.Rp] = cgn;
+    }
+    if (a.dbp) {  // db_hh's sum over the steps, per batch row, step by step
+      float* p = a.dbp + ((size_t)d * a.Bp + b) * H3p + i;
+      p[0] = o_[kDbR] + dgr;
+      p[Hp] = o_[kDbZ] + dgz;
+      p[2 * Hp] = o_[kDbN] + dghn;
+    }
+    a.dhz[((size_t)d * a.Bp + b) * Hp + i] = dh * z;
   }
 }
 
+// dW_hh[d] = hpct[d] . dghct[d]^T over the Rp rows (a 32 x 96 tile of (Hp,
+// 3 Hp) per block), written unpadded as (ND, H, 3H); the blocks of the first
+// row tile also sum dbp over the batch rows, in order, into db (ND, 3H).
 template <typename W>
-int launch_dir_bwd(const DirArgs<W>& a, cudaStream_t s) {
-  using L = DirTile<W>;
-  if (a.Hp % 64 || a.Bp % kBB || a.Hp < a.H || a.Bp < a.B)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = w2vb::allow_smem(gru_dir_bwd_step_kernel<W>, L::kSmem);
+__global__ void __launch_bounds__(kDirThreads) gru_dw_kernel(DirArgs<W> a, float* __restrict__ dw,
+                                                             float* __restrict__ db) {
+  using L = DirTile<W, Big>;
+  constexpr int kLdC = L::kLdC, kN = 3 * Big::BU;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stage = reinterpret_cast<W*>(smem_raw);
+  float* c = reinterpret_cast<float*>(smem_raw + (size_t)Big::S * L::kStage * sizeof(W));
+  const int j0 = blockIdx.x * kN, i0 = blockIdx.y * Big::BM, d = blockIdx.z;
+  const int H = a.H, H3 = 3 * H, Hp = a.Hp, H3p = 3 * Hp;
+  block_product<W, Big, true, 3>(stage, a.hpct + ((size_t)d * Hp + i0) * a.Rp, a.Rp,
+                                 a.dghct + ((size_t)d * H3p + j0) * a.Rp, a.Rp, Big::BU,
+                                 a.Rp / L::kKC, c, kLdC);
+  __syncthreads();
+  for (int e = threadIdx.x; e < Big::BM * kN; e += kDirThreads) {
+    const int r = e / kN, col = e % kN;
+    const int i = i0 + r, j = j0 + col, gg = j / Hp, u = j % Hp;
+    if (i < H && u < H) dw[((size_t)d * H + i) * H3 + gg * H + u] = c[r * kLdC + col];
+  }
+  if (blockIdx.y != 0) return;
+  for (int col = threadIdx.x; col < kN; col += kDirThreads) {
+    const int j = j0 + col, gg = j / Hp, u = j % Hp;
+    if (u >= H) continue;
+    float s = 0.f;
+    for (int b = 0; b < a.B; ++b) s += a.dbp[((size_t)d * a.Bp + b) * H3p + j];
+    db[(size_t)d * H3 + gg * H + u] = s;
+  }
+}
+
+template <typename W, class Tl>
+int launch_steps(const DirArgs<W>& a, cudaStream_t s) {
+  const size_t smem = DirTile<W, Tl>::kSmem;
+  cudaError_t e = w2vb::allow_smem(gru_bwd_step_kernel<W, Tl>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = w2vb::allow_smem(gru_dir_gh_kernel<W>, L::kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t n = (size_t)a.T * a.ND * a.Bp * a.Hp;
-  const unsigned blocks = static_cast<unsigned>(n / 256 + 1 < 8192 ? n / 256 + 1 : 8192);
-  gru_dir_hprev_kernel<W><<<blocks, 256, 0, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int units = (a.H + kU - 1) / kU;
-  gru_dir_gh_kernel<W><<<dim3(units, a.T * a.Bp / kBB, a.ND), kDirThreads, L::kSmem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(units, a.Bp / kBB, a.ND);
+  const dim3 grid((a.H + Tl::BU - 1) / Tl::BU, a.Bp / Tl::BM, a.ND);
   for (int t = a.T - 1; t >= -1; --t) {
-    gru_dir_bwd_step_kernel<W><<<grid, kDirThreads, L::kSmem, s>>>(a, t);
+    gru_bwd_step_kernel<W, Tl><<<grid, kDirThreads, smem, s>>>(a, t);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
+}
+
+// The backward of both entries (header note): dgi, dh0 and either dgh (dw
+// null: the per-direction entry) or dw and db (the fused entry, which sets
+// hpct, dghct and dbp).
+template <typename W>
+int launch_bwd(const DirArgs<W>& a, float* dw, float* db, cudaStream_t s) {
+  using L = DirTile<W, Big>;
+  const bool fused = dw != nullptr;
+  if (a.Hp % 64 || a.Bp % 32 || a.Rp % 64 || a.Hp < a.H || a.Bp < a.B || a.Rp < a.T * a.Bp ||
+      fused != (db && a.hpct && a.dghct && a.dbp) || fused == (a.dgh != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = w2vb::allow_smem(gru_gh_kernel<W>, L::kSmem);
+  if (e == cudaSuccess && fused) e = w2vb::allow_smem(gru_dw_kernel<W>, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gru_hprev_kernel<W><<<dim3(a.Rp / 32, a.Hp / 32, a.ND), dim3(32, 8), 0, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int units = (a.H + Big::BU - 1) / Big::BU;
+  gru_gh_kernel<W><<<dim3(units, a.T * a.Bp / Big::BM, a.ND), kDirThreads, L::kSmem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int code = units * (a.Bp / Big::BM) * a.ND >= kMinStepBlocks ? launch_steps<W, Big>(a, s)
+                                                                   : launch_steps<W, Small>(a, s);
+  if (code != 0 || !fused) return code;
+  gru_dw_kernel<W><<<dim3(a.Hp / Big::BU, a.Hp / Big::BM, a.ND), kDirThreads, L::kSmem, s>>>(a, dw,
+                                                                                            db);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- per-direction forward: one launch per step (header note above) ----
@@ -780,25 +694,26 @@ struct DirFwdArgs {
 // gates; writes ys[t] and h_cd[t] (slot (t + 1) & 1)
 template <typename W>
 __global__ void __launch_bounds__(kDirThreads) gru_dir_fwd_step_kernel(DirFwdArgs<W> a, int t) {
-  using L = DirTile<W>;
+  using L = DirTile<W, Big>;
+  constexpr int kLdC = L::kLdC, kU = Big::BU;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   W* stage = reinterpret_cast<W*>(smem_raw);
-  float* c = reinterpret_cast<float*>(smem_raw + (size_t)kStages * L::kStage * sizeof(W));
-  const int i0 = blockIdx.x * kU, b0 = blockIdx.y * kBB, d = blockIdx.z;
+  float* c = reinterpret_cast<float*>(smem_raw + (size_t)Big::S * L::kStage * sizeof(W));
+  const int i0 = blockIdx.x * kU, b0 = blockIdx.y * Big::BM, d = blockIdx.z;
   const int H = a.H, H3 = 3 * H, Hp = a.Hp;
   const W* arows = a.hc + ((size_t)((t & 1) * a.ND + d) * a.Bp + b0) * Hp;
-  block_product<W, true, 3>(stage, arows, Hp, a.wt + ((size_t)d * 3 * Hp + i0) * Hp, Hp, Hp,
-                            Hp / L::kKC, c, kLdC2);
+  block_product<W, Big, true, 3>(stage, arows, Hp, a.wt + ((size_t)d * 3 * Hp + i0) * Hp, Hp, Hp,
+                                 Hp / L::kKC, c, kLdC);
   __syncthreads();
   W* hn = a.hc + (size_t)(((t + 1) & 1) * a.ND + d) * a.Bp * Hp;
   const float* bh = a.b_hh + (size_t)d * H3;
-  for (int e = threadIdx.x; e < kBB * kU; e += kDirThreads) {
+  for (int e = threadIdx.x; e < Big::BM * kU; e += kDirThreads) {
     const int r = e / kU, u = e % kU;
     const int b = b0 + r, i = i0 + u;
     if (b >= a.B || i >= H) continue;
     const size_t row = ((size_t)t * a.ND + d) * a.B + b;
     const float* gr = a.gi + row * H3;
-    const float* cr = c + r * kLdC2 + u;
+    const float* cr = c + r * kLdC + u;
     const float gh_n = cr[2 * kU] + bh[2 * H + i];
     const float rg = w2vb::sigmoidf(gr[i] + (cr[0] + bh[i]));
     const float z = w2vb::sigmoidf(gr[H + i] + (cr[kU] + bh[H + i]));
@@ -813,12 +728,12 @@ __global__ void __launch_bounds__(kDirThreads) gru_dir_fwd_step_kernel(DirFwdArg
 
 template <typename W>
 int launch_dir_fwd(const DirFwdArgs<W>& a, cudaStream_t s) {
-  using L = DirTile<W>;
-  if (a.Hp % 64 || a.Bp % kBB || a.Hp < a.H || a.Bp < a.B)
+  using L = DirTile<W, Big>;
+  if (a.Hp % 64 || a.Bp % Big::BM || a.Hp < a.H || a.Bp < a.B)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = w2vb::allow_smem(gru_dir_fwd_step_kernel<W>, L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.H + kU - 1) / kU, a.Bp / kBB, a.ND);
+  const dim3 grid((a.H + Big::BU - 1) / Big::BU, a.Bp / Big::BM, a.ND);
   for (int t = 0; t < a.T; ++t) {
     gru_dir_fwd_step_kernel<W><<<grid, kDirThreads, L::kSmem, s>>>(a, t);
     e = cudaGetLastError();
@@ -838,18 +753,32 @@ extern "C" int w2vb_gru_fwd(const float* gi, const void* w_hh, int w_bf16, const
   return launch<float>(gi, w_hh, b_hh, h0, ys, T, ND, B, H, s);
 }
 
-// Backward of the fused kernel: w_hh (ND, H, 3H) and w_t = its transpose
-// (ND, 3H, H), both in the compute dtype (w_bf16); dgh is a (T, ND, B, 3H)
-// f32 scratch; dw (ND, H, 3H), db (ND, 3H) and dh0 (ND, B, H) f32.
-extern "C" int w2vb_gru_bwd(const float* gi, const void* w_hh, const void* w_t, int w_bf16,
-                            const float* b_hh, const float* h0, const float* ys, const float* g,
-                            float* dgi, float* dgh, float* dw, float* db, float* dh0, int T,
-                            int ND, int B, int H, void* stream) {
+// Backward of both entries (DirArgs above for the layouts): dgi and dh0, and
+// either dgh (the per-direction entry: dw, db, hpct, dghct and dbp null) or
+// dw (ND, H, 3H) and db (ND, 3H) (the fused entry: dgh null). w, hpc, hpct,
+// dghc and dghct are in the compute dtype (w_bf16); dghc must hold zeros in
+// its padding; the other scratch needs no initial values. Hp % 64 == 0, Bp
+// % 32 == 0, Rp % 64 == 0, Rp >= T Bp.
+extern "C" int w2vb_gru_bwd(const float* gi, const void* w, int w_bf16, const float* b_hh,
+                            const float* h0, const float* ys, const float* g, void* hpc, void* hpct,
+                            void* dghc, void* dghct, float* dbp, float* dhz, float* gh, float* dgi,
+                            float* dgh, float* dw, float* db, float* dh0, int T, int ND, int B,
+                            int H, int Bp, int Hp, int Rp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_bf16)
-    return launch_bwd<__nv_bfloat16>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND,
-                                     B, H, s);
-  return launch_bwd<float>(gi, w_hh, w_t, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, s);
+  if (w_bf16) {
+    using W = __nv_bfloat16;
+    const DirArgs<W> a{gi, static_cast<const W*>(w), b_hh, h0, ys, g,
+                       static_cast<W*>(hpc), static_cast<W*>(hpct), static_cast<W*>(dghc),
+                       static_cast<W*>(dghct), dbp, dhz, dgi, dgh, gh, dh0,
+                       T, ND, B, H, Bp, Hp, Rp};
+    return launch_bwd(a, dw, db, s);
+  }
+  using W = float;
+  const DirArgs<W> a{gi, static_cast<const W*>(w), b_hh, h0, ys, g,
+                     static_cast<W*>(hpc), static_cast<W*>(hpct), static_cast<W*>(dghc),
+                     static_cast<W*>(dghct), dbp, dhz, dgi, dgh, gh, dh0,
+                     T, ND, B, H, Bp, Hp, Rp};
+  return launch_bwd(a, dw, db, s);
 }
 
 // Per-direction forward (ys; DirFwdArgs above for the layouts). wt and hc
@@ -868,25 +797,4 @@ extern "C" int w2vb_gru_dir_fwd(const float* gi, const void* wt, int w_bf16, con
   const DirFwdArgs<float> a{gi, static_cast<const float*>(wt), b_hh, h0, static_cast<float*>(hc), ys,
                             T, ND, B, H, Bp, Hp};
   return launch_dir_fwd(a, s);
-}
-
-// Per-direction backward (dgi, dgh, dh0; DirArgs above for the layouts).
-// w, hpc and dghc are in the compute dtype (w_bf16); dghc must hold zeros
-// in its padding; hpc, dhz and gh need no initial values. Hp % 64 == 0,
-// Bp % 32 == 0.
-extern "C" int w2vb_gru_dir_bwd(const float* gi, const void* w, int w_bf16, const float* b_hh,
-                                const float* h0, const float* ys, const float* g, void* hpc,
-                                void* dghc, float* dhz, float* gh, float* dgi, float* dgh,
-                                float* dh0, int T, int ND, int B, int H, int Bp, int Hp,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_bf16) {
-    using W = __nv_bfloat16;
-    const DirArgs<W> a{gi, static_cast<const W*>(w), b_hh, h0, ys, g, static_cast<W*>(hpc),
-                       static_cast<W*>(dghc), dhz, dgi, dgh, gh, dh0, T, ND, B, H, Bp, Hp};
-    return launch_dir_bwd(a, s);
-  }
-  const DirArgs<float> a{gi, static_cast<const float*>(w), b_hh, h0, ys, g, static_cast<float*>(hpc),
-                         static_cast<float*>(dghc), dhz, dgi, dgh, gh, dh0, T, ND, B, H, Bp, Hp};
-  return launch_dir_bwd(a, s);
 }

@@ -10,14 +10,14 @@
 //   xhat = xc * rstd;  w = dy * scale
 //   dx = rstd * (w - mean(w) - xhat * mean(w * xhat))      in x's dtype
 //   dgamma_part[b] = sum_t dy * xhat,  dbeta_part[b] = sum_t dy   (B, C) f32
-// The sum of the partials over B runs outside, in the wrapper, in a fixed
-// order (the JAX package leaves it to XLA outside the kernel too).
+// The sum of the partials over B runs outside the kernel, in a fixed order
+// (the JAX package leaves it to XLA outside the kernel too).
 //
 // What bounds it on the H100: bytes. One read of x and one write of y
 // (forward), reads of x and dy and a write of dx (backward): a few flops per
 // byte, far below the ~20 flops/byte where f32 CUDA-core arithmetic would
-// take over. At 64 x 89 x 768 f32 the forward moves ~35 MB: ~10 us at
-// 3.35 TB/s.
+// take over. At 64 x 89 x 768 f32 the forward moves ~35 MB (~10 us at 3.35
+// TB/s), the backward ~52 MB (~16 us).
 //
 // Forward design, at the encoders' widths (C = 768 and 1024, 16-byte
 // aligned operands): a row is one warp's, as 16-byte vectors (float4, or 8
@@ -31,10 +31,20 @@
 // operand) takes the generic kernel: one warp per row, scalar loads, up to
 // 32 values a lane.
 //
-// Backward design: the dx pass is the generic forward's warp-per-row layout
-// and also stores each row's (mu, rstd); the (B, C) partials come from a
-// second launch with one block per batch element and 256 columns, which
-// walks its T rows in order: no atomics, deterministic.
+// Backward design: one launch. A block owns the rows of one (batch element,
+// T chunk) tile; the host picks as many chunks per batch element as fill the
+// SMs once (grid B x chunks). Each warp takes a row at a time (rows t0 + w,
+// + 8, ...): x and dy in registers (at C 768 / 1024 with 16-byte aligned
+// operands as 16-byte vectors, a count per lane fixed at compile time, scale
+// staged in shared memory; any other C <= 1024 as scalars, up to 32 a lane),
+// mu and rstd recomputed exactly as the forward does (no stats scratch), the
+// two row means of the dx formula as warp butterflies, dx written in the
+// stream dtype. Each lane keeps the dgamma / dbeta sums of its columns in
+// registers over the block's rows; at the end the 8 warps' sums go through
+// shared memory and are added in warp order into the block's (C) partial.
+// So x and dy are read once, and the result is deterministic: the (B,
+// chunks, C) partials are summed over the chunks by the wrapper, over B
+// outside it, each in a fixed order.
 #include "common.cuh"
 
 namespace {
@@ -183,60 +193,174 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   }
 }
 
-template <typename T>
-__global__ void layernorm_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                                        const T* __restrict__ dy, T* __restrict__ dx,
-                                        float2* __restrict__ stats, int rows, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const size_t base = (size_t)row * C;
-  float v[kMaxPerLane], w[kMaxPerLane];
+// The block's partial: out[c] = sum over warps w, in order, of red[w][c]
+__device__ __forceinline__ void sum_warps(const float* red, int C, float* out) {
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
 #pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
-    const int c = lane + 32 * k;
-    v[k] = c < C ? load_f32(x, base + c) : 0.f;
-    w[k] = c < C ? load_f32(dy, base + c) * scale[c] : 0.f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) s += red[w * C + c];
+    out[c] = s;
   }
-  float mu, rstd;
-  row_stats(v, lane, C, eps, mu, rstd);
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
-    if (lane + 32 * k < C) {
-      v[k] = (v[k] - mu) * rstd;  // xhat from here on
-      s1 += w[k];
-      s2 = fmaf(w[k], v[k], s2);
-    }
-  }
-  const float m1 = w2vb::warp_sum(s1) / static_cast<float>(C);
-  const float m2 = w2vb::warp_sum(s2) / static_cast<float>(C);
-#pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) dx[base + c] = w2vb::from_f32<T>(rstd * (w[k] - m1 - v[k] * m2));
-  }
-  if (lane == 0) stats[row] = make_float2(mu, rstd);
+  __syncthreads();  // red is free again
 }
 
-// dg[b, c] = sum_t dy[b, t, c] * xhat[b, t, c];  db[b, c] = sum_t dy[b, t, c]
-template <typename T>
-__global__ void layernorm_bwd_param_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                                           const float2* __restrict__ stats, float* __restrict__ dg,
-                                           float* __restrict__ db, int Tn, int C) {
-  const int b = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float sg = 0.f, sb = 0.f;
-  for (int t = 0; t < Tn; ++t) {
-    const size_t row = (size_t)b * Tn + t;
-    const float2 st = stats[row];
-    const float g = load_f32(dy, row * C + c);
-    sg = fmaf(g, (load_f32(x, row * C + c) - st.x) * st.y, sg);
-    sb += g;
+// Rows [t0, t1) of batch element b (grid: chunks x B, chunk rows per block)
+__device__ __forceinline__ void chunk_rows(int Tn, int chunk, int& t0, int& t1) {
+  t0 = blockIdx.x * chunk;
+  t1 = min(Tn, t0 + chunk);
+}
+
+// The backward at C fixed at compile time (C = 32 x kVec x 16-byte vectors)
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    layernorm_bwd_vec_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                             const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ dgp,
+                             float* __restrict__ dbp, int Tn, int chunk, float eps) {
+  constexpr int kV = 16 / sizeof(T);  // values in a 16-byte vector
+  constexpr int kVec = C / (32 * kV);  // vectors per lane
+  static_assert(kVec * 32 * kV == C, "C must be a whole number of vectors per lane");
+  __shared__ __align__(16) float sc[C];
+  __shared__ float red[kWarpsPerBlock * C];
+  for (int i = threadIdx.x; i < C / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(sc)[i] = reinterpret_cast<const float4*>(scale)[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int t0, t1;
+  chunk_rows(Tn, chunk, t0, t1);
+  float ag[kVec][kV], ab[kVec][kV];  // this lane's columns: sum dy * xhat, sum dy
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+#pragma unroll
+    for (int e = 0; e < kV; ++e) ag[j][e] = ab[j][e] = 0.f;
+  for (int t = t0 + warp; t < t1; t += kWarpsPerBlock) {
+    const size_t off = ((size_t)blockIdx.y * Tn + t) * C;
+    const uint4* xs = reinterpret_cast<const uint4*>(x + off);
+    const uint4* gs = reinterpret_cast<const uint4*>(dy + off);
+    uint4 xv[kVec], gv[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      xv[j] = xs[lane + 32 * j];
+      gv[j] = gs[lane + 32 * j];
+    }
+    float v[kVec][kV], g[kVec][kV];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      unpack(xv[j], v[j]);
+      unpack(gv[j], g[j]);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+#pragma unroll
+      for (int e = 0; e < kV; ++e) sum += v[j][e];
+    const float mu = w2vb::warp_sum(sum) / static_cast<float>(C);
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const float c = v[j][e] - mu;
+        sq = fmaf(c, c, sq);
+      }
+    const float rstd = 1.f / sqrtf(w2vb::warp_sum(sq) / static_cast<float>(C) + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int c0 = (lane + 32 * j) * kV;
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const float xh = (v[j][e] - mu) * rstd;
+        const float wv = g[j][e] * sc[c0 + e];
+        ag[j][e] = fmaf(g[j][e], xh, ag[j][e]);
+        ab[j][e] += g[j][e];
+        s1 += wv;
+        s2 = fmaf(wv, xh, s2);
+        v[j][e] = xh;  // xhat and w from here on
+        g[j][e] = wv;
+      }
+    }
+    const float m1 = w2vb::warp_sum(s1) / static_cast<float>(C);
+    const float m2 = w2vb::warp_sum(s2) / static_cast<float>(C);
+    uint4* dst = reinterpret_cast<uint4*>(dx + off);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      float out[kV];
+#pragma unroll
+      for (int e = 0; e < kV; ++e) out[e] = rstd * (g[j][e] - m1 - v[j][e] * m2);
+      dst[lane + 32 * j] = pack(out);
+    }
   }
-  dg[(size_t)b * C + c] = sg;
-  db[(size_t)b * C + c] = sb;
+  const size_t part = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * C;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+#pragma unroll
+    for (int e = 0; e < kV; ++e) red[warp * C + (lane + 32 * j) * kV + e] = ag[j][e];
+  sum_warps(red, C, dgp + part);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+#pragma unroll
+    for (int e = 0; e < kV; ++e) red[warp * C + (lane + 32 * j) * kV + e] = ab[j][e];
+  sum_warps(red, C, dbp + part);
+}
+
+// The backward at any C <= 1024 (or misaligned operands): column lane + 32 k
+// of a row is lane's k-th value, scalar loads
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    layernorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                         const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ dgp,
+                         float* __restrict__ dbp, int Tn, int C, int chunk, float eps) {
+  __shared__ float red[kWarpsPerBlock * kMaxPerLane * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int t0, t1;
+  chunk_rows(Tn, chunk, t0, t1);
+  float ag[kMaxPerLane], ab[kMaxPerLane];
+#pragma unroll
+  for (int k = 0; k < kMaxPerLane; ++k) ag[k] = ab[k] = 0.f;
+  for (int t = t0 + warp; t < t1; t += kWarpsPerBlock) {
+    const size_t base = ((size_t)blockIdx.y * Tn + t) * C;
+    float v[kMaxPerLane], g[kMaxPerLane];
+#pragma unroll
+    for (int k = 0; k < kMaxPerLane; ++k) {
+      const int c = lane + 32 * k;
+      v[k] = c < C ? load_f32(x, base + c) : 0.f;
+      g[k] = c < C ? load_f32(dy, base + c) : 0.f;
+    }
+    float mu, rstd;
+    row_stats(v, lane, C, eps, mu, rstd);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxPerLane; ++k) {
+      const int c = lane + 32 * k;
+      if (c < C) {
+        const float xh = (v[k] - mu) * rstd;
+        const float wv = g[k] * scale[c];
+        ag[k] = fmaf(g[k], xh, ag[k]);
+        ab[k] += g[k];
+        s1 += wv;
+        s2 = fmaf(wv, xh, s2);
+        v[k] = xh;
+        g[k] = wv;
+      }
+    }
+    const float m1 = w2vb::warp_sum(s1) / static_cast<float>(C);
+    const float m2 = w2vb::warp_sum(s2) / static_cast<float>(C);
+#pragma unroll
+    for (int k = 0; k < kMaxPerLane; ++k) {
+      const int c = lane + 32 * k;
+      if (c < C) dx[base + c] = w2vb::from_f32<T>(rstd * (g[k] - m1 - v[k] * m2));
+    }
+  }
+  const size_t part = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * C;
+#pragma unroll
+  for (int k = 0; k < kMaxPerLane; ++k)
+    if (lane + 32 * k < C) red[warp * C + lane + 32 * k] = ag[k];
+  sum_warps(red, C, dgp + part);
+#pragma unroll
+  for (int k = 0; k < kMaxPerLane; ++k)
+    if (lane + 32 * k < C) red[warp * C + lane + 32 * k] = ab[k];
+  sum_warps(red, C, dbp + part);
 }
 
 // as many blocks as the SMs hold at once, or fewer where the rows run out
@@ -275,20 +399,48 @@ int launch_fwd(const void* x, const float* scale, const float* bias, void* y, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of a kernel an SM holds at once (the 768 / 1024 vector kernels,
+// else the generic one), queried once per instantiation
 template <typename T>
-int launch_bwd(const void* x, const float* scale, const void* dy, void* dx, float* stats, float* dg,
-               float* db, int B, int Tn, int C, float eps, cudaStream_t s) {
-  const int rows = B * Tn;
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  float2* st = reinterpret_cast<float2*>(stats);
-  layernorm_bwd_dx_kernel<T><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-      static_cast<const T*>(x), scale, static_cast<const T*>(dy), static_cast<T*>(dx), st, rows, C,
-      eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B, (C + 255) / 256);
-  layernorm_bwd_param_kernel<T><<<grid, 256, 0, s>>>(static_cast<const T*>(x),
-                                                     static_cast<const T*>(dy), st, dg, db, Tn, C);
+int bwd_blocks_per_sm(int C, int* per_sm) {
+  static int vec768 = 0, vec1024 = 0, generic = 0;
+  int* cached = C == 768 ? &vec768 : C == 1024 ? &vec1024 : &generic;
+  cudaError_t e = cudaSuccess;
+  if (*cached == 0) {
+    if (C == 768)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(cached, layernorm_bwd_vec_kernel<T, 768>,
+                                                        32 * kWarpsPerBlock, 0);
+    else if (C == 1024)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(cached, layernorm_bwd_vec_kernel<T, 1024>,
+                                                        32 * kWarpsPerBlock, 0);
+    else
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(cached, layernorm_bwd_kernel<T>,
+                                                        32 * kWarpsPerBlock, 0);
+  }
+  *per_sm = *cached;
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const float* scale, const void* dy, void* dx, float* dgp, float* dbp,
+               int B, int Tn, int C, int chunks, float eps, cudaStream_t s) {
+  if (chunks < 1 || chunks > Tn) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunk = (Tn + chunks - 1) / chunks;
+  const dim3 grid(chunks, B);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(scale);
+  if (addr % 16 == 0 && C == 768)
+    layernorm_bwd_vec_kernel<T, 768><<<grid, 32 * kWarpsPerBlock, 0, s>>>(xt, scale, gt, dxt, dgp, dbp,
+                                                                         Tn, chunk, eps);
+  else if (addr % 16 == 0 && C == 1024)
+    layernorm_bwd_vec_kernel<T, 1024><<<grid, 32 * kWarpsPerBlock, 0, s>>>(xt, scale, gt, dxt, dgp,
+                                                                          dbp, Tn, chunk, eps);
+  else
+    layernorm_bwd_kernel<T><<<grid, 32 * kWarpsPerBlock, 0, s>>>(xt, scale, gt, dxt, dgp, dbp, Tn, C,
+                                                                chunk, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,13 +455,26 @@ extern "C" int w2vb_layernorm_fwd(const void* x, const float* scale, const float
   return launch_fwd<float>(x, scale, bias, y, rows, C, eps, s);
 }
 
-// x, dy, dx (B, T, C) in the stream dtype; stats a (B * T, 2) f32 scratch;
-// dg, db (B, C) f32 per-batch-element partials
+// The T chunks per batch element that fill the SMs once with the backward's
+// blocks (at least 1, at most T); a negative CUDA error code on failure
+extern "C" int w2vb_layernorm_bwd_chunks(int io_bf16, int B, int T, int C) {
+  if (B < 1 || T < 1 || C > 32 * kMaxPerLane) return -static_cast<int>(cudaErrorInvalidValue);
+  int per_sm = 0, dev = 0, sms = 0;
+  int e = io_bf16 ? bwd_blocks_per_sm<__nv_bfloat16>(C, &per_sm) : bwd_blocks_per_sm<float>(C, &per_sm);
+  if (e == 0) e = static_cast<int>(cudaGetDevice(&dev));
+  if (e == 0) e = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (e != 0) return -e;
+  const int per_batch = per_sm * sms / B;
+  return per_batch < 1 ? 1 : per_batch > T ? T : per_batch;
+}
+
+// x, dy, dx (B, T, C) in the stream dtype; dgp, dbp (B, chunks, C) f32: the
+// dgamma and dbeta partials of each (batch element, T chunk); 1 <= chunks <= T
 extern "C" int w2vb_layernorm_bwd(const void* x, const float* scale, const void* dy, void* dx,
-                                  float* stats, float* dg, float* db, int io_bf16, int B, int T,
-                                  int C, float eps, void* stream) {
+                                  float* dgp, float* dbp, int io_bf16, int B, int T, int C,
+                                  int chunks, float eps, void* stream) {
   if (C > 32 * kMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (io_bf16) return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, stats, dg, db, B, T, C, eps, s);
-  return launch_bwd<float>(x, scale, dy, dx, stats, dg, db, B, T, C, eps, s);
+  if (io_bf16) return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dgp, dbp, B, T, C, chunks, eps, s);
+  return launch_bwd<float>(x, scale, dy, dx, dgp, dbp, B, T, C, chunks, eps, s);
 }

@@ -12,32 +12,43 @@ Backward (the Pallas `_bwd_kernel`): reverse-time BPTT from the saved ys,
     dW_hh = sum_t hprev_cd^T @ dgh_cd;  db_hh = sum_t sum_b dgh;  dh0 = dh_carry
 The kernels are in csrc/gru.cu. `gru_recurrence` (the fused entry) takes a
 hidden size H that is a multiple of 32, as the JAX package's fused kernel
-needs lane-aligned gates; its backward takes H <= 2400.
+needs lane-aligned gates; its forward (one block per direction and 4 batch
+rows for all steps) takes H <= 3584, its backward H <= 480 (the widths
+models/gru.py routes to it).
 
 `gru_recurrence_dir` is the counterpart of the JAX package's per-direction
 variant (::gru_recurrence_dir, which it runs for H = 512 / 1024). Its
-forward ("gru_dir") and backward ("gru_dir_bwd") are kernels of their own
-that run one launch per time step over (H / 32) x (B / 32) x 2 blocks, at
-any H and B (padded to Hp, Bp; the forward takes W_hh transposed,
-`dir_fwd_weight`). The backward computes dgi and dh0; dW_hh and db_hh
-follow, as in JAX (::_vjp_bwd_dir), from an f32 product over all steps
-outside the kernel (`gru_dir_dw_db`), with hprev and dgh not rounded, where
-`gru_recurrence` rounds them to the compute dtype (the JAX `_mm` inside
-`_bwd_kernel`). At f32 compute the two entries compute the same function.
-LAUNCHES["gru_dir"] and ["gru_dir_bwd"] count entry calls that launched
-the kernels, not their per-step launches.
+forward ("gru_dir") runs one launch per time step over (H / 32) x (B / 32)
+x 2 blocks at any H and B (padded to Hp, Bp; it takes W_hh transposed,
+`dir_fwd_weight`).
+
+Both entries' backwards run the same kernels (`_bwd_launch`): gh for every
+step in one launch, then one launch per reverse step over tiles of hidden
+units x batch rows x direction (32 x 32, or 16 x 16 where that gives too
+few blocks, as at H = 256, B = 32). They differ in dW_hh and db_hh. The
+fused entry computes them as the JAX kernel does in its body: hprev and dgh
+rounded to the compute dtype, one product over all T x B rows on the tensor
+cores (bf16) in a kernel of its own, db from a per-row sum the steps keep.
+The per-direction entry computes them, as JAX does (::_vjp_bwd_dir), from
+an f32 product over all steps outside the kernels (`gru_dir_dw_db`), with
+hprev and dgh not rounded. At f32 compute the two entries compute the same
+function. LAUNCHES["gru_bwd"], ["gru_dir"] and ["gru_dir_bwd"] count entry
+calls that launched the kernels, not their per-step launches.
 """
 
 import torch
 
 from wav2vec2forbrain_tpu_torch.ops import kernels
 
-_MAX_SMEM = 227 * 1024
-_K_BATCH = 4  # batch rows per block of the fused kernels in csrc/gru.cu
-# the fused forward kernel's widest H (shared memory 4 x _K_BATCH x H f32 at
-# 227 KB); models/gru.py routes per direction up to it
+# the fused forward kernel's widest H (shared memory 4 x 4 batch rows x H
+# f32 at 227 KB); models/gru.py routes per direction up to it
 DIR_MAX_HIDDEN = 3584
-_DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # per-direction kernels: Bp, Hp are multiples of these
+_DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # the step kernels: Bp, Hp are multiples of these
+_ROW_PAD = 64  # the fused dW product: its T x Bp rows padded to a multiple of this
+# the fused backward's widest H: the widths models/gru.py routes to the fused
+# entry (H < 512), which is also the JAX fused kernel's reach (both
+# directions' weights in VMEM); gru_recurrence_dir takes wider layers
+FUSED_BWD_MAX_HIDDEN = 480
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -166,37 +177,6 @@ def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, per_direction=False):
     return ys
 
 
-def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
-    if per_direction:
-        return _dir_bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype)
-    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
-    if 6 * _K_BATCH * h * 4 > _MAX_SMEM:
-        raise ValueError(f"gru_recurrence backward: hidden size {h} > 2400 does not fit the kernel")
-    w = w_hh.to(compute_dtype).contiguous()
-    w_t = w.transpose(1, 2).contiguous()
-    bias = b_hh.reshape(nd, 3 * h).float().contiguous()
-    gi, h0, ys, g = (x.float().contiguous() for x in (gi, h0, ys, g))
-    kernels.require_cuda("gru_recurrence backward", gi, w, w_t, bias, h0, ys, g)
-    dgi = torch.empty_like(gi)
-    dgh = torch.empty_like(gi)  # scratch: dgi with the n column scaled by r
-    dw = torch.empty((nd, h, 3 * h), dtype=torch.float32, device=gi.device)
-    db = torch.empty((nd, 1, 3 * h), dtype=torch.float32, device=gi.device)
-    dh0 = torch.empty_like(h0)
-    if t == 0:
-        return dgi, dw.zero_(), db.zero_(), dh0.zero_()
-    lib = kernels.lib()
-    with torch.cuda.device(gi.device):
-        code = lib.w2vb_gru_bwd(
-            gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), int(compute_dtype == torch.bfloat16),
-            bias.data_ptr(), h0.data_ptr(), ys.data_ptr(), g.data_ptr(),
-            dgi.data_ptr(), dgh.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-            t, nd, b, h, kernels.stream_of(gi),
-        )
-    kernels.check("gru_bwd", code)
-    kernels.LAUNCHES["gru_bwd"] += 1
-    return dgi, dw, db, dh0
-
-
 def _round_up(n, m):
     return (n + m - 1) // m * m
 
@@ -238,12 +218,17 @@ def _dir_fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype):
     return ys
 
 
-def _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
-    """The per-direction backward's kernels (gh for every step, then one
-    launch per step): (dgi, dgh, dh0), f32. W_hh goes in laid out (D, Hp,
-    3 Hp), each gate block padded to Hp columns, zeros in the padding
-    (csrc/gru.cu)."""
-    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=False)
+def _bwd_launch(gi, w_hh, b_hh, h0, ys, g, compute_dtype, fused):
+    """The backward's kernels (csrc/gru.cu): gh for every step, then one
+    launch per step; fused adds the dW_hh / db_hh kernel. Returns (dgi,
+    dW_hh, db_hh, dh0) for the fused entry, (dgi, dgh, dh0) for the
+    per-direction one, all f32. W_hh goes in laid out (D, Hp, 3 Hp), each
+    gate block padded to Hp columns, zeros in the padding."""
+    entry = "gru_recurrence backward" if fused else "gru_recurrence_dir backward"
+    t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=fused)
+    if fused and h > FUSED_BWD_MAX_HIDDEN:
+        raise ValueError(f"{entry}: hidden size {h} > {FUSED_BWD_MAX_HIDDEN} does not fit the fused entry "
+                         "(gru_recurrence_dir takes it)")
     cd, dev = compute_dtype, gi.device
     hp, bp = _round_up(h, _DIR_HIDDEN_PAD), _round_up(b, _DIR_BATCH_PAD)
     w = torch.zeros((nd, hp, 3, hp), dtype=cd, device=dev)
@@ -251,33 +236,55 @@ def _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
     w = w.reshape(nd, hp, 3 * hp)
     bias = b_hh.reshape(nd, 3 * h).float().contiguous()
     gi, h0, ys, g = (x.float().contiguous() for x in (gi, h0, ys, g))
-    kernels.require_cuda("gru_recurrence_dir backward", gi, w, bias, h0, ys, g)
-    dgi = torch.empty_like(gi)
-    dgh = torch.empty_like(gi)  # dgi with the n column scaled by r, for dW_hh
-    dh0 = torch.empty_like(h0)
+    kernels.require_cuda(entry, gi, w, bias, h0, ys, g)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dgi, dh0 = torch.empty_like(gi), torch.empty_like(h0)
+    dgh = dw = db = None
+    if fused:
+        dw, db = torch.empty((nd, h, 3 * h), **f32), torch.empty((nd, 1, 3 * h), **f32)
+        outs = (dgi, dw, db, dh0)
+    else:
+        dgh = torch.empty_like(gi)  # dgi with the n column scaled by r, for dW_hh outside
+        outs = (dgi, dgh, dh0)
     if t == 0:
-        return dgi, dgh, dh0.zero_()
+        return tuple(x if x is dgi else x.zero_() for x in outs)
+    rp = _round_up(t * bp, _ROW_PAD)
     hpc = torch.empty((t, nd, bp, hp), dtype=cd, device=dev)  # hprev in the compute dtype
     dghc = torch.zeros((2, nd, bp, 3 * hp), dtype=cd, device=dev)  # dgh_cd ping-pong; padding stays 0
-    dhz = torch.empty((nd, bp, hp), dtype=torch.float32, device=dev)  # dh * z carried between steps
-    gh = torch.empty((t, nd, bp, 3 * hp), dtype=torch.float32, device=dev)  # hprev_cd . W_cd, every step
+    dhz = torch.empty((nd, bp, hp), **f32)  # dh * z carried between steps
+    gh = torch.empty((t, nd, bp, 3 * hp), **f32)  # hprev_cd . W_cd, every step
+    hpct = dghct = dbp = None
+    if fused:
+        hpct = torch.empty((nd, hp, rp), dtype=cd, device=dev)  # hpc transposed: the dW product's A
+        dghct = torch.empty((nd, 3 * hp, rp), dtype=cd, device=dev)  # dgh_cd of every step, transposed
+        dbp = torch.empty((nd, bp, 3 * hp), **f32)  # dgh summed over the steps, per batch row
+    ptrs = [None if x is None else x.data_ptr()
+            for x in (gi, w, bias, h0, ys, g, hpc, hpct, dghc, dghct, dbp, dhz, gh, dgi, dgh, dw, db, dh0)]
     lib = kernels.lib()
     with torch.cuda.device(dev):
-        code = lib.w2vb_gru_dir_bwd(
-            gi.data_ptr(), w.data_ptr(), int(cd == torch.bfloat16), bias.data_ptr(), h0.data_ptr(),
-            ys.data_ptr(), g.data_ptr(), hpc.data_ptr(), dghc.data_ptr(), dhz.data_ptr(), gh.data_ptr(),
-            dgi.data_ptr(), dgh.data_ptr(), dh0.data_ptr(), t, nd, b, h, bp, hp, kernels.stream_of(gi),
-        )
-    kernels.check("gru_dir_bwd", code)
-    kernels.LAUNCHES["gru_dir_bwd"] += 1  # once per entry call, not per step launch
-    return dgi, dgh, dh0
+        code = lib.w2vb_gru_bwd(*ptrs[:2], int(cd == torch.bfloat16), *ptrs[2:], t, nd, b, h, bp, hp, rp,
+                                kernels.stream_of(gi))
+    name = "gru_bwd" if fused else "gru_dir_bwd"
+    kernels.check(name, code)
+    kernels.LAUNCHES[name] += 1  # once per entry call, not per launch
+    return outs
 
 
-def _dir_bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
-    """The per-direction backward: the step kernels, then gru_dir_dw_db."""
+def _bwd_kernel(gi, w_hh, b_hh, h0, ys, g, compute_dtype, per_direction=False):
+    """The backward kernels of the fused entry (dW_hh and db_hh in a kernel,
+    from the compute-dtype operands), or with per_direction those of
+    gru_recurrence_dir (dW_hh and db_hh from gru_dir_dw_db outside):
+    (dgi, dW_hh, db_hh, dh0), all f32."""
+    if not per_direction:
+        return _bwd_launch(gi, w_hh, b_hh, h0, ys, g, compute_dtype, fused=True)
     dgi, dgh, dh0 = _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype)
     dw, db = gru_dir_dw_db(h0, ys, dgh)
     return dgi, dw, db, dh0
+
+
+def _dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, g, compute_dtype):
+    """The per-direction backward's kernels: (dgi, dgh, dh0), f32."""
+    return _bwd_launch(gi, w_hh, b_hh, h0, ys, g, compute_dtype, fused=False)
 
 
 class _GruRecurrence(torch.autograd.Function):

@@ -54,12 +54,11 @@ _SIGNATURES = {
     "w2vb_preproc_bwd": [_vp] * 12 + [_i] * 8 + [_vp],
     # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, stream
     "w2vb_gru_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # gi, w_hh, w_t, w_bf16, b_hh, h0, ys, g, dgi, dgh, dw, db, dh0, T, ND, B, H, stream
-    "w2vb_gru_bwd": [_vp, _vp, _vp, _i] + [_vp] * 9 + [_i] * 4 + [_vp],
+    # gi, w, w_bf16, b_hh, h0, ys, g, hpc, hpct, dghc, dghct, dbp, dhz, gh, dgi, dgh, dw, db, dh0,
+    # T, ND, B, H, Bp, Hp, Rp, stream
+    "w2vb_gru_bwd": [_vp, _vp, _i] + [_vp] * 16 + [_i] * 7 + [_vp],
     # gi, wt, w_bf16, b_hh, h0, hc, ys, T, ND, B, H, Bp, Hp, stream
     "w2vb_gru_dir_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _vp] + [_i] * 6 + [_vp],
-    # gi, w, w_bf16, b_hh, h0, ys, g, hpc, dghc, dhz, gh, dgi, dgh, dh0, T, ND, B, H, Bp, Hp, stream
-    "w2vb_gru_dir_bwd": [_vp, _vp, _i] + [_vp] * 11 + [_i] * 6 + [_vp],
     # q, k, v, o, io_bf16, cd_bf16, stream_keys, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
     "w2vb_attention_fwd": [_vp] * 4 + [_i] * 7 + [_f, _i, _f, _f, _vp],
     # q, k, v, g, dq, dk, dv, stats, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob,
@@ -71,8 +70,10 @@ _SIGNATURES = {
     "w2vb_conv_glu_bwd": [_vp] * 5 + [_i] * 6 + [_vp],
     # x, scale, bias, y, io_bf16, rows, C, eps, stream
     "w2vb_layernorm_fwd": [_vp] * 4 + [_i] * 3 + [_f, _vp],
-    # x, scale, dy, dx, stats, dg, db, io_bf16, B, T, C, eps, stream
-    "w2vb_layernorm_bwd": [_vp] * 7 + [_i] * 4 + [_f, _vp],
+    # x, scale, dy, dx, dgp, dbp, io_bf16, B, T, C, chunks, eps, stream
+    "w2vb_layernorm_bwd": [_vp] * 6 + [_i] * 5 + [_f, _vp],
+    # io_bf16, B, T, C -> the backward's T chunks per batch element
+    "w2vb_layernorm_bwd_chunks": [_i] * 4,
 }
 
 _lib = None

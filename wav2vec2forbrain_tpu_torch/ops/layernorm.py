@@ -10,10 +10,15 @@ to x's dtype first (the JAX `_vjp_bwd` does `dy.astype(x.dtype)`):
     xhat = xc * rstd; w = dy * scale
     dx = rstd * (w - mean(w) - xhat * mean(w * xhat))   in x's dtype
     dscale = sum_b sum_t dy * xhat;  dbias = sum_b sum_t dy
-The kernels emit per-batch-element partials (B, C) f32; their sum over B
-runs here, outside, and is cast to the params' dtype, as in the JAX VJP.
-The kernels are in csrc/layernorm.cu and take C <= 1024.
+The backward kernel is one launch over (batch element, T chunk) tiles and
+emits (B, chunks, C) f32 partials; `_bwd_kernel` sums them over the chunks
+into per-batch-element partials (B, C), and the autograd backward sums
+those over B and casts to the params' dtype, as in the JAX VJP. Each sum
+runs in a fixed order: the result is deterministic. The kernels are in
+csrc/layernorm.cu and take C <= 1024.
 """
+
+import functools
 
 import torch
 
@@ -75,6 +80,16 @@ def _fwd_kernel(x, scale, bias, eps):
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_chunks(io_bf16: int, b: int, t: int, c: int, device_index: int) -> int:
+    """T chunks per batch element that fill the card's SMs once with the
+    backward kernel's blocks (asked of csrc/layernorm.cu once per shape)."""
+    with torch.cuda.device(device_index):
+        n = kernels.lib().w2vb_layernorm_bwd_chunks(io_bf16, b, t, c)
+    kernels.check("layernorm_bwd", -n if n < 0 else 0)  # a count >= 1, or a CUDA error code negated
+    return n
+
+
 def _bwd_kernel(x, scale, dy, eps):
     _check("layer_norm_fused backward", x, scale)
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
@@ -82,18 +97,20 @@ def _bwd_kernel(x, scale, dy, eps):
     kernels.require_cuda("layer_norm_fused backward", x, scale, dy)
     b, t, c = x.shape
     dx = torch.empty_like(x)
-    stats = torch.empty((b * t, 2), dtype=torch.float32, device=x.device)  # scratch: (mu, rstd) per row
-    dg = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    db = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    if b * t == 0:
+        return dx, *torch.zeros((2, b, c), dtype=torch.float32, device=x.device)
+    io_bf16 = int(x.dtype == torch.bfloat16)
+    chunks = _bwd_chunks(io_bf16, b, t, c, x.device.index)
+    parts = torch.empty((2, b, chunks, c), dtype=torch.float32, device=x.device)  # dscale, dbias partials
     lib = kernels.lib()
     with torch.cuda.device(x.device):
         code = lib.w2vb_layernorm_bwd(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
-            dg.data_ptr(), db.data_ptr(), int(x.dtype == torch.bfloat16), b, t, c, float(eps),
-            kernels.stream_of(x),
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), io_bf16, b, t, c, chunks, float(eps), kernels.stream_of(x),
         )
     kernels.check("layernorm_bwd", code)
     kernels.LAUNCHES["layernorm_bwd"] += 1
+    dg, db = parts.sum(dim=2)
     return dx, dg, db
 
 
