@@ -18,16 +18,19 @@ Phases, each of which exits nonzero on failure:
      without its f32 dW product); attention at T'=89, B=32, 16 heads, scale
      1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8 and scale 1
      (wav2vec2-base), with dropout 0 and 0.1 against the dense version with
-     the same seed (forward and backward on the tensor cores at bf16
-     compute, SIMT at f32 compute), at T'=169 (about 700 frames) and at
-     T'=400, B=8 (about 1,600 frames: the tensor-core forward streams its
-     key tiles there, and at f32 compute the SIMT forward switches to its
-     streaming kernel past T'=393); the LayerNorm at both encoders' shapes
-     with an f32 and a bf16 stream (the vector kernel at C 768 and 1024).
-     Each row: max-abs error beside its tolerance; the kernel's device time
-     with the queue kept full (`device_ms`: calls queued behind a spin
-     kernel run back to back, so the host's launch overhead drops out) and
-     its time per lone call (CUDA events around one call after the queue
+     the same seed (forward and backward on the tensor cores: bf16 products
+     at bf16 compute, split-TF32 products at f32 compute), and at T'=169
+     (about 700 frames) and T'=400, B=8 (about 1,600 frames: the forwards
+     stream their key tiles there), at bf16 compute with dropout 0.1 and at
+     f32 compute with dropout 0 and 0.1; the LayerNorm at both encoders'
+     shapes with an f32 and a bf16 stream (the vector kernel at C 768 and
+     1024). Each row: max-abs error beside its tolerance; the kernel's
+     device time with the queue kept full (`device_ms`: calls queued behind
+     a spin kernel run back to back, so the host's launch overhead drops
+     out; where queueing outlasts the longest spin, the row is marked
+     "starved" and the kernel and its library call are also timed as the
+     sum of their kernels' device times per call from torch.profiler,
+     `profiler_ms`) and its time per lone call (CUDA events around one call after the queue
      drained, the host's launch overhead included); the plain
      version's time per call; the bound (the larger of the bytes over 3.35
      TB/s and the operations over the peak rate of their type) and, where
@@ -51,10 +54,10 @@ Phases, each of which exits nonzero on failure:
      and samples/s, finite losses and params, every trainable leaf of a
      layer that ran moved and those of the dropped layer moved only by
      weight decay, the BN running stats updated exactly in the layers that
-     ran; then one step at f32 compute under `auto` and
-     under `none` from the same params, optimizer state and seed streams
-     (dropout on, the same layer dropped): loss, global gradient norm and
-     the updated params against their bounds.
+     ran; then one step at f32 compute under `auto` (its launch counts
+     printed) and under `none` from the same params, optimizer state and
+     seed streams (dropout on, the same layer dropped): loss, global
+     gradient norm and the updated params against their bounds.
   5. wav2vec2-base serving: phase 3 for `b2p2t_gru+w2v` at the fft sweep
      point (wav2vec2-base-960h: 12 post-LN layers, d=768, 12 heads, FFN
      3072; biGRU 3 x 1024, latent 768), 4 requests of 64 x 384.
@@ -62,8 +65,9 @@ Phases, each of which exits nonzero on failure:
      Adam at weight decay 1e-4), 4 steps of 64 x 384.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
-kernel; launches summed over the two training runs), the last line
-{"ok": true, "device": {...}}.
+kernel; launches summed over the two training runs; `profiler_ms` and
+`library_profiler_ms` null unless the row's device_ms was starved), the
+last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -83,6 +87,10 @@ TOL_F32 = {"preproc": 1e-5, "gru": 2e-5, "attention": 2e-5, "conv_glu": 1e-5, "l
            "preproc_bwd": 1e-5, "gru_bwd": 2e-5, "attention_bwd": 2e-5, "conv_glu_bwd": 1e-5,
            "layernorm_bwd": 2e-5}
 TOL_F32.update(gru_dir=TOL_F32["gru"], gru_dir_bwd=TOL_F32["gru_bwd"])
+# at logits 8x larger (phase 2's precision rows) two f32 versions of attention each carry f32
+# rounding of s amplified by exp: each is held against the f64 result instead, the kernel to within
+# this factor of the plain f32 version's own error (split TF32 keeps ~22 bits of a product, f32 24)
+F32_CLASS_FACTOR = 2.0
 DROPPED_LAYER = 1  # phases 4 and 6: the encoder layer LayerDrop drops in every train step
 # bf16 compute or a bf16 stream: both sides round the same values to bf16,
 # but f32 sums taken in another order can flip a bf16 rounding; allow two
@@ -104,7 +112,9 @@ N_REQUESTS = N_TRAIN_STEPS = 4
 LN_EPS = 1e-5
 # the bound's rates (NVIDIA's data sheet for the H100 SXM, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores; bf16 tensor cores
+# f32 outside the tensor cores; bf16 tensor cores; f32 products on the TF32 tensor cores (495 TFLOP/s) as
+# three TF32 products each (the split-TF32 attention kernels at f32 compute)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 _PALLAS = "wav2vec2forbrain_tpu/ops/"
 REPLACES = {
     "preproc": _PALLAS + "pallas_preproc.py:283",
@@ -169,16 +179,17 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 _SPIN_MS_PER_CYCLE = []  # device ms per cycle of torch.cuda._sleep, measured once
 
 
-def device_ms(fn, reps: int = 10, trials: int = 5) -> float:
-    """Device time of fn() in ms with the queue kept full: the stream is held
-    by a spin kernel while reps calls are queued behind it, so the calls run
-    back to back and the host's launch overhead drops out (as it does in a
-    device-bound step). Median over trials of (end - start) / reps. A trial
-    in which queueing took longer on the host clock than the spin lasted on
-    the device is run again with a longer spin; after the longest one it is
-    kept, with a note: either the launch queue was full (many launches a
-    call, as the per-direction GRU's: the device was busy throughout) or
-    the host was slower than the device (host time is in it)."""
+def device_ms(fn, reps: int = 10, trials: int = 5):
+    """(ms, starved): the device time of fn() in ms with the queue kept full:
+    the stream is held by a spin kernel while reps calls are queued behind
+    it, so the calls run back to back and the host's launch overhead drops
+    out (as it does in a device-bound step). Median over trials of (end -
+    start) / reps. A trial in which queueing took longer on the host clock
+    than the spin lasted on the device is run again with a longer spin;
+    after the longest one it is kept and `starved` is True: either the
+    launch queue was full (many launches a call, as the per-direction
+    GRU's: the device was busy throughout) or the host was slower than the
+    device (host time is in it). compare() then also takes profiler_ms."""
     import torch
 
     if not _SPIN_MS_PER_CYCLE:
@@ -192,7 +203,7 @@ def device_ms(fn, reps: int = 10, trials: int = 5) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times, spin = [], 5_000_000
+    times, spin, starved_any = [], 5_000_000, False
     while len(times) < trials:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -207,10 +218,35 @@ def device_ms(fn, reps: int = 10, trials: int = 5) -> float:
         if starved and spin < 500_000_000:
             spin *= 4
             continue
-        if starved:
-            print("  (device_ms: queueing outlasted the longest spin: a full launch queue, or host time included)")
+        starved_any = starved_any or starved
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    return statistics.median(times), starved_any
+
+
+def _device_kernels(fn, reps: int):
+    """[(device us per call, launches per call, name)] of every kernel and
+    copy that fn() runs on the card, largest first (torch.profiler over reps
+    calls; each kernel's own time, without the gaps between launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vec2forbrain_tpu_torch.profile_predict import _device_us, _on_device
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((_device_us(e) / reps, e.count // reps, e.key) for e in prof.key_averages() if _on_device(e)),
+                  reverse=True)
+
+
+def profiler_ms(fn, reps: int = 5) -> float:
+    """The device time of fn() in ms as the sum of its kernels' own device
+    times per call (torch.profiler): the second measure of a row whose
+    device_ms trial ended starved. It leaves out the gaps between launches."""
+    return sum(us for us, _, _ in _device_kernels(fn, reps)) / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -256,39 +292,39 @@ def compare(name, label, kernel_fn, plain_fn, tol_of, results, inputs, flops, li
             err, tol = e, t
     bound, bound_by = bound_ms(nbytes(*inputs, *outs), flops)
     del outs, refs
-    ms = device_ms(kernel_fn)
+    ms, starved = device_ms(kernel_fn)
     call_ms = timed_ms(kernel_fn)
     plain_ms = timed_ms(plain_fn, iters=5, warmup=1)
-    library_ms = None if library_fn is None else device_ms(library_fn)
+    library_ms, library_starved = (None, False) if library_fn is None else device_ms(library_fn)
     library_call_ms = None if library_fn is None else timed_ms(library_fn)
+    # a starved trial has host time in it: time the kernel and the library a second way
+    prof_ms = library_prof_ms = None
+    if starved or library_starved:
+        prof_ms = profiler_ms(kernel_fn)
+        library_prof_ms = None if library_fn is None else profiler_ms(library_fn)
     torch.cuda.synchronize()
-    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms (call {library_call_ms:.4f})"
-    print(f"  {name:13s} {label:42s} max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms "
-          f"(call {call_ms:.4f})  plain {plain_ms:.4f} ms{lib}  bound {bound:.4f} ms ({bound_by})  "
-          f"{'ok' if ok else 'MISMATCH'}")
+
+    def mark(is_starved, prof):
+        return "" if prof is None else f" [{'starved; ' if is_starved else ''}profiler {prof:.4f}]"
+
+    lib = ("" if library_ms is None else
+           f"  library {library_ms:.4f} ms{mark(library_starved, library_prof_ms)} (call {library_call_ms:.4f})")
+    print(f"  {name:13s} {label:42s} max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms"
+          f"{mark(starved, prof_ms)} (call {call_ms:.4f})  plain {plain_ms:.4f} ms{lib}  "
+          f"bound {bound:.4f} ms ({bound_by})  {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} [{label}]: kernel disagrees with its plain version ({err} > {tol})")
-    results.append(dict(name=name, label=label, err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
+    results.append(dict(name=name, label=label, err=err, ms=ms, profiler_ms=prof_ms, call_ms=call_ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+                        library_profiler_ms=library_prof_ms))
 
 
 def kernel_split(label, fn, reps: int = 5, top: int = 6) -> None:
     """Print the device time of each kernel that fn() launches, per call
     (torch.profiler over reps calls; each kernel's own time, without the
     gaps between launches)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from wav2vec2forbrain_tpu_torch.profile_predict import _device_us, _on_device
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages() if _on_device(e)), reverse=True)
-    parts = "; ".join(f"{name[:48]} {us / reps / 1e3:.4f} ms x{n // reps}" for us, n, name in rows[:top])
+    rows = _device_kernels(fn, reps)
+    parts = "; ".join(f"{name[:48]} {us / 1e3:.4f} ms x{n}" for us, n, name in rows[:top])
     print(f"  {'':13s} {label:42s} split: {parts}")
 
 
@@ -382,15 +418,16 @@ def kernel_phases(dev, results):
                 lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
                 results, (x, w, b, days, taps, gp), [(2 * affine + 2 * smooth, "float32")])
 
-    def attention_rows(gen, batch, heads, scale, q_scale, t=89, only=None):
+    def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None):
         """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,
         seed 77); q is multiplied by q_scale in the stream dtype first (the
-        wav2vec2 encoder's pre-scaling); only: one (stream, compute dtype,
-        rate) to run. The library call: F.scaled_dot_product_attention at
-        rate 0 (forward, and its backward)."""
+        wav2vec2 encoder's pre-scaling); rows: the (stream, compute dtype,
+        rate) triples to run. The library call: F.scaled_dot_product_attention
+        at rate 0 (forward, and its backward), in the stream dtype (at f32 its
+        memory-efficient kernel, split TF32 on the tensor cores)."""
         width = 64 * heads
         for sd in (f32, bf16):
-            if only is not None and sd != only[0]:
+            if rows is not None and all(sd != o[0] for o in rows):
                 continue
             q, k, v, ga = (torch.randn((batch, t, width), generator=gen, device=dev).to(sd) for _ in range(4))
             q = q * q_scale
@@ -404,20 +441,79 @@ def kernel_phases(dev, results):
                 if sd == bf16 and cd == f32:
                     continue
                 for rate in (0.0, 0.1):
-                    if only is not None and (cd, rate) != only[1:]:
+                    if rows is not None and (sd, cd, rate) not in rows:
                         continue
                     label = f"B{batch} T{t} {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
+                    op = "tf32x3" if cd == f32 else cd_name(cd)  # f32 products run as three TF32 ones
                     compare("attention", label,
                             lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77),
                             lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77),
                             f32_tol("attention") if cd == f32 else bf16_tol, results,
-                            (q, k, v), [(2 * qkt, cd_name(cd))], sdpa_fwd)
+                            (q, k, v), [(2 * qkt, op)], sdpa_fwd)
                     compare("attention_bwd", label,
                             lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77),
                             lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77),
                             f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results,
-                            (q, k, v, ga), [(5 * qkt, cd_name(cd))], sdpa_bwd)
+                            (q, k, v, ga), [(5 * qkt, op)], sdpa_bwd)
             del sdpa_out
+
+    def attention_f64(q, k, v, ga, heads, scale, rate, seed):
+        """(o, dq, dk, dv) of the attention function in f64 on f64 copies of
+        its operands: the exact result that the f32 versions round."""
+        b, t, width = q.shape
+        qh, kh, vh, gh = (x.double().view(b, t, heads, width // heads).transpose(1, 2).reshape(b * heads, t, -1)
+                          for x in (q, k, v, ga))
+        p = torch.softmax(torch.bmm(qh, kh.transpose(1, 2)) * scale, dim=-1)
+        masked = attention._scaled_mask(seed, b, heads, t, rate, q.device)
+        mask = None if masked is None else masked[0].double() * masked[1]
+        pd = p if mask is None else p * mask
+        dp = torch.bmm(gh, vh.transpose(1, 2))
+        dp = dp if mask is None else dp * mask
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        outs = (torch.bmm(pd, vh), torch.bmm(ds, kh) * scale, torch.bmm(ds.transpose(1, 2), qh) * scale,
+                torch.bmm(pd.transpose(1, 2), gh))
+        return [attention._unheads(x, b, heads, torch.float64) for x in outs]
+
+    def attention_precision_rows(gen, batch, heads, t=89):
+        """f32 compute at logits 8x those of the other rows: the w2v shape at
+        scale 1 with q not pre-scaled, so s = q.k over 64 unit normals (std 8),
+        where the f32 rounding of s moves p by 8x more. The kernel, the plain
+        version and SDPA at f32 (rate 0), each against the f64 result; the
+        kernel and SDPA against the plain version, the kernel's distance beside
+        TOL_F32 (abs for the output, relative to the largest one for the
+        gradients), which it may exceed here. Fails unless each of the
+        kernel's outputs is within F32_CLASS_FACTOR x the plain f32 version's
+        own error of the f64 result."""
+        width = 64 * heads
+        q, k, v, ga = (torch.randn((batch, t, width), generator=gen, device=dev) for _ in range(4))
+        hs = [x.view(batch, t, heads, 64).transpose(1, 2) for x in (q, k, v)]
+        leaves = [x.detach().requires_grad_(True) for x in hs]
+        for rate in (0.0, 0.1):
+            args = (heads, 1.0, rate, f32, 77)
+            exact = attention_f64(q, k, v, ga, heads, 1.0, rate, 77)
+            kern = [attention._fwd_kernel(q, k, v, *args), *attention._bwd_kernel(q, k, v, ga, *args)]
+            plain = [attention.mha_dense_bth(q, k, v, *args), *attention.mha_bwd_plain(q, k, v, ga, *args)]
+            sdpa = None
+            if rate == 0.0:  # SDPA's dropout is not the hash mask
+                out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+                grads = torch.autograd.grad(out, leaves, ga.view(batch, t, heads, 64).transpose(1, 2))
+                sdpa = [x.transpose(1, 2).reshape(batch, t, width) for x in (out, *grads)]
+            for i, what in enumerate(("o", "dq", "dk", "dv")):
+                def err(x):
+                    return (x.double() - exact[i]).abs().max().item()
+                vs_plain = (kern[i] - plain[i]).abs().max().item()
+                tol = TOL_F32["attention"] if i == 0 else f32_rel_tol("attention_bwd")(plain[i])
+                k64, p64 = err(kern[i]), err(plain[i])
+                lib = ("" if sdpa is None else
+                       f" sdpa {err(sdpa[i]):.3e} (sdpa vs plain {(sdpa[i] - plain[i]).abs().max().item():.3e})")
+                ok = k64 <= F32_CLASS_FACTOR * p64
+                print(f"  {'attention':13s} {f'B{batch} T{t} {heads}x64 scale1 logits x8 f32 p{rate} {what}':42s} "
+                      f"vs f64: kernel {k64:.3e} plain {p64:.3e}{lib}; kernel vs plain {vs_plain:.3e} "
+                      f"({'within' if vs_plain <= tol else 'over'} TOL_F32 {tol:.1e})  {'ok' if ok else 'LESS ACCURATE'}")
+                if not ok:
+                    fail(f"attention logits x8 p{rate} {what}: kernel {k64} off the f64 result, over "
+                         f"{F32_CLASS_FACTOR} x the plain f32 version's {p64}")
+            del exact, kern, plain, sdpa
 
     # 1. preproc: B=32 with the conformer's smoothing (sigma 0.3)
     preproc_rows(g, 32, 0.3)
@@ -447,7 +543,9 @@ def kernel_phases(dev, results):
                         f32_tol(name) if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0), [(step, cd_name(cd))], lib_fwd)
                 if per_dir:  # one launch per step: the forward's time per step
-                    print(f"  {'':13s} {label:42s} {1e3 * results[-1]['ms'] / gi.shape[0]:.2f} us per step")
+                    r = results[-1]
+                    per_call, by = (r["ms"], "") if r["profiler_ms"] is None else (r["profiler_ms"], " (profiler)")
+                    print(f"  {'':13s} {label:42s} {1e3 * per_call / gi.shape[0]:.2f} us per step{by}")
                 # gh recomputed and dh's product with W^T in the compute dtype; dW in it or in f32
                 compare(f"{name}_bwd", label,
                         lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
@@ -527,14 +625,13 @@ def kernel_phases(dev, results):
     preproc_rows(g_w2v, 64, 1.5)
     attention_rows(g_w2v, 64, 12, 1.0, 0.125)
     # 7. attention at T'=169 (B=32, 16 heads: the conformer's shape at ~700 frames) and at T'=400 (B=8,
-    # ~1,600 frames: key tiles streamed), the training setting; at T'=400 also at f32 compute (the
-    # streaming SIMT forward)
-    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169,
-                   only=(f32, bf16, 0.1))
-    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400,
-                   only=(f32, bf16, 0.1))
-    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400,
-                   only=(f32, f32, 0.1))
+    # ~1,600 frames: key tiles streamed), an f32 stream: bf16 compute in the training setting, f32
+    # compute (the split-TF32 kernels) at both rates
+    long_rows = [(f32, bf16, 0.1), (f32, f32, 0.0), (f32, f32, 0.1)]
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169, rows=long_rows)
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400, rows=long_rows)
+    # 8. attention at f32 compute with logits 8x larger, against the f64 result
+    attention_precision_rows(torch.Generator(device=dev).manual_seed(SEED + 4), 64, 12)
 
 
 def _spec_and_batch(family):
@@ -771,9 +868,12 @@ def train_phase(dev, device_name, power, family):
         state = _clone(run.model_state)
         opt_state = AdamState(run.opt_state.count, _clone(run.opt_state.mu), _clone(run.opt_state.nu))
         grad_fn = build_grad_fn(spec32, tr.labels, STEP_CFG)
+        kernels.reset_launches()
         # the same replay: layer DROPPED_LAYER, whose Adam moments are still 0, stays dropped (a first
         # Adam step moves each weight by ~lr * sign(g), which an order-level gradient difference flips)
         out, grads, norm = grad_fn(params, state, batch, _layerdrop_rng(SEED + 7, dev, n_layers, 1))
+        if policy == "auto":  # at f32 compute attention takes the split-TF32 kernels (D <= 128)
+            print(f"  kernel launches in the f32 step (auto): {json.dumps(dict(kernels.LAUNCHES))}")
         if not all(bool(torch.isfinite(gr).all()) for gr in tree_leaves(grads)):
             fail(f"{family}: non-finite gradient at f32 under {policy}")
         tr.optimizer.step(params, grads, opt_state, BRAIN_LR, W2V_LR)
@@ -874,11 +974,13 @@ def main() -> None:
             "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in mine),
             "ms": at["ms"],
+            "profiler_ms": at["profiler_ms"],
             "call_ms": at["call_ms"],
             "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
+            "library_profiler_ms": at["library_profiler_ms"],
             "at": label,
         })
     for family in serve:

@@ -196,7 +196,7 @@ def test_cuda_attention_kernels_match_plain(sd, cd, rate):
 def test_attention_bwd_wrapper_has_no_sequence_limit(t):
     """The backward kernels stream tiles: at any T the wrapper gets past its
     shape checks and refuses only operands that are not on a card. So does
-    the forward's, which streams key tiles past T = 393 at D = 64."""
+    the forward's, which streams key tiles where they do not stay resident."""
     q = torch.zeros((1, t, 128))
     with pytest.raises(ValueError, match="CUDA tensors"):
         port_attn._bwd_kernel(q, q, q, q, 2, 0.125, 0.1, torch.bfloat16, 0)
@@ -211,8 +211,9 @@ def test_attention_bwd_wrapper_has_no_sequence_limit(t):
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
 def test_cuda_attention_bwd_long_sequences_match_plain(t, b, cd, rate):
-    """Past T' = 117, where the backward kernel of (T, T) tiles stopped, up
-    to the forward's limit; 16 heads of 64, an f32 stream."""
+    """Past T' = 117, where a backward kernel of (T, T) tiles would stop, to
+    393; 16 heads of 64, an f32 stream (at f32 compute the split-TF32
+    kernels)."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(t)
     q, k, v, g = (torch.randn((b, t, 1024), generator=gen, device=dev) for _ in range(4))
@@ -250,6 +251,40 @@ def test_cuda_attention_bwd_bf16_head_dims_match_plain(d, sd):
     got = port_attn._bwd_kernel(q, k, v, g, 4, d**-0.5, 0.1, torch.bfloat16, 3)
     want = port_attn.mha_bwd_plain(q, k, v, g, 4, d**-0.5, 0.1, torch.bfloat16, 3)
     for a, r in zip(got, want):
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 17, 89, 169, 400, 700])
+@pytest.mark.parametrize("d", [24, 64, 80, 100, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+def test_cuda_attention_bwd_tf32x3_matches_plain(t, d, rate):
+    """The split-TF32 backward (f32 compute, f32 stream) against
+    mha_bwd_plain, B 2, from one row to 700; head dims padded to 64 (24, 64)
+    or 128 (80, 100, 128), 100 off the 16-byte grid; 16 heads at D 64, else
+    4. The f32 tolerance: 2e-5 relative to the largest output."""
+    dev = _cuda()
+    heads = 16 if d == 64 else 4
+    gen = torch.Generator(device=dev).manual_seed(10 * t + d)
+    q, k, v, g = (torch.randn((2, t, heads * d), generator=gen, device=dev) for _ in range(4))
+    got = port_attn._bwd_kernel(q, k, v, g, heads, d**-0.5, rate, torch.float32, 13)
+    want = port_attn.mha_bwd_plain(q, k, v, g, heads, d**-0.5, rate, torch.float32, 13)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=2e-5 * max(1.0, r.abs().max().item()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [89, 400])
+def test_cuda_attention_bwd_tf32x3_takes_a_bf16_stream(t):
+    """f32 compute on a bf16 stream: outputs rounded to bf16 on both sides,
+    so two bf16 ulps of the largest one."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v, g = (torch.randn((2, t, 1024), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    got = port_attn._bwd_kernel(q, k, v, g, 16, 0.125, 0.1, torch.float32, 4)
+    want = port_attn.mha_bwd_plain(q, k, v, g, 16, 0.125, 0.1, torch.float32, 4)
+    for a, r in zip(got, want):
+        assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r), rtol=0)
 
 

@@ -17,13 +17,23 @@ frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
 the kernel, the plain versions and the JAX package all drop the same
 probabilities.
 
-The forward kernel is chosen by the compute dtype and shape (`_fwd_route`):
-at bf16 compute one tensor-core kernel takes every T (D <= 128); at f32
-compute (SIMT FMAs: TF32 would change the numbers) one block holds a
-head's K and V where they fit in shared memory (T up to 393 at D = 64) and
-a second kernel streams 64-key tiles in two passes beyond (any T at D <=
-128). The backward is two launches that stream tiles (any T, D <= 128): on
-the tensor cores at bf16 compute, SIMT FMAs at f32 compute.
+The kernels are chosen by the compute dtype (`_fwd_route`). For heads up
+to 128 wide, at any T, the forward is one tensor-core launch and the
+backward two (dq with the row statistics, then dk and dv): at bf16 compute
+on bf16 operands ("mma"); at f32 compute ("tf32x3") on TF32 operands with
+each product split in three, a_big.b_small + a_small.b_big + a_big.b_big
+where big = tf32(x) and small = tf32(x - big), which keeps ~22 bits of each
+product (single-pass TF32 keeps 11): at logits of unit scale the f32
+route holds the f32 tolerances of the plain versions, and at logits 8x
+larger, where f32 rounding of the scores dominates, it stays within twice
+the plain f32 version's own error of the f64 result. Where an f32
+accumulator is fed back as the next product's operand, that product sums
+over its keys in a permuted order (key 2t in k-slot t, 2t + 1 in t + 4),
+the fragment layout of the TF32 product; a sum does not depend on its
+order (csrc/attention.cu's header). At f32 compute a head wider than 128 takes a SIMT forward that
+holds the head's K and V in shared memory, where they fit ("resident"); no
+backward kernel takes such heads. A CUDA tensor launches its kernel or
+raises; nothing falls back.
 """
 
 import math
@@ -36,8 +46,8 @@ from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_keep_mask
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 
 _MAX_SMEM = 227 * 1024
-_WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the forward kernel
-_MAX_HEAD_DIM = 128  # the widest head of the tensor-core and streaming kernels; any T
+_WARPS, _ROWS = 4, 4  # warps per block and query rows per warp in the SIMT forward
+_MAX_HEAD_DIM = 128  # the widest head of the tensor-core kernels; any T
 
 
 def _heads(x, num_heads, cd):
@@ -116,19 +126,21 @@ def _dropout_args(dropout_rate, seed):
     return int(seed), float(keep), float(1.0 / keep)
 
 
-def _fwd_streams(t, d):
-    """Whether the forward streams key tiles: the kernel that holds a head's K
-    and V (f32) in shared memory, with 4 x 4 rows of q and p, does not fit."""
-    return (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4 > _MAX_SMEM
+def _simt_fits(t, d):
+    """Whether the SIMT forward, which holds a head's K and V (f32) in shared
+    memory with 4 x 4 rows of q and p, fits the block's shared memory."""
+    return (t * (2 * d + 1) + _WARPS * _ROWS * (d + t)) * 4 <= _MAX_SMEM
 
 
 def _fwd_route(t, d, compute_dtype):
-    """The forward kernel for the shape: "mma" (bf16 compute, the tensor
-    cores, any T), else "resident" or "stream" (f32 compute, SIMT) by
-    _fwd_streams."""
-    if compute_dtype == torch.bfloat16:
-        return "mma"
-    return "stream" if _fwd_streams(t, d) else "resident"
+    """The forward kernel for the shape: "mma" (bf16 compute) or "tf32x3" (f32
+    compute) on the tensor cores for D <= 128 at any T; for wider heads at f32
+    compute "resident" (the SIMT kernel) where it fits; else None."""
+    if d <= _MAX_HEAD_DIM:
+        return "mma" if compute_dtype == torch.bfloat16 else "tf32x3"
+    if compute_dtype == torch.float32 and _simt_fits(t, d):
+        return "resident"
+    return None
 
 
 def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
@@ -136,15 +148,15 @@ def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed):
     b, t, hd = q.shape
     d = hd // num_heads
     route = _fwd_route(t, d, compute_dtype)
-    if route != "resident" and d > _MAX_HEAD_DIM:
-        raise ValueError(f"mha_fused_bth: head dim {d} > {_MAX_HEAD_DIM} at T={t} ({route} kernel)")
+    if route is None:
+        raise ValueError(f"mha_fused_bth: head dim {d} > {_MAX_HEAD_DIM} at T={t}: no kernel takes it")
     kernels.require_cuda("mha_fused_bth", q, k, v)
     o = torch.empty_like(q)
     lib = kernels.lib()
     with torch.cuda.device(q.device):
         code = lib.w2vb_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(route == "stream"),
+            int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(route == "resident"),
             b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed),
             kernels.stream_of(q),
         )

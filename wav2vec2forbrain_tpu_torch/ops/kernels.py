@@ -59,7 +59,7 @@ _SIGNATURES = {
     "w2vb_gru_bwd": [_vp, _vp, _i] + [_vp] * 16 + [_i] * 7 + [_vp],
     # gi, wt, w_bf16, b_hh, h0, hc, ys, T, ND, B, H, Bp, Hp, stream
     "w2vb_gru_dir_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _vp] + [_i] * 6 + [_vp],
-    # q, k, v, o, io_bf16, cd_bf16, stream_keys, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
+    # q, k, v, o, io_bf16, cd_bf16, simt, B, T, NH, D, scale, seed, keep_prob, inv_keep, stream
     "w2vb_attention_fwd": [_vp] * 4 + [_i] * 7 + [_f, _i, _f, _f, _vp],
     # q, k, v, g, dq, dk, dv, stats, io_bf16, cd_bf16, B, T, NH, D, scale, seed, keep_prob,
     # inv_keep, stream

@@ -1,10 +1,12 @@
 """Device-time breakdown of the serving forward on one CUDA card.
 
     python -m wav2vec2forbrain_tpu_torch.profile_predict [--family conformer|w2v] [--policy auto|none|...]
+        [--compute-dtype bfloat16|float32]
 
 Builds the full-width model of the family (profile_train.FAMILIES:
 conformer-rope-large with a biGRU 2 x 256 at batch 32, or wav2vec2-base
-with a biGRU 3 x 1024 at batch 64; random weights, fixed seed), warms up,
+with a biGRU 3 x 1024 at batch 64; random weights, fixed seed; bf16
+compute or --compute-dtype float32, an f32 activation stream), warms up,
 then runs 2 requests of 384 frames through predict() under torch.profiler.
 Prints the card's name and power limit, the ops with the most device time,
 the device-busy share of the profiled wall window (summed kernel time /
@@ -40,6 +42,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", default="conformer", choices=sorted(FAMILIES), help="model family (see above)")
     ap.add_argument("--policy", default="auto", help="kernel policy (ops/select.py)")
+    ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the model's compute dtype (the activation stream stays float32)")
     args = ap.parse_args(argv)
     fields, _, batch_size = FAMILIES[args.family]
     n_batches, top = 2, 25
@@ -52,7 +56,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
-    spec = ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32, **fields)
+    spec = ModelSpec(compute_dtype=getattr(torch, args.compute_dtype), activation_dtype=torch.float32, **fields)
     params, state = init_model_params(torch.Generator(device=dev).manual_seed(0), spec, dev)
     batches = make_requests(n_batches + 1, batch_size, 384, seed=0)
     predict(params, state, spec, batches[:1])
@@ -67,7 +71,8 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages() if _on_device(e) and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     total_us = sum(_device_us(e) for e in events)
-    print(f"family {args.family}, policy {args.policy}, batch {batch_size}: {n_batches} batches in {wall * 1e3:.2f} ms wall "
+    print(f"family {args.family}, policy {args.policy}, compute {args.compute_dtype}, batch {batch_size}: "
+          f"{n_batches} batches in {wall * 1e3:.2f} ms wall "
           f"({wall * 1e3 / n_batches:.2f} ms/batch), device busy {total_us / 1e3:.2f} ms "
           f"= {100 * total_us / 1e6 / wall:.1f}% of wall")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  op")

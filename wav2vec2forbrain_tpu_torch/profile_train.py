@@ -1,6 +1,7 @@
 """Device-time breakdown of a full-width train step on one CUDA card.
 
     python -m wav2vec2forbrain_tpu_torch.profile_train [--family conformer|w2v] [--policy auto|none|...]
+        [--compute-dtype bfloat16|float32]
 
 --family conformer (default): `b2p2t_gru+w2v_conformer` at full width
 (conformer-rope-large: 24 layers, d=1024, 16 heads, FFN 4096, k=31; biGRU
@@ -10,8 +11,8 @@ batches of 32. --family w2v: `b2p2t_gru+w2v` at the fft sweep point
 12 post-LN layers, d=768, 12 heads, FFN 3072, dropouts and LayerDrop 0.1;
 biGRU 3 x 1024 with dropout 0.45, no FC hidden layer, latent 768,
 gaussian_smooth_width 1.5), Adam at weight decay 1e-4, batches of 64. Both:
-random weights from a fixed seed, bf16 compute with an f32 activation
-stream, unfreeze_strategy "brain_encoder+w2v" at LRs 1e-4 / 1e-5,
+random weights from a fixed seed, bf16 compute (--compute-dtype float32:
+f32, the CLI's default) with an f32 activation stream, unfreeze_strategy "brain_encoder+w2v" at LRs 1e-4 / 1e-5,
 augmentation at the sweeps' whiteNoiseSD 0.02 / constantOffsetSD 0.25, 384
 frames. Warms up with one step, runs STEPS steps through train_batches
 without the profiler and then STEPS more under torch.profiler. Prints the
@@ -63,10 +64,10 @@ class Trainer(NamedTuple):
     batch_size: int
 
 
-def build_trainer(device, seed: int = 0, family: str = "conformer") -> Trainer:
+def build_trainer(device, seed: int = 0, family: str = "conformer", compute_dtype=torch.bfloat16) -> Trainer:
     """The full-width training setup of `family` above, on `device`."""
     fields, weight_decay, batch_size = FAMILIES[family]
-    spec = ModelSpec(compute_dtype=torch.bfloat16, activation_dtype=torch.float32, **fields)
+    spec = ModelSpec(compute_dtype=compute_dtype, activation_dtype=torch.float32, **fields)
     params, state = init_model_params(torch.Generator(device=device).manual_seed(seed), spec, device)
     labels = param_labels(params, "brain_encoder+w2v")
     optimizer = make_optimizer(labels, "adam", weight_decay)
@@ -95,6 +96,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", default="conformer", choices=sorted(FAMILIES), help="model family (see above)")
     ap.add_argument("--policy", default="auto", help="kernel policy (ops/select.py)")
+    ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the model's compute dtype (the activation stream stays float32)")
     args = ap.parse_args(argv)
     top = 30
     if not torch.cuda.is_available():
@@ -106,7 +109,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
-    tr = build_trainer(dev, family=args.family)
+    tr = build_trainer(dev, family=args.family, compute_dtype=getattr(torch, args.compute_dtype))
     rng = StepRng(0, dev)
     batches = make_requests(STEPS + 1, tr.batch_size, 384, seed=0)
     run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
@@ -128,7 +131,8 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages() if _on_device(e) and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     total_us = sum(_device_us(e) for e in events)
-    print(f"family {args.family}, policy {args.policy}, batch {tr.batch_size}: {STEPS} train steps in {wall * 1e3:.2f} ms wall "
+    print(f"family {args.family}, policy {args.policy}, compute {args.compute_dtype}, batch {tr.batch_size}: "
+          f"{STEPS} train steps in {wall * 1e3:.2f} ms wall "
           f"({wall * 1e3 / STEPS:.2f} ms/step), device busy {total_us / 1e3:.2f} ms "
           f"= {100 * total_us / 1e6 / wall:.1f}% of wall; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
