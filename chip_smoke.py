@@ -11,18 +11,22 @@ Phases, each of which exits nonzero on failure:
   2. kernels: each hand-written kernel, forward and backward, against its
      plain PyTorch version on the card at both main paths' shapes, at f32
      and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
-     B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 for the
-     conformer and, through its per-direction entry (one launch per step,
-     its forward's time per step printed), at H=512 and 1024 with B=64 for
-     the sweep and at a ragged H=600 (the per-direction backward also timed
-     without its f32 dW product); attention at T'=89, B=32, 16 heads, scale
+     B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 through the
+     fused entry (its forward one cluster-resident launch) with B=32 for the
+     conformer and B=64 for the sweep grid's H=256 points, and, through its
+     per-direction entry (one launch per step), at H=512 and 1024 with B=64
+     for the sweep and at a ragged H=600 (the per-direction backward also
+     timed without its f32 dW product); every GRU forward row's time per
+     step printed; attention at T'=89, B=32, 16 heads, scale
      1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8 and scale 1
      (wav2vec2-base), with dropout 0 and 0.1 against the dense version with
      the same seed (forward and backward on the tensor cores: bf16 products
      at bf16 compute, split-TF32 products at f32 compute), and at T'=169
      (about 700 frames) and T'=400, B=8 (about 1,600 frames: the forwards
      stream their key tiles there), at bf16 compute with dropout 0.1 and at
-     f32 compute with dropout 0 and 0.1; the LayerNorm at both encoders'
+     f32 compute with dropout 0 and 0.1; GLU -> depthwise conv at B=32
+     T=89 and at B=8 with T=169 and 400 (several of the backward's time
+     chunks); the LayerNorm at both encoders'
      shapes with an f32 and a bf16 stream (the vector kernel at C 768 and
      1024). Each row: max-abs error beside its tolerance; the kernel's
      device time with the queue kept full (`device_ms`: calls queued behind
@@ -70,6 +74,7 @@ kernel; launches summed over the two training runs; `profiler_ms` and
 last line {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -519,10 +524,11 @@ def kernel_phases(dev, results):
     preproc_rows(g, 32, 0.3)
 
     # 2. GRU recurrence, T=89: H=256, B=32 (conformer; layer-0 and layer-1
-    # gi) through gru_recurrence; H=512 and 1024, B=64 (wav2vec2-base sweep)
-    # through the per-direction entry, whose dW_hh product is f32
-    for h, batch, layers, per_dir in ((256, 32, (0, 1), False), (512, 64, (0,), True), (1024, 64, (0,), True),
-                                      (600, 64, (0,), True)):
+    # gi) and B=64 (the sweep grid's H=256 points) through gru_recurrence;
+    # H=512 and 1024, B=64 (wav2vec2-base sweep) through the per-direction
+    # entry, whose dW_hh product is f32
+    for h, batch, layers, per_dir in ((256, 32, (0, 1), False), (256, 64, (0,), False), (512, 64, (0,), True),
+                                      (1024, 64, (0,), True), (600, 64, (0,), True)):
         name = "gru_dir" if per_dir else "gru"
         params = init_gru_params(g, 8192, h, 2, True, True, False, dev)
         x0 = torch.rand((batch, 89, 8192), generator=g, device=dev) * 2 - 1
@@ -542,10 +548,9 @@ def kernel_phases(dev, results):
                         lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd),
                         f32_tol(name) if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0), [(step, cd_name(cd))], lib_fwd)
-                if per_dir:  # one launch per step: the forward's time per step
-                    r = results[-1]
-                    per_call, by = (r["ms"], "") if r["profiler_ms"] is None else (r["profiler_ms"], " (profiler)")
-                    print(f"  {'':13s} {label:42s} {1e3 * per_call / gi.shape[0]:.2f} us per step{by}")
+                r = results[-1]  # the forward's time per step
+                per_call, by = (r["ms"], "") if r["profiler_ms"] is None else (r["profiler_ms"], " (profiler)")
+                print(f"  {'':13s} {label:42s} {1e3 * per_call / gi.shape[0]:.2f} us per step{by}")
                 # gh recomputed and dh's product with W^T in the compute dtype; dW in it or in f32
                 compare(f"{name}_bwd", label,
                         lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
@@ -565,16 +570,18 @@ def kernel_phases(dev, results):
     # 3. attention: the conformer's B=32, 16 heads of 64 at scale 1/8
     attention_rows(g, 32, 16, 0.125, 1.0)
 
-    # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31 (no one PyTorch call computes it)
+    # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31 (no one PyTorch call computes it); then
+    # B=8 at T=169 and T=400, several of the backward's 96-frame chunks (T=400: past the whole-sequence
+    # backward's reach)
     wdw = (torch.rand((31, 1024), generator=g, device=dev) * 2 - 1) * (3.0 / 31) ** 0.5
-    conv = 2 * 32 * 89 * 1024 * 31
-    for sd in (f32, bf16):
-        y = torch.randn((32, 89, 2048), generator=g, device=dev).to(sd)
-        dz = torch.randn((32, 89, 1024), generator=g, device=dev).to(sd)
+    for (batch, t), sd in itertools.product(((32, 89), (8, 169), (8, 400)), (f32, bf16)):
+        conv = 2 * batch * t * 1024 * 31
+        y = torch.randn((batch, t, 2048), generator=g, device=dev).to(sd)
+        dz = torch.randn((batch, t, 1024), generator=g, device=dev).to(sd)
         for cd in (f32, bf16):
             if sd == bf16 and cd == f32:
                 continue
-            label = f"B32 T89 C1024 io {cd_name(sd)} cd {cd_name(cd)}"
+            label = f"B{batch} T{t} C1024 io {cd_name(sd)} cd {cd_name(cd)}"
             exact = cd == f32 and sd == f32
             compare("conv_glu", label,
                     lambda: conv_glu._fwd_kernel(y, wdw, cd),

@@ -231,6 +231,19 @@ def test_conv_glu_matches_jax_pallas_interpret(cd):
     np.testing.assert_allclose(got, ref, atol=1e-5 if cd == "float32" else 2.0**-6, rtol=0)
 
 
+@pytest.mark.parametrize("t", [1, 89, 400, 700])
+def test_conv_glu_bwd_wrapper_takes_any_sequence_length(t):
+    """The backward kernel takes time in chunks, so its wrapper has no
+    length rule: up to T = 700 it gets past every shape check and refuses
+    only operands off the card."""
+    y = torch.empty((2, t, 2048), device="meta")
+    dz = torch.empty((2, t, 1024), device="meta")
+    w = torch.empty((31, 1024), device="meta")
+    for cd in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            port_conv._bwd_kernel(y, w, dz, cd)
+
+
 def test_depthwise_same_padding_is_15_15():
     g = torch.zeros(1, 40, 1)
     g[0, 20, 0] = 1.0

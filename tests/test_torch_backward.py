@@ -301,20 +301,46 @@ def test_cuda_attention_bwd_is_deterministic(cd):
         assert torch.equal(a, b)
 
 
+def _conv_bwd_inputs(dev, seed, t, c, ks, sd):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((4, t, 2 * c), generator=gen, device=dev).to(sd)
+    dz = torch.randn((4, t, c), generator=gen, device=dev).to(sd)
+    w = torch.rand((ks, c), generator=gen, device=dev) * 0.6 - 0.3
+    return y, w, dz
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 15, 31, 89, 169, 400, 700])
+@pytest.mark.parametrize("c", [100, 1024])
+@pytest.mark.parametrize("ks", [31, 3])
 @pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                                    (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
-def test_cuda_conv_glu_bwd_matches_plain(sd, cd):
+def test_cuda_conv_glu_bwd_matches_plain(t, c, ks, sd, cd):
+    """The backward kernel against its plain version at lengths within one
+    96-frame chunk (1, 15, 31, 89), several chunks with a ragged last one
+    (169, 400, 700), a channel count off the 16-byte grid and the
+    32-channel tile (100), and a short kernel (3 taps)."""
     dev = _cuda()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    y = torch.randn((4, 89, 2048), generator=gen, device=dev).to(sd)
-    dz = torch.randn((4, 89, 1024), generator=gen, device=dev).to(sd)
-    w = torch.rand((31, 1024), generator=gen, device=dev) * 0.6 - 0.3
+    y, w, dz = _conv_bwd_inputs(dev, 1, t, c, ks, sd)
     dy, dk = port_conv._bwd_kernel(y, w, dz, cd)
     dy_ref, dk_ref = port_conv.glu_dwconv_bwd_plain(y, w, dz, cd)
     atol = 1e-5 if sd == torch.float32 else _bf16_tol(dy_ref)
     torch.testing.assert_close(dy.float(), dy_ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(dk, dk_ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
+def test_cuda_conv_glu_bwd_is_deterministic(sd, cd):
+    """No atomics: two runs of the backward on the same inputs give bitwise
+    equal dy and dK partials (the conformer's C 1024, several chunks)."""
+    dev = _cuda()
+    y, w, dz = _conv_bwd_inputs(dev, 2, 169, 1024, 31, sd)
+    first = port_conv._bwd_kernel(y, w, dz, cd)
+    second = port_conv._bwd_kernel(y, w, dz, cd)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _cuda_gru_inputs(dev, seed, t, b, h):

@@ -13,6 +13,7 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.models.gru import apply_gru, bigru_inputs, init_gru_params
 from wav2vec2forbrain_tpu_torch.ops import gru as port_gru
+from wav2vec2forbrain_tpu_torch.ops import kernels
 from wav2vec2forbrain_tpu_torch.ops import select as port_select
 
 torch.set_num_threads(1)
@@ -143,3 +144,55 @@ def test_cuda_kernel_matches_plain(hidden, cd):
     ref = port_gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd)
     atol = 2e-5 if cd == torch.float32 else 2.0**-6
     torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+
+
+def _cuda_fwd_inputs(seed, t, b, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gi = torch.randn((t, 2, b, 3 * h), generator=gen, device=dev)
+    w = (torch.rand((2, h, 3 * h), generator=gen, device=dev) * 2 - 1) / h**0.5
+    bias = (torch.rand((2, 1, 3 * h), generator=gen, device=dev) * 2 - 1) / h**0.5
+    h0 = torch.randn((2, b, h), generator=gen, device=dev) * 0.5
+    return gi, w, bias, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [32, 64, 128, 256, 320, 480])
+@pytest.mark.parametrize("b", [1, 3, 17, 32, 64])
+@pytest.mark.parametrize("t", [1, 89])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_gru_fused_fwd_matches_plain(h, b, t, cd):
+    """The fused forward at every width the model routes to it, through the
+    kernel its route names (the cluster kernel; the step kernel for f32 H
+    480), at batches that fill one, part of one, and several 16-row groups."""
+    gi, w, bias, h0 = _cuda_fwd_inputs(0, t, b, h)
+    name = "gru" if port_gru._fwd_route(h, cd) == "cluster" else "gru_dir"
+    before = kernels.LAUNCHES[name]
+    out = port_gru._fwd_kernel(gi, w, bias, h0, cd)
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = port_gru.gru_recurrence_plain(gi, w, bias, h0, cd)
+    atol = 2e-5 if cd == torch.float32 else 2.0**-6
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_gru_fused_fwd_is_deterministic(cd):
+    """No atomics: two runs of the cluster forward on the same inputs give
+    bitwise-equal ys (the conformer's H256 B32 T89)."""
+    gi, w, bias, h0 = _cuda_fwd_inputs(1, 89, 32, 256)
+    first = port_gru._fwd_kernel(gi, w, bias, h0, cd)
+    second = port_gru._fwd_kernel(gi, w, bias, h0, cd)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_fused_fwd_agrees_with_dir_fwd_at_f32():
+    """At f32 compute the cluster forward and the per-direction step forward
+    compute the same function, at H = 256, a width both take."""
+    gi, w, bias, h0 = _cuda_fwd_inputs(2, 89, 32, 256)
+    fused = port_gru._fwd_kernel(gi, w, bias, h0, torch.float32)
+    per_dir = port_gru._fwd_kernel(gi, w, bias, h0, torch.float32, per_direction=True)
+    torch.testing.assert_close(fused, per_dir, atol=2e-5, rtol=0)

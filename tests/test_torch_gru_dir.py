@@ -152,6 +152,29 @@ def test_wrappers_refuse_shapes_their_kernels_do_not_take(call, h, match):
         call(_meta(2, 1, h))
 
 
+@pytest.mark.parametrize("h,cd,expect", [
+    (32, torch.bfloat16, "cluster"), (256, torch.bfloat16, "cluster"), (480, torch.bfloat16, "cluster"),
+    (256, torch.float32, "cluster"), (320, torch.float32, "cluster"), (352, torch.float32, "steps"),
+    (480, torch.float32, "steps"), (512, torch.bfloat16, "steps"), (1024, torch.bfloat16, "steps"),
+    (512, torch.float32, "steps"), (1024, torch.float32, "steps")])
+def test_fused_fwd_route_is_a_shape_rule(h, cd, expect):
+    """The fused forward runs the cluster kernel where one CTA of an 8-CTA
+    cluster holds its W_hh slice and two h buffers (227 KB): every bf16
+    width below 512 and f32 widths up to 320; wider layers take the
+    per-direction step kernel."""
+    assert port_gru._fwd_route(h, cd) == expect
+    assert (port_gru._cluster_smem(h, cd) <= port_gru._SMEM_MAX) == (expect == "cluster")
+
+
+@pytest.mark.parametrize("h", [32, 256, 320, 480, 512, 1024, 3584])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_fwd_takes_every_width_of_its_reach_but_only_cuda_tensors(h, cd):
+    """At every width of its reach, by either route, the fused forward gets
+    past every shape check and refuses only operands off the card."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_gru._fwd_kernel(*_meta(2, 3, h), cd)
+
+
 @pytest.mark.parametrize("h", [100, 3600])
 def test_dir_fwd_takes_any_hidden_size_but_only_cuda_tensors(h):
     """The per-direction forward has no hidden-size rule either: at a ragged

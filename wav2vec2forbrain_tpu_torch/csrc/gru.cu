@@ -27,16 +27,32 @@
 // What bounds it on the H100: the sequential dependence over T. Per step,
 // the forward's gh = h_cd . W_cd and the backward's carry product dgh_cd .
 // W_cd^T read all of one direction's W_hh (H = 256: 384 KiB bf16; H = 1024:
-// 6 MiB) from the 50 MB L2, where W_hh of both directions stays resident.
-// No block can hold it (227 KB of shared memory), so every step is spread
-// over many blocks, each reading its slice of W_hh from L2: L2 latency and
-// bandwidth and the launch gap bound a step.
+// 6 MiB). No block can hold it (227 KB of shared memory), so every step is
+// spread over many blocks: the step kernels read their slices from the 50
+// MB L2, where W_hh of both directions stays resident, and L2 latency and
+// the launch gap bound a step; the fused forward's cluster holds its slices
+// in shared memory for all steps, and the cluster barrier bounds a step.
 //
-// Fused forward (gru_fwd_kernel): one block per direction and kBatch = 4
-// batch rows for all T steps, h (f32 carry and its compute-dtype copy) in
-// shared memory, one block barrier per step; thread i accumulates hidden
-// unit i's r, z, n columns of W_hh (scalar L2 reads) for the kBatch rows.
-// Any H whose shared memory (16 * kBatch * H bytes) fits takes it.
+// Fused forward (gru_fwd_cluster_kernel): one launch for all T steps. A
+// thread-block cluster of cn = 8 CTAs (else 4) serves one direction and 16
+// batch rows (the mma row tile); CTA q owns hidden units q U .. q U + U - 1
+// (U = H / cn, padded to Up, a multiple of 8) of all three gates. Its slice
+// of W_hh (H x 3 Up in the compute dtype: 48 KiB at H = 256, bf16) is loaded
+// once into shared memory and stays there, so no step reads W_hh from L2.
+// Each CTA keeps the group's whole h_cd (16 x H) in a ping-pong pair of
+// buffers, and each thread the f32 carry, gi and b_hh of its own 4 elements
+// in registers (gi of step t+1 loaded while the cluster waits at the end of
+// step t). Step t: c = h_cd[t-1] . W slice (bf16: mma.sync.m16n8k16, f32
+// accumulators; f32: SIMT f32 FMAs, no TF32, K split over 4 thread groups
+// whose partials group 0 adds in order); the gates with b_hh added after the
+// product; ys[t]; the new h_cd
+// of the CTA's units stored into the other buffer of every CTA of the
+// cluster through distributed shared memory; one cluster barrier (arrive
+// with release, wait with acquire: with the ping-pong pair one barrier a step
+// is enough). No atomics: the result is the same from run to run. A width
+// takes it where the CTA's shared memory fits (cluster_smem; ops/gru.py::
+// _fwd_route): bf16 H <= 480, f32 H <= 320; wider layers of the fused entry
+// take the per-direction step kernel below, which computes the same numbers.
 //
 // Per-direction forward (gru_dir_fwd_step_kernel): one launch per time step
 // (the host function loops t = 0 .. T-1; the kernel boundary is the barrier
@@ -91,99 +107,338 @@
 // rounded up to 64, Hp = H rounded up to 64 and Bp = B to 32, zeros in the
 // padding; so every chunk is whole and 16-byte aligned, any H and B are
 // taken, and only the steps' writes mask the ragged edge.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBatch = 4;  // batch rows per block of the fused forward
+// ---- fused forward: one cluster-resident launch (header note above) ----
+
+constexpr int kClusterRows = 16;     // batch rows of a cluster: the mma row tile
+constexpr int kClusterMaxCtas = 8;   // the widest portable cluster
+constexpr int kF32KSplit = 4;        // f32: thread groups that each take a quarter of K
 
 template <typename W>
-__global__ void gru_fwd_kernel(const float* __restrict__ gi, const W* __restrict__ w_hh,
-                               const float* __restrict__ b_hh, const float* __restrict__ h0,
-                               float* __restrict__ ys, int T, int ND, int B, int H) {
-  constexpr bool cd_bf16 = sizeof(W) == 2;
-  extern __shared__ float sm[];
-  // two buffers, each [kBatch][H] f32 carry followed by [kBatch][H] rounded copy
-  const int buf = 2 * kBatch * H;
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * kBatch;
-  const int nb = min(kBatch, B - b0);
-  const int H3 = 3 * H;
-  const W* w = w_hh + (size_t)d * H * H3;
-  const float* bh = b_hh + (size_t)d * H3;
+__host__ __device__ constexpr int k_split() { return sizeof(W) == 2 ? 1 : kF32KSplit; }
+// threads of a CTA: 4 Up (bf16, Up <= 64), 4 x 4 Up (f32, Up <= 40)
+template <typename W>
+__host__ __device__ constexpr int cluster_max_threads() { return sizeof(W) == 2 ? 256 : 640; }
 
-  for (int i = threadIdx.x; i < kBatch * H; i += blockDim.x) {
-    const int bb = i / H;
-    const int j = i - bb * H;
-    const float v = bb < nb ? h0[((size_t)d * B + b0 + bb) * H + j] : 0.f;
-    sm[i] = v;
-    sm[kBatch * H + i] = w2vb::round_cd(v, cd_bf16);
-  }
-  __syncthreads();
+__host__ __device__ constexpr int round_up8(int n) { return (n + 7) / 8 * 8; }
 
-  for (int t = 0; t < T; ++t) {
-    const float* h = sm + (t & 1) * buf;
-    const float* hc = h + kBatch * H;
-    float* hn = sm + ((t + 1) & 1) * buf;
-    float* hnc = hn + kBatch * H;
-    const float* git = gi + (((size_t)t * ND + d) * B + b0) * H3;
-    float* yt = ys + (((size_t)t * ND + d) * B + b0) * H;
+// The row pitch (elements) of the bf16 tiles: 16 bytes of padding keep the
+// mma fragments' 32-bit loads free of bank conflicts.
+__host__ __device__ constexpr int cluster_pitch(int H) { return H + 8; }
 
-    for (int i = threadIdx.x; i < H; i += blockDim.x) {
-      float a0[kBatch], a1[kBatch], a2[kBatch];
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) a0[bb] = a1[bb] = a2[bb] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < H; ++j) {
-        const W* wr = w + (size_t)j * H3;
-        const float w0 = w2vb::to_f32(wr[i]);
-        const float w1 = w2vb::to_f32(wr[H + i]);
-        const float w2 = w2vb::to_f32(wr[2 * H + i]);
-#pragma unroll
-        for (int bb = 0; bb < kBatch; ++bb) {
-          const float hv = hc[bb * H + j];
-          a0[bb] = fmaf(hv, w0, a0[bb]);
-          a1[bb] = fmaf(hv, w1, a1[bb]);
-          a2[bb] = fmaf(hv, w2, a2[bb]);
-        }
-      }
-      const float br = bh[i], bz = bh[H + i], bn = bh[2 * H + i];
-#pragma unroll
-      for (int bb = 0; bb < kBatch; ++bb) {
-        if (bb < nb) {
-          const float* g = git + (size_t)bb * H3;
-          const float gh_r = a0[bb] + br;
-          const float gh_z = a1[bb] + bz;
-          const float gh_n = a2[bb] + bn;
-          const float r = w2vb::sigmoidf(g[i] + gh_r);
-          const float zg = w2vb::sigmoidf(g[H + i] + gh_z);
-          const float n = tanhf(g[2 * H + i] + r * gh_n);
-          const float hv = (1.f - zg) * n + zg * h[bb * H + i];
-          hn[bb * H + i] = hv;
-          hnc[bb * H + i] = w2vb::round_cd(hv, cd_bf16);
-          yt[(size_t)bb * H + i] = hv;
-        } else {
-          hn[bb * H + i] = 0.f;
-          hnc[bb * H + i] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-  }
+// Shared memory of one CTA: its W_hh slice and the ping-pong pair of h_cd.
+// bf16: W^T slice [3 Up][H + 8] + h [2][16][H + 8]; f32: W slice [H][3 Up]
+// + h^T [2][H][16] + the partial products of K groups 1-3, [3][12][4 Up].
+// ops/gru.py::_cluster_smem mirrors it.
+template <typename W>
+__host__ __device__ constexpr size_t cluster_smem(int H, int Up) {
+  return sizeof(W) == 2 ? (size_t)(3 * Up + 2 * kClusterRows) * cluster_pitch(H) * sizeof(W)
+                        : (size_t)(3 * Up + 2 * kClusterRows) * H * sizeof(W) +
+                              (size_t)(kF32KSplit - 1) * 12 * 4 * Up * sizeof(float);
 }
 
 template <typename W>
-int launch(const float* gi, const void* w_hh, const float* b_hh, const float* h0, float* ys, int T,
-           int ND, int B, int H, cudaStream_t s) {
-  const size_t smem = (size_t)4 * kBatch * H * sizeof(float);
-  cudaError_t e = w2vb::allow_smem(gru_fwd_kernel<W>, smem);
+struct ClusterArgs {
+  const float* gi;    // (T, ND, B, 3H)
+  const W* w;         // (ND, H, 3H): W_hh in the compute dtype
+  const float* b_hh;  // (ND, 3H)
+  const float* h0;    // (ND, B, H)
+  float* ys;          // (T, ND, B, H)
+  int T, ND, B, H, U, Up;  // U = H / cluster size units per CTA, Up = U rounded up to 8
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the shared::cluster address of p (a shared address of this CTA) in CTA rank q
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int q) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(q));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float x, float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+// Block (rank in the cluster, batch group, direction): 4 Up threads (f32: 4
+// groups of them, group q summing K quarter q; group 0 adds the others'
+// partials in order and goes on alone). Each thread of group 0 owns 4
+// elements, rows r0 and r1 x units u0 and u0 + 1 of the CTA's slice (element
+// e = 2 * row index + unit index), and keeps their f32 carry, gi and b_hh in
+// registers. bf16: warp w takes the mma n-tiles of units 8w .. 8w+7 in each
+// gate (r0 = g, r1 = g + 8, u0 = 8w + 2t: the accumulator layout of
+// m16n8k16); f32: thread (rho, p) takes rows 2 rho, 2 rho + 1 and units 2p,
+// 2p + 1.
+template <typename W>
+__global__ void __launch_bounds__(cluster_max_threads<W>()) gru_fwd_cluster_kernel(ClusterArgs<W> a) {
+  constexpr bool bf = sizeof(W) == 2;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cn = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int d = blockIdx.z, b0 = blockIdx.y * kClusterRows;
+  const int H = a.H, H3 = 3 * H, U = a.U, Up = a.Up, ld = cluster_pitch(H);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* ws = reinterpret_cast<W*>(smem_raw);
+  W* hs = ws + (bf ? 3 * Up * ld : H * 3 * Up);
+  const int hbuf = kClusterRows * (bf ? ld : H);  // elements of one h buffer
+  float* part = reinterpret_cast<float*>(hs + 2 * hbuf);  // f32: [3][12][4 Up]
+  const int nt = 4 * Up, kq = threadIdx.x / nt, lt = threadIdx.x - kq * nt;
+  const bool owner = kq == 0;  // the group that applies the gates
+
+  // the CTA's W_hh slice (columns g H + rank U + u of every gate g), zeros
+  // past U; bf16 transposed (n-major, K contiguous) for the B fragments
+  const W* wd = a.w + (size_t)d * H * H3 + rank * U;
+  for (int i = threadIdx.x; i < H * 3 * Up; i += blockDim.x) {
+    const int k = i / (3 * Up), n = i % (3 * Up), g = n / Up, u = n % Up;
+    const W v = u < U ? wd[(size_t)k * H3 + g * H + u] : w2vb::from_f32<W>(0.f);
+    ws[bf ? n * ld + k : k * 3 * Up + n] = v;
+  }
+  // h_cd of the whole group from h0 into buffer 0 (zeros in the rows past B)
+  for (int i = threadIdx.x; i < kClusterRows * H; i += blockDim.x) {
+    const int row = i / H, k = i % H, b = b0 + row;
+    const float v = b < a.B ? a.h0[((size_t)d * a.B + b) * H + k] : 0.f;
+    hs[bf ? row * ld + k : k * kClusterRows + row] = w2vb::from_f32<W>(v);
+  }
+
+  int r0, r1, u0;
+  if constexpr (bf) {
+    const int warp = lt >> 5, lane = lt & 31;
+    r0 = lane >> 2;
+    r1 = r0 + 8;
+    u0 = 8 * warp + 2 * (lane & 3);
+  } else {
+    const int rho = lt / (Up / 2);
+    r0 = 2 * rho;
+    r1 = r0 + 1;
+    u0 = 2 * (lt % (Up / 2));
+  }
+  const bool live = owner && u0 < U;  // U is a multiple of 4: u0 + 1 < U too
+  const int gu = rank * U + u0;  // the global unit of u0
+  const int rows[2] = {r0, r1};
+  float hc[4], bias[3][2], gcur[3][4];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int ui = 0; ui < 2; ++ui) bias[g][ui] = live ? a.b_hh[(size_t)d * H3 + g * H + gu + ui] : 0.f;
+  auto load_gi = [&](int t, float (&dst)[3][4]) {
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int b = b0 + rows[ri];
+      const bool ok = live && b < a.B;
+      const float* p = a.gi + (((size_t)t * a.ND + d) * a.B + (ok ? b : 0)) * H3 + gu;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int ui = 0; ui < 2; ++ui) dst[g][2 * ri + ui] = ok ? p[g * H + ui] : 0.f;
+    }
+  };
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int b = b0 + rows[ri];
+#pragma unroll
+    for (int ui = 0; ui < 2; ++ui)
+      hc[2 * ri + ui] = live && b < a.B ? a.h0[((size_t)d * a.B + b) * H + gu + ui] : 0.f;
+  }
+  load_gi(0, gcur);
+  // h_cd of step t goes into buffer (t + 1) & 1 of every CTA of the cluster
+  uint32_t remote[kClusterMaxCtas];
+#pragma unroll
+  for (int q = 0; q < kClusterMaxCtas; ++q) remote[q] = cluster_addr(hs, q < cn ? q : 0);
+  cluster.sync();  // every CTA has started and holds its slice and h0
+
+  for (int t = 0; t < a.T; ++t) {
+    if (t > 0) cluster_wait();  // h_cd[t-1] is complete in this CTA's buffer t & 1
+    const W* hb = hs + (t & 1) * hbuf;
+    float acc[3][4];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    if constexpr (bf) {
+      // c = h_cd (16 x H) . W slice (H x 3 Up) on the tensor cores; the odd
+      // k16 steps sum into a second set of accumulators (two chains)
+      const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+      const __nv_bfloat16* ap0 = hb + gq * ld + 2 * tq;
+      const __nv_bfloat16* bp0 = ws + (size_t)(u0 - 2 * tq + gq) * ld + 2 * tq;
+      float acc2[3][4];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc2[g][e] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < H; k += 32) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kk = k + 16 * half;
+          uint32_t af[4];
+          const __nv_bfloat16* ap = ap0 + kk;
+          af[0] = w2vb::ld_pair(ap);
+          af[1] = w2vb::ld_pair(ap + 8 * ld);
+          af[2] = w2vb::ld_pair(ap + 8);
+          af[3] = w2vb::ld_pair(ap + 8 * ld + 8);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            const __nv_bfloat16* bp = bp0 + (size_t)g * Up * ld + kk;
+            const uint32_t bfr[2] = {w2vb::ld_pair(bp), w2vb::ld_pair(bp + 8)};
+            w2vb::mma_bf16(half ? acc2[g] : acc[g], af, bfr);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] += acc2[g][e];
+    } else {
+      // SIMT f32 FMAs (no TF32): per k one float2 of h (rows r0, r1) and
+      // one float2 of W per gate (units u0, u0 + 1), over K quarter kq
+      const float* hp = reinterpret_cast<const float*>(hb) + r0;
+      const float* wp = reinterpret_cast<const float*>(ws) + u0;
+      const int kn = H / kF32KSplit;
+#pragma unroll 4
+      for (int k = kq * kn; k < (kq + 1) * kn; ++k) {
+        const float2 hv = *reinterpret_cast<const float2*>(hp + k * kClusterRows);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float2 wv = *reinterpret_cast<const float2*>(wp + (size_t)k * 3 * Up + g * Up);
+          acc[g][0] = fmaf(hv.x, wv.x, acc[g][0]);
+          acc[g][1] = fmaf(hv.x, wv.y, acc[g][1]);
+          acc[g][2] = fmaf(hv.y, wv.x, acc[g][2]);
+          acc[g][3] = fmaf(hv.y, wv.y, acc[g][3]);
+        }
+      }
+      if (!owner) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[(((kq - 1) * 3 + g) * 4 + e) * nt + lt] = acc[g][e];
+      }
+      __syncthreads();
+      if (owner) {
+#pragma unroll
+        for (int q = 0; q < kF32KSplit - 1; ++q)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[g][e] += part[((q * 3 + g) * 4 + e) * nt + lt];
+      }
+    }
+    // the gates, b_hh added after the product; h carried in f32
+    float hn[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ui = e & 1;
+      const float gh_n = acc[2][e] + bias[2][ui];
+      const float rg = w2vb::sigmoidf(gcur[0][e] + (acc[0][e] + bias[0][ui]));
+      const float z = w2vb::sigmoidf(gcur[1][e] + (acc[1][e] + bias[1][ui]));
+      const float n = tanhf(gcur[2][e] + rg * gh_n);
+      hn[e] = (1.f - z) * n + z * hc[e];
+    }
+    if (t + 1 < a.T) {
+      // h_cd[t] of the thread's elements into every CTA's buffer (t + 1) & 1
+      if (live) {
+        const int nb = ((t + 1) & 1) * hbuf;
+        if constexpr (bf) {  // rows r0, r1: a pair of units each (bytes: 2 an element)
+          const uint32_t p0 = w2vb::pack_bf16(hn[0], hn[1]), p1 = w2vb::pack_bf16(hn[2], hn[3]);
+          const uint32_t o0 = 2 * (nb + r0 * ld + gu), o1 = 2 * (nb + r1 * ld + gu);
+#pragma unroll
+          for (int q = 0; q < kClusterMaxCtas; ++q) {
+            if (q >= cn) break;
+            st_cluster(remote[q] + o0, p0);
+            st_cluster(remote[q] + o1, p1);
+          }
+        } else {  // units u0, u0 + 1: a pair of rows each (bytes: 4 an element)
+          const uint32_t o0 = 4 * (nb + gu * kClusterRows + r0), o1 = o0 + 4 * kClusterRows;
+#pragma unroll
+          for (int q = 0; q < kClusterMaxCtas; ++q) {
+            if (q >= cn) break;
+            st_cluster(remote[q] + o0, hn[0], hn[2]);
+            st_cluster(remote[q] + o1, hn[1], hn[3]);
+          }
+        }
+      }
+      cluster_arrive();  // also frees `part` for the next step's partials
+    }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int b = b0 + rows[ri];
+      if (live && b < a.B) {
+        float* y = a.ys + (((size_t)t * a.ND + d) * a.B + b) * H + gu;
+        y[0] = hn[2 * ri];
+        y[1] = hn[2 * ri + 1];
+      }
+    }
+    // gi of the next step, in flight while the cluster waits and multiplies
+    if (t + 1 < a.T) load_gi(t + 1, gcur);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hc[e] = hn[e];
+  }
+}
+
+// The launch configuration of the cluster kernel with cn CTAs per cluster
+template <typename W>
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int cn, int B, int ND, int H, cudaStream_t s) {
+    const int up = round_up8(H / cn);
+    cfg.gridDim = dim3(cn, (B + kClusterRows - 1) / kClusterRows, ND);
+    cfg.blockDim = dim3(4 * up * k_split<W>());
+    cfg.dynamicSmemBytes = cluster_smem<W>(H, up);
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cn;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The cluster size the kernel takes at width H: 8 CTAs, else 4, where the
+// CTA's shared memory fits and the card can schedule one such cluster; 0 if
+// neither (a negative value: a CUDA error code)
+template <typename W>
+int cluster_size(int H) {
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  for (int cn = kClusterMaxCtas; cn >= 4; cn /= 2) {
+    if (H % (4 * cn)) continue;  // U = H / cn a multiple of 4
+    ClusterLaunch<W> l(cn, 1, 1, H, nullptr);
+    if (l.cfg.dynamicSmemBytes > (size_t)smem_max || l.cfg.blockDim.x > (unsigned)cluster_max_threads<W>()) continue;
+    e = w2vb::allow_smem(gru_fwd_cluster_kernel<W>, l.cfg.dynamicSmemBytes);
+    int n = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, gru_fwd_cluster_kernel<W>, &l.cfg);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    if (n > 0) return cn;
+  }
+  return 0;
+}
+
+template <typename W>
+int launch_cluster(const ClusterArgs<W>& base, int cn, cudaStream_t s) {
+  if (cn < 1 || cn > kClusterMaxCtas || base.H % (4 * cn)) return static_cast<int>(cudaErrorInvalidValue);
+  ClusterLaunch<W> l(cn, base.B, base.ND, base.H, s);
+  ClusterArgs<W> a = base;
+  a.U = base.H / cn;
+  a.Up = round_up8(a.U);
+  cudaError_t e = w2vb::allow_smem(gru_fwd_cluster_kernel<W>, l.cfg.dynamicSmemBytes);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&l.cfg, gru_fwd_cluster_kernel<W>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((B + kBatch - 1) / kBatch, ND);
-  // one thread per hidden unit up to 512 threads (70-80 registers a thread
-  // rule out 1024); larger H loops over units i, i + 512, ...
-  const int threads = H < 512 ? ((H + 31) / 32) * 32 : 512;
-  gru_fwd_kernel<W><<<grid, threads, smem, s>>>(gi, static_cast<const W*>(w_hh), b_hh, h0, ys, T,
-                                                ND, B, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -744,13 +999,27 @@ int launch_dir_fwd(const DirFwdArgs<W>& a, cudaStream_t s) {
 
 }  // namespace
 
-// w_bf16: W_hh is bf16 (compute dtype bfloat16) rather than f32.
-extern "C" int w2vb_gru_fwd(const float* gi, const void* w_hh, int w_bf16, const float* b_hh,
-                            const float* h0, float* ys, int T, int ND, int B, int H,
-                            void* stream) {
+// The fused forward's cluster size at width H (w_bf16: compute dtype
+// bfloat16): 8 or 4 CTAs, 0 if no cluster of the kernel fits the card; a
+// negative value is a CUDA error code.
+extern "C" int w2vb_gru_fwd_cluster_size(int H, int w_bf16) {
+  return w_bf16 ? cluster_size<__nv_bfloat16>(H) : cluster_size<float>(H);
+}
+
+// Fused forward, one cluster-resident launch for all T steps (ys; ClusterArgs
+// above for the layouts); w_hh (ND, H, 3H) in the compute dtype (w_bf16);
+// cn from w2vb_gru_fwd_cluster_size; H a multiple of 4 cn.
+extern "C" int w2vb_gru_fwd_cluster(const float* gi, const void* w_hh, int w_bf16, const float* b_hh,
+                                    const float* h0, float* ys, int T, int ND, int B, int H, int cn,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_bf16) return launch<__nv_bfloat16>(gi, w_hh, b_hh, h0, ys, T, ND, B, H, s);
-  return launch<float>(gi, w_hh, b_hh, h0, ys, T, ND, B, H, s);
+  if (w_bf16) {
+    using W = __nv_bfloat16;
+    return launch_cluster(ClusterArgs<W>{gi, static_cast<const W*>(w_hh), b_hh, h0, ys, T, ND, B, H, 0, 0},
+                          cn, s);
+  }
+  return launch_cluster(ClusterArgs<float>{gi, static_cast<const float*>(w_hh), b_hh, h0, ys, T, ND, B, H, 0, 0},
+                        cn, s);
 }
 
 // Backward of both entries (DirArgs above for the layouts): dgi and dh0, and

@@ -100,18 +100,14 @@ def _fwd_kernel(y, w, compute_dtype):
     return z
 
 
-# frames a backward block holds in shared memory (csrc/conv_glu.cu): the
-# whole sequence plus the halos, two f32 tiles of 64 channels
-_BWD_MAX_ROWS = (227 * 1024) // (2 * 64 * 4) - 64
-
-
 def _bwd_kernel(y, w, dz, compute_dtype):
+    """The backward kernel, any T (time in chunks): (dy (B, T, 2C) in y's
+    dtype, dK partials (B, ks, C) f32, per sample, each summed in a fixed
+    order)."""
     _check("glu_dwconv backward", y, w, compute_dtype)
     b, t, c2 = y.shape
     c = c2 // 2
     ks = w.shape[0]
-    if t + ks - 1 > _BWD_MAX_ROWS:
-        raise ValueError(f"glu_dwconv backward: T={t} does not fit the kernel's shared memory")
     wf = w.float().contiguous()
     dz = dz.contiguous()
     kernels.require_cuda("glu_dwconv backward", y, wf, dz)

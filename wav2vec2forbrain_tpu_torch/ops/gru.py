@@ -12,9 +12,14 @@ Backward (the Pallas `_bwd_kernel`): reverse-time BPTT from the saved ys,
     dW_hh = sum_t hprev_cd^T @ dgh_cd;  db_hh = sum_t sum_b dgh;  dh0 = dh_carry
 The kernels are in csrc/gru.cu. `gru_recurrence` (the fused entry) takes a
 hidden size H that is a multiple of 32, as the JAX package's fused kernel
-needs lane-aligned gates; its forward (one block per direction and 4 batch
-rows for all steps) takes H <= 3584, its backward H <= 480 (the widths
-models/gru.py routes to it).
+needs lane-aligned gates. Its forward takes H <= 3584 by a shape rule
+(`_fwd_route`): where a CTA's slice of W_hh fits its shared memory (bf16 H
+<= 480, f32 H <= 320), one cluster-resident launch for all steps (a cluster
+of 8 CTAs per direction and 16 batch rows, each holding its slice of W_hh
+and exchanging h through distributed shared memory; counted as "gru"),
+wider layers the per-direction step kernel (`_dir_fwd_kernel`, counted as
+"gru_dir"), which computes the same numbers. Its backward takes H <= 480
+(the widths models/gru.py routes to it).
 
 `gru_recurrence_dir` is the counterpart of the JAX package's per-direction
 variant (::gru_recurrence_dir, which it runs for H = 512 / 1024). Its
@@ -36,15 +41,19 @@ function. LAUNCHES["gru_bwd"], ["gru_dir"] and ["gru_dir_bwd"] count entry
 calls that launched the kernels, not their per-step launches.
 """
 
+import functools
+
 import torch
 
 from wav2vec2forbrain_tpu_torch.ops import kernels
 
-# the fused forward kernel's widest H (shared memory 4 x 4 batch rows x H
-# f32 at 227 KB); models/gru.py routes per direction up to it
+# the widest H that the fused forward takes and that models/gru.py routes
+# per direction
 DIR_MAX_HIDDEN = 3584
 _DIR_BATCH_PAD, _DIR_HIDDEN_PAD = 32, 64  # the step kernels: Bp, Hp are multiples of these
 _ROW_PAD = 64  # the fused dW product: its T x Bp rows padded to a multiple of this
+_CLUSTER_CTAS, _CLUSTER_ROWS = 8, 16  # the cluster forward: CTAs per cluster, batch rows per cluster
+_SMEM_MAX = 232448  # the most shared memory an H100 block may opt in to (227 KB)
 # the fused backward's widest H: the widths models/gru.py routes to the fused
 # entry (H < 512), which is also the JAX fused kernel's reach (both
 # directions' weights in VMEM); gru_recurrence_dir takes wider layers
@@ -151,14 +160,49 @@ def _check(gi, w_hh, b_hh, h0, compute_dtype, multiple_of_32=True):
     return t, nd, b, h
 
 
+def _cluster_smem(h, compute_dtype):
+    """Shared memory (bytes) of one CTA of the cluster forward at width h
+    (csrc/gru.cu::cluster_smem): its W_hh slice and two h buffers of 16 rows
+    (bf16 rows padded by 8 elements); at f32 also the partial products of
+    three of its four K groups (12 values for each of 4 Up threads)."""
+    up = _round_up(h // _CLUSTER_CTAS, 8)
+    if compute_dtype == torch.bfloat16:
+        return (3 * up + 2 * _CLUSTER_ROWS) * (h + 8) * 2
+    return (3 * up + 2 * _CLUSTER_ROWS) * h * 4 + 3 * 12 * 4 * up * 4
+
+
+def _fwd_route(h, compute_dtype):
+    """The fused forward's kernel at width h (a multiple of 32): "cluster"
+    where a CTA of an 8-CTA cluster holds its W_hh slice (bf16 h <= 480, f32
+    h <= 320), else "steps" (the per-direction step kernel)."""
+    return "cluster" if _cluster_smem(h, compute_dtype) <= _SMEM_MAX else "steps"
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_size(h, bf16, device_index):
+    """The cluster size the card schedules for width h (8, else 4); raises
+    where none fits. Asked once per shape and card."""
+    with torch.cuda.device(device_index):
+        cn = kernels.lib().w2vb_gru_fwd_cluster_size(h, int(bf16))
+    if cn < 0:
+        kernels.check("gru", -cn)
+    if cn == 0:
+        raise RuntimeError(f"gru_recurrence: no cluster of the forward kernel fits the card at H={h}")
+    return cn
+
+
 def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, per_direction=False):
     """The forward kernel of the fused entry, or with per_direction that of
-    gru_recurrence_dir (the numbers are the same)."""
+    gru_recurrence_dir (the numbers are the same). The fused entry takes
+    the cluster kernel or, at widths where its W_hh slices do not fit, the
+    per-direction one (`_fwd_route`)."""
     if per_direction:
         return _dir_fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype)
     t, nd, b, h = _check(gi, w_hh, b_hh, h0, compute_dtype)
     if h > DIR_MAX_HIDDEN:
         raise ValueError(f"gru_recurrence: hidden size {h} > {DIR_MAX_HIDDEN} does not fit the kernel")
+    if _fwd_route(h, compute_dtype) == "steps":
+        return _dir_fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype)
     w = w_hh.to(compute_dtype).contiguous()
     bias = b_hh.reshape(nd, 3 * h).float().contiguous()
     gi, h0 = gi.contiguous(), h0.contiguous()
@@ -166,11 +210,13 @@ def _fwd_kernel(gi, w_hh, b_hh, h0, compute_dtype, per_direction=False):
     ys = torch.empty((t, nd, b, h), dtype=torch.float32, device=gi.device)
     if t == 0:
         return ys
+    bf16 = compute_dtype == torch.bfloat16
+    cn = _cluster_size(h, bf16, gi.device.index)
     lib = kernels.lib()
     with torch.cuda.device(gi.device):
-        code = lib.w2vb_gru_fwd(
-            gi.data_ptr(), w.data_ptr(), int(compute_dtype == torch.bfloat16), bias.data_ptr(),
-            h0.data_ptr(), ys.data_ptr(), t, nd, b, h, kernels.stream_of(gi),
+        code = lib.w2vb_gru_fwd_cluster(
+            gi.data_ptr(), w.data_ptr(), int(bf16), bias.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            t, nd, b, h, cn, kernels.stream_of(gi),
         )
     kernels.check("gru", code)
     kernels.LAUNCHES["gru"] += 1

@@ -52,8 +52,10 @@ _SIGNATURES = {
     # x, w, w_t, bias, day_idxs, taps, g, dz, dy, dx, dw, db,
     # B, T, C, n_taps, n_days, k, stride, t_out, stream
     "w2vb_preproc_bwd": [_vp] * 12 + [_i] * 8 + [_vp],
-    # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, stream
-    "w2vb_gru_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, cluster size, stream
+    "w2vb_gru_fwd_cluster": [_vp, _vp, _i, _vp, _vp, _vp] + [_i] * 5 + [_vp],
+    # H, w_bf16 -> the fused forward's cluster size (0: none fits)
+    "w2vb_gru_fwd_cluster_size": [_i] * 2,
     # gi, w, w_bf16, b_hh, h0, ys, g, hpc, hpct, dghc, dghct, dbp, dhz, gh, dgi, dgh, dw, db, dh0,
     # T, ND, B, H, Bp, Hp, Rp, stream
     "w2vb_gru_bwd": [_vp, _vp, _i] + [_vp] * 16 + [_i] * 7 + [_vp],
