@@ -11,7 +11,8 @@ Phases, each of which exits nonzero on failure:
   2. kernels: each hand-written kernel, forward and backward, against its
      plain PyTorch version on the card at both main paths' shapes, at f32
      and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
-     B=64 (wav2vec2-base sweep, sigma 1.5); the GRU at H=256 through the
+     B=64 (wav2vec2-base sweep, sigma 1.5), each backward followed by its
+     per-launch split; the GRU at H=256 through the
      fused entry (its forward one cluster-resident launch) with B=32 for the
      conformer and B=64 for the sweep grid's H=256 points, and, through its
      per-direction entry (one launch per step), at H=512 and 1024 with B=64
@@ -118,7 +119,7 @@ LN_EPS = 1e-5
 # the bound's rates (NVIDIA's data sheet for the H100 SXM, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 # f32 outside the tensor cores; bf16 tensor cores; f32 products on the TF32 tensor cores (495 TFLOP/s) as
-# three TF32 products each (the split-TF32 attention kernels at f32 compute)
+# three TF32 products each (the split-TF32 attention kernels at f32 compute, the preproc affine products)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 _PALLAS = "wav2vec2forbrain_tpu/ops/"
 REPLACES = {
@@ -414,14 +415,16 @@ def kernel_phases(dev, results):
         taps = gaussian_kernel(20, sigma, dev)
         affine, smooth = 2 * x.numel() * 256, 2 * x.numel() * taps.numel()
         label = f"B{batch} T384 sigma{sigma} f32"
+        # the affine products at the rate the card does them at the f32 tolerance (split TF32)
         compare("preproc", label, lambda: preproc._fwd_kernel(x, w, b, days, taps, 32, 4),
                 lambda: preproc.fused_preproc_plain(x, w, b, days, taps), f32_tol("preproc"), results,
-                (x, w, b, days, taps), [(affine + smooth, "float32")])
+                (x, w, b, days, taps), [(affine, "tf32x3"), (smooth, "float32")])
         gp = 0.1 * torch.randn((batch, 89, 8192), generator=gen, device=dev)
         # dx through W^T and the per-sample dW: two affine-sized products; the smoothing and its adjoint
         compare("preproc_bwd", label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                 lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
-                results, (x, w, b, days, taps, gp), [(2 * affine + 2 * smooth, "float32")])
+                results, (x, w, b, days, taps, gp), [(2 * affine, "tf32x3"), (2 * smooth, "float32")])
+        kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4))
 
     def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None):
         """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,

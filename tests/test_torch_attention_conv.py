@@ -216,19 +216,34 @@ def test_split_tf32_attention_at_large_logits_is_f32_class(rate):
     assert all(s <= 2.0 * p for s, p in zip(split, plain)), (split, plain)
 
 
+@pytest.mark.parametrize("t", [1, 17, 97])
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-def test_conv_glu_matches_jax_pallas_interpret(cd):
+def test_conv_glu_matches_jax_pallas_interpret(cd, t):
+    """One frame (every tap but the centre reads padding), 17, and 97 (past
+    one of the forward kernel's 96-frame chunks)."""
     import jax.numpy as jnp
 
     from wav2vec2forbrain_tpu.ops.pallas_conv_glu import glu_dwconv as jax_glu_dwconv
 
     rng = np.random.default_rng(2)
-    y = rng.standard_normal((B, T, 2 * C)).astype(np.float32)
+    y = rng.standard_normal((B, t, 2 * C)).astype(np.float32)
     w = rng.uniform(-0.3, 0.3, (KS, C)).astype(np.float32)
     ref = np.asarray(jax_glu_dwconv(jnp.asarray(y), jnp.asarray(w), jnp.dtype(cd)))
     got = port_conv.glu_dwconv(torch.from_numpy(y), torch.from_numpy(w), getattr(torch, cd)).numpy()
     # bf16: the output is rounded through bf16 in both; one bf16 ulp of |z| <= 4
     np.testing.assert_allclose(got, ref, atol=1e-5 if cd == "float32" else 2.0**-6, rtol=0)
+
+
+@pytest.mark.parametrize("t", [1, 89, 400, 700])
+def test_conv_glu_fwd_wrapper_takes_any_sequence_length(t):
+    """The forward kernel takes time in 96-frame chunks, so its wrapper has
+    no length rule: it gets past every shape check and refuses only
+    operands off the card."""
+    y = torch.empty((2, t, 2048), device="meta")
+    w = torch.empty((31, 1024), device="meta")
+    for cd in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            port_conv._fwd_kernel(y, w, cd)
 
 
 @pytest.mark.parametrize("t", [1, 89, 400, 700])
@@ -395,6 +410,41 @@ def test_cuda_attention_tf32x3_at_large_logits_is_f32_class(rate):
     assert all(e <= 2.0 * p for e, p in zip(got, plain)), (got, plain)
 
 
+def tf32x3_digests(dev):
+    """sha256 (first 16 hex digits) of the split-TF32 attention kernels'
+    outputs at f32 compute, o then dq, dk and dv, on inputs made from numpy
+    seed 31: 16 heads of 64 at T' 89 and 400 (key tiles streamed), rate 0.1,
+    and 4 heads of 100 (columns padded to 128) at T' 89, rate 0."""
+    import hashlib
+
+    rng = np.random.default_rng(31)
+    digests = {}
+    for name, t, heads, d, rate in (("T89_16x64_p0.1", 89, 16, 64, 0.1), ("T400_16x64_p0.1", 400, 16, 64, 0.1),
+                                    ("T89_4x100_p0", 89, 4, 100, 0.0)):
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((2, t, heads * d)).astype(np.float32)).to(dev)
+                      for _ in range(4))
+        args = (heads, d**-0.5, rate, torch.float32, 13)
+        h = hashlib.sha256()
+        for out in (port_attn._fwd_kernel(q, k, v, *args), *port_attn._bwd_kernel(q, k, v, g, *args)):
+            h.update(out.cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()[:16]
+    return digests
+
+
+# tf32x3_digests of the kernels as they were before their split-TF32 helpers
+# (tf32_rna, split_tf32, mma_tf32) moved into common.cuh for preproc.cu to
+# share, recorded on an NVIDIA H100 80GB HBM3 (CUDA 12.8)
+TF32X3_DIGESTS = {"T89_16x64_p0.1": "eb45fe4938d6edb3", "T400_16x64_p0.1": "02aee868b2cb54e7",
+                  "T89_4x100_p0": "100be79a7f686025"}
+
+
+@pytest.mark.cuda
+def test_cuda_attention_tf32x3_outputs_are_bitwise_unchanged():
+    """The split-TF32 forward and backward give the same bits as before their
+    helpers moved into common.cuh."""
+    assert tf32x3_digests(_cuda()) == TF32X3_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
 def test_cuda_attention_simt_fwd_takes_wide_heads(rate):
@@ -421,3 +471,41 @@ def test_cuda_conv_glu_kernel_matches_plain(sd, cd):
     ref = port_conv.glu_dwconv_plain(y, w, cd)
     atol = 1e-5 if sd == cd == torch.float32 else 2.0**-6 * max(1.0, ref.float().abs().max().item())
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def _conv_fwd_inputs(dev, seed, t, c, ks, sd):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((4, t, 2 * c), generator=gen, device=dev).to(sd)
+    w = torch.rand((ks, c), generator=gen, device=dev) * 0.6 - 0.3
+    return y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 15, 31, 89, 96, 97, 169, 400, 700])
+@pytest.mark.parametrize("c", [100, 1024])
+@pytest.mark.parametrize("ks", [31, 3])
+@pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
+def test_cuda_conv_glu_fwd_matches_plain(t, c, ks, sd, cd):
+    """The forward kernel against its plain version at lengths within one
+    96-frame chunk (1, 15, 31, 89, 96), one past it (97), several chunks
+    with a ragged last one (169, 400, 700), a channel count off the 16-byte
+    grid and the 32-channel tile (100), and a short kernel (3 taps)."""
+    dev = _cuda()
+    y, w = _conv_fwd_inputs(dev, 1, t, c, ks, sd)
+    out = port_conv._fwd_kernel(y, w, cd)
+    ref = port_conv.glu_dwconv_plain(y, w, cd)
+    assert out.dtype == sd
+    atol = 1e-5 if sd == cd == torch.float32 else _bf16_tol(ref)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
+def test_cuda_conv_glu_fwd_is_deterministic(sd, cd):
+    """Two runs of the forward on the same inputs are bitwise equal (the
+    conformer's C 1024, several chunks)."""
+    dev = _cuda()
+    y, w = _conv_fwd_inputs(dev, 2, 169, 1024, 31, sd)
+    assert torch.equal(port_conv._fwd_kernel(y, w, cd), port_conv._fwd_kernel(y, w, cd))

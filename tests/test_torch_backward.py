@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_attention_conv import _mm1, _mm3
 from wav2vec2forbrain_tpu_torch.models.preprocessing import gaussian_kernel
 from wav2vec2forbrain_tpu_torch.ops import attention as port_attn
 from wav2vec2forbrain_tpu_torch.ops import conv_glu as port_conv
@@ -136,19 +137,22 @@ def _preproc_inputs(seed, b=2, t=96):
     return x, w, bias, days
 
 
-def test_preproc_bwd_plain_and_function_match_jax_vjp():
-    """Two samples share a day, so the day-table sum (index_add_) is exercised."""
+@pytest.mark.parametrize("sigma,t", [(0.3, 96), (1.5, 99), (0.3, 32)], ids=["s0.3_T96", "s1.5_T99", "s0.3_T32"])
+def test_preproc_bwd_plain_and_function_match_jax_vjp(sigma, t):
+    """Two samples share a day, so the day-table sum (index_add_) is
+    exercised; T 96, a ragged T 99 (T - 32 not a multiple of the stride 4)
+    and T 32 (one window), at both smoothing widths the models use."""
     import jax
     import jax.numpy as jnp
 
     from wav2vec2forbrain_tpu.ops.pallas_preproc import fused_preproc as jax_pre
 
-    x, w, bias, days = _preproc_inputs(5, b=3)
-    feats, vjp = jax.vjp(lambda x, w, b: jax_pre(x, w, b, jnp.asarray(days), 0.3),
+    x, w, bias, days = _preproc_inputs(5, b=3, t=t)
+    feats, vjp = jax.vjp(lambda x, w, b: jax_pre(x, w, b, jnp.asarray(days), sigma),
                          *(jnp.asarray(a) for a in (x, w, bias)))
     g = (0.1 * np.random.default_rng(6).standard_normal(feats.shape)).astype(np.float32)
     dx_ref, dw_ref, db_ref = vjp(jnp.asarray(g))
-    taps = gaussian_kernel(20, 0.3)
+    taps = gaussian_kernel(20, sigma)
     dx, dw_b, db_b = port_pre.fused_preproc_bwd_plain(*_t(x, w, bias, days), taps, torch.from_numpy(g))
     assert dw_b.shape == (3, 256, 256) and db_b.shape == (3, 1, 256)
     assert _maxdiff(dx.numpy(), dx_ref) <= 2e-5
@@ -158,6 +162,71 @@ def test_preproc_bwd_plain_and_function_match_jax_vjp():
     port_pre.fused_preproc(args[0], args[1], args[2], torch.from_numpy(days), taps).backward(torch.from_numpy(g))
     for a, r in zip(args, (dx_ref, dw_ref, db_ref)):
         assert _maxdiff(a.grad.numpy(), r) <= 2e-5
+
+
+@pytest.mark.parametrize("t,kernel_len,stride", [(32, 32, 4), (99, 32, 4), (384, 32, 4), (99, 20, 3)])
+def test_preproc_bwd_wrapper_takes_any_length(t, kernel_len, stride):
+    """The backward kernels take any T >= kernel_len and any window: the
+    wrapper gets past its shape checks and refuses only operands off the
+    card; it refuses more smoothing taps than the kernel holds (32)."""
+    x = torch.empty((2, t, 256), device="meta")
+    w, bias = torch.empty((24, 256, 256), device="meta"), torch.empty((24, 1, 256), device="meta")
+    days = torch.empty((2,), dtype=torch.int32, device="meta")
+    g = torch.empty((2, (t - kernel_len) // stride + 1, 256 * kernel_len), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_pre._bwd_kernel(x, w, bias, days, torch.empty((20,), device="meta"), g, kernel_len, stride)
+    with pytest.raises(ValueError, match="smoothing taps"):
+        port_pre._bwd_kernel(x, w, bias, days, torch.empty((33,), device="meta"), g, kernel_len, stride)
+
+
+def _preproc_bwd_with(mm, x, w, bias, days, taps, g, kernel_len=32, stride=4):
+    """fused_preproc_bwd_plain with its three 256-wide products (pre, dW and
+    dy) formed by mm, as the backward kernel forms them on the card."""
+    b, t, c = x.shape
+    t_out = (t - kernel_len) // stride + 1
+    d = days.long()
+    y = port_pre.gaussian_smooth(x, taps)
+    wd = w[d]
+    pre = mm(y, wd) + bias[d]
+    g4 = g.reshape(b, t_out, c, kernel_len)
+    dz = torch.zeros((b, t, c), dtype=torch.float32)
+    for j in range(kernel_len):
+        dz[:, j : j + (t_out - 1) * stride + 1 : stride] += g4[..., j]
+    den = 1.0 + torch.abs(pre)
+    dz = dz / (den * den)
+    dy = mm(dz, wd.transpose(1, 2))
+    k = taps.shape[0]
+    yp = torch.nn.functional.pad(dy, (0, 0, k // 2, (k - 1) // 2))
+    dx = sum(taps[k - 1 - i] * yp[:, i : i + t] for i in range(k))
+    return dx, mm(y.transpose(1, 2), dz), torch.sum(dz, dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("sigma,t", [(0.3, 96), (1.5, 99)], ids=["s0.3_T96", "s1.5_T99"])
+def test_split_tf32_preproc_bwd_holds_the_f32_tolerance(sigma, t):
+    """The split-TF32 products of the backward kernel (emulated on the CPU:
+    TF32 rounding on the int32 view, three products of TF32 parts, the small
+    ones first) keep the preproc backward within 2e-5 of the JAX package's
+    VJP, the tolerance the plain version is held to; one TF32 pass does not."""
+    import jax
+    import jax.numpy as jnp
+
+    from wav2vec2forbrain_tpu.ops.pallas_preproc import fused_preproc as jax_pre
+
+    x, w, bias, days = _preproc_inputs(9, b=3, t=t)
+    feats, vjp = jax.vjp(lambda x, w, b: jax_pre(x, w, b, jnp.asarray(days), sigma),
+                         *(jnp.asarray(a) for a in (x, w, bias)))
+    g = (0.1 * np.random.default_rng(10).standard_normal(feats.shape)).astype(np.float32)
+    dx_ref, dw_ref, db_ref = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    taps = gaussian_kernel(20, sigma)
+
+    def errors(mm):
+        dx, dw_b, db_b = _preproc_bwd_with(mm, *_t(x, w, bias, days), taps, torch.from_numpy(g))
+        return [_maxdiff(dx.numpy(), dx_ref), _maxdiff((dw_b[0] + dw_b[1]).numpy(), dw_ref[3]),
+                _maxdiff(dw_b[2].numpy(), dw_ref[17]), _maxdiff(db_b[2].numpy(), db_ref[17])]
+
+    split = errors(_mm3)
+    assert all(e <= 2e-5 for e in split), split
+    assert any(e > 2e-5 for e in errors(_mm1))
 
 
 # --- on the card -------------------------------------------------------------------
@@ -405,17 +474,63 @@ def test_cuda_gru_fused_and_dir_bwd_agree_at_f32():
         torch.testing.assert_close(a, r, atol=2e-5 * max(1.0, r.abs().max().item()), rtol=0)
 
 
+def _cuda_preproc_inputs(dev, seed, b, t):
+    """x, W, bias, taps-free inputs of the preproc backward on the card, with
+    days that repeat (0, 7, 23, 7, 0, 7, ...) and g scaled by 0.1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t, 256), generator=gen, device=dev)
+    w = torch.eye(256, device=dev)[None] + 0.05 * torch.randn((24, 256, 256), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((24, 1, 256), generator=gen, device=dev)
+    days = torch.tensor([0, 7, 23, 7], dtype=torch.int32, device=dev).repeat((b + 3) // 4)[:b]
+    return x, w, bias, days, gen
+
+
 @pytest.mark.cuda
-def test_cuda_preproc_bwd_matches_plain():
+@pytest.mark.parametrize("b,t", [(1, 32), (3, 99), (4, 384), (64, 384)], ids=["B1_T32", "B3_T99", "B4_T384", "B64_T384"])
+@pytest.mark.parametrize("sigma", [0.3, 1.5])
+def test_cuda_preproc_bwd_matches_plain(b, t, sigma):
+    """The backward kernels (split-TF32 products, the vector gather of
+    kernel_len 32 and stride 4) against the plain version: one window (T
+    32), a ragged T 99 over two row tiles, the main paths' T 384, and the
+    w2v batch of 64."""
     dev = _cuda()
-    x, w, bias, days = (torch.from_numpy(a).to(dev) for a in _preproc_inputs(7, b=4, t=384))
-    days = torch.tensor([0, 7, 23, 7], dtype=torch.int32, device=dev)
-    taps = gaussian_kernel(20, 0.3, dev)
-    g = 0.1 * torch.randn((4, 89, 8192), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    x, w, bias, days, gen = _cuda_preproc_inputs(dev, 7, b, t)
+    taps = gaussian_kernel(20, sigma, dev)
+    g = 0.1 * torch.randn((b, (t - 32) // 4 + 1, 8192), generator=gen, device=dev)
     got = port_pre._bwd_kernel(x, w, bias, days, taps, g, 32, 4)
     want = port_pre.fused_preproc_bwd_plain(x, w, bias, days, taps, g)
     for a, r in zip(got, want):
         torch.testing.assert_close(a, r, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_len,stride", [(16, 4), (32, 2), (20, 3)])
+def test_cuda_preproc_bwd_takes_other_windows(kernel_len, stride):
+    """Windows other than (32, 4) take the kernel's scalar gather; the
+    products and dx are the main path's."""
+    dev = _cuda()
+    x, w, bias, days, gen = _cuda_preproc_inputs(dev, 8, 3, 99)
+    taps = gaussian_kernel(20, 0.3, dev)
+    t_out = (99 - kernel_len) // stride + 1
+    g = 0.1 * torch.randn((3, t_out, 256 * kernel_len), generator=gen, device=dev)
+    got = port_pre._bwd_kernel(x, w, bias, days, taps, g, kernel_len, stride)
+    want = port_pre.fused_preproc_bwd_plain(x, w, bias, days, taps, g, kernel_len, stride)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_preproc_bwd_is_deterministic():
+    """No atomics: two runs of the backward on the same inputs give bitwise
+    equal dx, dW and db partials (B 8, T 384)."""
+    dev = _cuda()
+    x, w, bias, days, gen = _cuda_preproc_inputs(dev, 9, 8, 384)
+    taps = gaussian_kernel(20, 1.5, dev)
+    g = 0.1 * torch.randn((8, 89, 8192), generator=gen, device=dev)
+    first = port_pre._bwd_kernel(x, w, bias, days, taps, g, 32, 4)
+    second = port_pre._bwd_kernel(x, w, bias, days, taps, g, 32, 4)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.cuda

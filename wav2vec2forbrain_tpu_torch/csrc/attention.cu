@@ -242,17 +242,9 @@ using w2vb::ld_pair;
 using w2vb::mma_bf16;
 using w2vb::pack_bf16;
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
-// zero): half an ulp of TF32 added to the magnitude bits, the 13 bits below
-// it cleared. Two integer operations at the full ALU rate; the cvt issues
-// at a fraction of it (the kernels split by cvt were slower: PERF.md).
-__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x = big + small + (a remainder ~2^-22 of x), both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
+// the split-TF32 helpers, shared with preproc.cu's backward (common.cuh)
+using w2vb::mma_tf32;
+using w2vb::split_tf32;
 
 // rows [r0, r0 + kRows) of one head into a bf16 tile [kRows][DP + 8],
 // rounded to nearest even; rows at or past Tn and columns at or past D are
@@ -445,16 +437,6 @@ struct MmaBf16 {
     }
   }
 };
-
-// c (a 16 x 8 f32 tile's fragment) += a (16 x 8) . b (8 x 8), TF32 inputs
-// (mma.sync.m16n8k8)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // The product of f32 compute: three mma.sync.m16n8k8 TF32 products of split
 // operands (header note). A fragment: a0 (g, t), a1 (g + 8, t), a2 (g, t +

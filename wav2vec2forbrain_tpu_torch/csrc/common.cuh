@@ -58,6 +58,48 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
+// zero): half an ulp of TF32 added to the magnitude bits, the 13 bits below
+// it cleared. Two integer operations at the full ALU rate; the cvt issues
+// at a fraction of it (the kernels split by cvt were slower: PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = big + small + (a remainder ~2^-22 of x), both TF32: the operand split
+// of the split-TF32 ("3xTF32") products, which keep ~22 bits of each
+// product where one TF32 pass keeps 11
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c (a 16 x 8 f32 tile's fragment) += a (16 x 8) . b (8 x 8), TF32 inputs
+// (mma.sync.m16n8k8). A fragment: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B fragment: b0 (k = t, n = g), b1 (k = t + 4, n = g);
+// lane = 4 g + t.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async, L2 only); zfill: the bytes past src_bytes (0 or 16) are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;

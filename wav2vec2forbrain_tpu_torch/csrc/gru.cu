@@ -500,15 +500,9 @@ struct DirArgs {
   int T, ND, B, H, Bp, Hp, Rp;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using w2vb::cp_async16;
+using w2vb::cp_async_commit;
+using w2vb::cp_async_wait;
 
 using w2vb::ld_pair;
 using w2vb::mma_bf16;

@@ -12,7 +12,10 @@ Backward (the Pallas `_bwd_kernel`), for dz (B, T, C):
     dg[s] = sum_k w_cd[k] * dz[s + left - k]   the flipped taps
     da = dg * sig;  dgate = dg * a * sig * (1 - sig)   f32, emitted in y's dtype
 and dw = sum over the batch of the dK partials, outside the kernel as in
-the JAX package. The kernels are in csrc/conv_glu.cu.
+the JAX package. The kernels are in csrc/conv_glu.cu: both take any T, in
+96-frame chunks staged once a block (32 channels, one sample), and slide
+16-value register windows over the taps; every output is summed by one
+thread in a fixed order.
 """
 
 import torch
@@ -79,6 +82,7 @@ def _check(name, y, w, compute_dtype):
 
 
 def _fwd_kernel(y, w, compute_dtype):
+    """The forward kernel, any T (time in chunks): z (B, T, C) in y's dtype."""
     _check("glu_dwconv", y, w, compute_dtype)
     b, t, c2 = y.shape
     c = c2 // 2

@@ -49,7 +49,7 @@ _f = ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, day_idxs, taps, z, out, B, T, C, n_taps, n_days, k, stride, t_out, stream
     "w2vb_preproc_fwd": [_vp] * 7 + [_i] * 8 + [_vp],
-    # x, w, w_t, bias, day_idxs, taps, g, dz, dy, dx, dw, db,
+    # x, w, bias, day_idxs, taps, g, ys, dz, dy, dx, dw, db,
     # B, T, C, n_taps, n_days, k, stride, t_out, stream
     "w2vb_preproc_bwd": [_vp] * 12 + [_i] * 8 + [_vp],
     # gi, w_hh, w_bf16, b_hh, h0, ys, T, ND, B, H, cluster size, stream

@@ -11,8 +11,12 @@ g (B, T', 256 * k):
     dx = smooth with the reversed taps of (dz @ W[day]^T)
 and the per-sample dW/db are summed into the day tables outside the kernel
 (index_add_, the JAX package's segment_sum). The kernels are in
-csrc/preproc.cu; see its header for the design. On a CPU tensor the wrapper
-runs the plain versions; on a CUDA tensor it launches the kernels or raises.
+csrc/preproc.cu; see its header for the design: the backward is three
+launches (the d unfold streamed from g; the smoothing, pre, dz and dy; dW,
+db and dx) whose 256-wide products run as split-TF32 tensor-core products,
+and it takes its (B, T, 256) scratch (y, dz, dy) from the wrapper. On a CPU
+tensor the wrapper runs the plain versions; on a CUDA tensor it launches
+the kernels or raises.
 """
 
 from typing import Tuple
@@ -28,6 +32,8 @@ from wav2vec2forbrain_tpu_torch.models.preprocessing import (
     unfold_time,
 )
 from wav2vec2forbrain_tpu_torch.ops import kernels
+
+MAX_TAPS = 32  # smoothing taps the backward kernel takes (the models use 20)
 
 
 def fused_preproc_plain(x, day_weights, day_bias, day_idxs, taps, kernel_len=32, stride=4):
@@ -100,25 +106,34 @@ def _fwd_kernel(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
     return out
 
 
+def _aligned(t):
+    """t, or a copy of it where its data does not start on a 16-byte boundary
+    (the backward stages W and g with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _bwd_kernel(x, day_weights, day_bias, day_idxs, taps, g, kernel_len, stride):
     b, t, c, n_days, t_out = _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
     if g.shape != (b, t_out, c * kernel_len):
         raise ValueError(f"fused_preproc backward: g {tuple(g.shape)} != {(b, t_out, c * kernel_len)}")
+    if not 1 <= taps.shape[0] <= MAX_TAPS:
+        raise ValueError(f"fused_preproc backward: {taps.shape[0]} smoothing taps (the kernel takes 1 .. {MAX_TAPS})")
     day32 = day_idxs.to(torch.int32).contiguous()
     x, g = x.contiguous(), g.float().contiguous()
-    w_t = day_weights.transpose(1, 2).contiguous()  # W[day]^T rows for dy = dz W^T
-    kernels.require_cuda("fused_preproc backward", x, day_weights, w_t, day_bias, day32, taps, g)
-    dz = torch.empty((b, t, c), dtype=torch.float32, device=x.device)  # scratch
-    dy = torch.empty_like(dz)  # scratch
-    dx = torch.empty_like(dz)
+    kernels.require_cuda("fused_preproc backward", x, day_weights, day_bias, day32, taps, g)
+    day_weights, g = _aligned(day_weights), _aligned(g)
+    ys = torch.empty((b, t, c), dtype=torch.float32, device=x.device)  # scratch: y = smooth(x)
+    dz = torch.empty_like(ys)  # scratch
+    dy = torch.empty_like(ys)  # scratch
+    dx = torch.empty_like(ys)
     dw = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
     db = torch.empty((b, 1, c), dtype=torch.float32, device=x.device)
     lib = kernels.lib()
     with torch.cuda.device(x.device):
         code = lib.w2vb_preproc_bwd(
-            x.data_ptr(), day_weights.data_ptr(), w_t.data_ptr(), day_bias.data_ptr(),
-            day32.data_ptr(), taps.data_ptr(), g.data_ptr(),
-            dz.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            x.data_ptr(), day_weights.data_ptr(), day_bias.data_ptr(), day32.data_ptr(),
+            taps.data_ptr(), g.data_ptr(), ys.data_ptr(), dz.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
             b, t, c, taps.shape[0], n_days, kernel_len, stride, t_out, kernels.stream_of(x),
         )
     kernels.check("preproc_bwd", code)
