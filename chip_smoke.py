@@ -11,8 +11,10 @@ Phases, each of which exits nonzero on failure:
   2. kernels: each hand-written kernel, forward and backward, against its
      plain PyTorch version on the card at both main paths' shapes, at f32
      and bf16 compute: preproc at B=32 (conformer, smoothing sigma 0.3) and
-     B=64 (wav2vec2-base sweep, sigma 1.5), each backward followed by its
-     per-launch split; the GRU at H=256 through the
+     B=64 (wav2vec2-base sweep, sigma 1.5), each forward and backward
+     followed by its per-launch split, and at B=32 the forward also at a
+     ragged T=99 and at a window of 20 frames, stride 3 (the unfold's
+     scalar path); the GRU at H=256 through the
      fused entry (its forward one cluster-resident launch) with B=32 for the
      conformer and B=64 for the sweep grid's H=256 points, and, through its
      per-direction entry (one launch per step), at H=512 and 1024 with B=64
@@ -230,9 +232,10 @@ def device_ms(fn, reps: int = 10, trials: int = 5):
 
 
 def _device_kernels(fn, reps: int):
-    """[(device us per call, launches per call, name)] of every kernel and
-    copy that fn() runs on the card, largest first (torch.profiler over reps
-    calls; each kernel's own time, without the gaps between launches)."""
+    """[(device us, launches, name)] of every kernel and copy that reps calls
+    of fn() ran on the card, largest first, as torch.profiler recorded them
+    (each kernel's own time, without the gaps between launches). A session
+    can lose launches (PERF.md §7)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -244,15 +247,14 @@ def _device_kernels(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sorted(((_device_us(e) / reps, e.count // reps, e.key) for e in prof.key_averages() if _on_device(e)),
-                  reverse=True)
+    return sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages() if _on_device(e)), reverse=True)
 
 
 def profiler_ms(fn, reps: int = 5) -> float:
     """The device time of fn() in ms as the sum of its kernels' own device
     times per call (torch.profiler): the second measure of a row whose
     device_ms trial ended starved. It leaves out the gaps between launches."""
-    return sum(us for us, _, _ in _device_kernels(fn, reps)) / 1e3
+    return sum(us for us, _, _ in _device_kernels(fn, reps)) / reps / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -325,13 +327,23 @@ def compare(name, label, kernel_fn, plain_fn, tol_of, results, inputs, flops, li
                         library_profiler_ms=library_prof_ms))
 
 
-def kernel_split(label, fn, reps: int = 5, top: int = 6) -> None:
-    """Print the device time of each kernel that fn() launches, per call
-    (torch.profiler over reps calls; each kernel's own time, without the
-    gaps between launches)."""
-    rows = _device_kernels(fn, reps)
-    parts = "; ".join(f"{name[:48]} {us / 1e3:.4f} ms x{n}" for us, n, name in rows[:top])
-    print(f"  {'':13s} {label:42s} split: {parts}")
+def kernel_split(label, fn, per_call: dict, reps: int = 5, top: int = 6) -> None:
+    """Print the device time of each kernel that fn() launches (torch.profiler
+    over reps calls; each kernel's own time, without the gaps between
+    launches). A kernel whose name holds a key of per_call launches that many
+    times a call: its line is its mean time per recorded launch times that
+    count, and says how many launches were recorded where the session lost
+    some. Any other kernel's line is its mean time per recorded launch and
+    the launches recorded over the reps calls."""
+    parts = []
+    for us, n, name in _device_kernels(fn, reps)[:top]:
+        k = next((v for key, v in per_call.items() if key in name), None)
+        if k is None:
+            parts.append(f"{name[:48]} {us / n / 1e3:.4f} ms a launch, {n} in {reps} calls")
+        else:
+            lost = "" if n == k * reps else f" ({n} of {k * reps} launches recorded)"
+            parts.append(f"{name[:48]} {us / n * k / 1e3:.4f} ms x{k}{lost}")
+    print(f"  {'':13s} {label:42s} split: {'; '.join(parts)}")
 
 
 def cudnn_gru(gi, w_hh, b_hh, h0, gy, cd, ys):
@@ -406,8 +418,9 @@ def kernel_phases(dev, results):
     def cd_name(cd):
         return str(cd)[6:]
 
-    def preproc_rows(gen, batch, sigma):
-        """preproc at T=384, days spread over 0..23 (the chain is f32 only)."""
+    def preproc_rows(gen, batch, sigma, others=False):
+        """preproc at T=384, days spread over 0..23 (the chain is f32 only);
+        with `others` the forward also at T=99 and at kernel_len 20, stride 3."""
         x = torch.randn((batch, 384, 256), generator=gen, device=dev)
         w = torch.eye(256, device=dev)[None] + 0.05 * torch.randn((24, 256, 256), generator=gen, device=dev)
         b = 0.1 * torch.randn((24, 1, 256), generator=gen, device=dev)
@@ -415,16 +428,24 @@ def kernel_phases(dev, results):
         taps = gaussian_kernel(20, sigma, dev)
         affine, smooth = 2 * x.numel() * 256, 2 * x.numel() * taps.numel()
         label = f"B{batch} T384 sigma{sigma} f32"
-        # the affine products at the rate the card does them at the f32 tolerance (split TF32)
-        compare("preproc", label, lambda: preproc._fwd_kernel(x, w, b, days, taps, 32, 4),
-                lambda: preproc.fused_preproc_plain(x, w, b, days, taps), f32_tol("preproc"), results,
-                (x, w, b, days, taps), [(affine, "tf32x3"), (smooth, "float32")])
+        shapes = [(x, 32, 4, label)]
+        if others:
+            shapes += [(x[:, :99].contiguous(), 32, 4, f"B{batch} T99 sigma{sigma} f32"), (x, 20, 3, f"{label} k20 s3")]
+        for xs, k, stride, at in shapes:
+            # the affine products at the rate the card does them at the f32 tolerance (split TF32)
+            ops = [(2 * xs.numel() * 256, "tf32x3"), (2 * xs.numel() * taps.numel(), "float32")]
+            compare("preproc", at, lambda: preproc._fwd_kernel(xs, w, b, days, taps, k, stride),
+                    lambda: preproc.fused_preproc_plain(xs, w, b, days, taps, k, stride), f32_tol("preproc"),
+                    results, (xs, w, b, days, taps), ops)
+            kernel_split(at, lambda: preproc._fwd_kernel(xs, w, b, days, taps, k, stride),
+                         {"preproc_fwd_affine": 1, "preproc_fwd_unfold": 1})
         gp = 0.1 * torch.randn((batch, 89, 8192), generator=gen, device=dev)
         # dx through W^T and the per-sample dW: two affine-sized products; the smoothing and its adjoint
         compare("preproc_bwd", label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                 lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
                 results, (x, w, b, days, taps, gp), [(2 * affine, "tf32x3"), (2 * smooth, "float32")])
-        kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4))
+        kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
+                     {"preproc_bwd_gather": 1, "preproc_bwd_dz_dy": 1, "preproc_bwd_dw_dx": 1})
 
     def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None):
         """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,
@@ -523,8 +544,8 @@ def kernel_phases(dev, results):
                          f"{F32_CLASS_FACTOR} x the plain f32 version's {p64}")
             del exact, kern, plain, sdpa
 
-    # 1. preproc: B=32 with the conformer's smoothing (sigma 0.3)
-    preproc_rows(g, 32, 0.3)
+    # 1. preproc: B=32 with the conformer's smoothing (sigma 0.3); the w2v shape's rows are in 6
+    preproc_rows(g, 32, 0.3, others=True)
 
     # 2. GRU recurrence, T=89: H=256, B=32 (conformer; layer-0 and layer-1
     # gi) and B=64 (the sweep grid's H=256 points) through gru_recurrence;
@@ -561,8 +582,9 @@ def kernel_phases(dev, results):
                         f32_rel_tol(f"{name}_bwd") if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0, ys, gy),
                         [(2 * step, cd_name(cd)), (step, "float32" if per_dir else cd_name(cd))], lib_bwd)
-                if not per_dir:  # the backward's kernels: hprev, gh, the step launches, dW
-                    kernel_split(label, lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd))
+                if not per_dir:  # the backward's kernels: hprev, gh, the step launches (T + 1), dW
+                    kernel_split(label, lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd),
+                                 {"gru_hprev": 1, "gru_gh": 1, "gru_bwd_step": gi.shape[0] + 1, "gru_dw": 1})
                 else:  # the step launches alone, without the f32 dW / db product that follows them
                     rec_ms = timed_ms(lambda: gru._dir_bwd_recurrence(gi, w_hh, b_hh, h0, ys, gy, cd))
                     print(f"  {'':13s} {label:42s} recurrence alone {rec_ms:.4f} ms "

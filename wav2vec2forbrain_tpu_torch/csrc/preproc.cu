@@ -1,33 +1,49 @@
-// Fused B2P2T preprocessing, forward.
+// Fused B2P2T preprocessing, forward and backward.
 //
-// Replaces: wav2vec2forbrain_tpu/ops/pallas_preproc.py::_fused_fwd_impl
-// (the Pallas kernel _fwd_kernel): per sample, a 20-tap gaussian smoothing
-// over time with torch 'same' padding ((k-1)/2 = 9 frames left, k/2 = 10
-// right), the day-conditioned affine x @ W[day] + b[day] (256 x 256, day
-// picked per sample), softsign, and an unfold (window 32, stride 4) into
-// (T', 256 * 32) rows in channel-major order c * 32 + j.
+// Forward (replaces wav2vec2forbrain_tpu/ops/pallas_preproc.py::
+// _fused_fwd_impl, the Pallas kernel _fwd_kernel): per sample, a 20-tap
+// gaussian smoothing over time with torch 'same' padding ((k-1)/2 = 9
+// frames left, k/2 = 10 right), the day-conditioned affine x @ W[day] +
+// b[day] (256 x 256, day picked per sample), softsign, and an unfold
+// (window 32, stride 4) into (T', 256 * 32) rows in channel-major order
+// c * 32 + j.
 //
-// What bounds it on the H100: bytes written. At the serving shape (B=32,
-// T=384) the output is 32 x 89 x 8192 f32 = 93 MB, eight times the input
-// and sixteen times the smoothed/affined intermediate. The affine is 1.6
-// GFLOP of f32 FMA, well under the card's f32 rate.
+// What bounds it on the H100: its least time is the bytes written. At the
+// serving shape (B=32, T=384) the output is 32 x 89 x 8192 f32 = 93 MB
+// (187 MB at the w2v batch of 64), eight times the input: 28 us at 3.35
+// TB/s. The affine is
+// 1.6 GFLOP, an f32 product: 24 us on the f32 FMA pipe, 10 us as
+// split-TF32 tensor-core products (below) at the published TF32 rate;
+// mma.sync reaches about a quarter of that rate on this card (PERF.md), so
+// in practice the products, not the bytes, take most of the time.
 //
 // Design, two launches:
-//  1. smooth_affine: one block per (sample, 32-row time tile), one thread per
-//     channel. The block smooths its 32 rows into shared memory, then each
-//     thread walks the 256 rows of W[day] (read once per block, coalesced,
-//     resident in the 50 MB L2 across blocks) and keeps 32 f32 accumulators,
-//     so every W load feeds 32 FMAs. The day index is read by the block
-//     itself, standing in for the TPU kernel's scalar prefetch. The result
-//     z (B, T, 256) f32 is 12.6 MB and stays in L2 for the next launch.
-//  2. unfold: one block per (sample, output row t'). The block stages the 32
-//     z rows of its window in shared memory (row pitch 257 floats, so the
-//     transposed read below is free of bank conflicts) and writes the 8192
-//     output floats of row t' with consecutive threads on consecutive
-//     addresses: the 93 MB write is fully coalesced.
-// The f32 affine is computed in the kernel (FMA), not by a library GEMM.
-// An out-of-range day index is clamped to [0, n_days), as XLA's gather
-// clamps it in the JAX package; no memory outside W is read.
+//  1. affine: one block of 8 warps per (sample, tile of 64 rows, or 32 where
+//     that gives the busiest SM fewer rows), two blocks an SM: the
+//     backward's dz_dy block (below) up to its pre. y = smooth(x) from
+//     register windows into the A tile while W[day]'s first chunks land;
+//     pre = y W[day] on split-TF32 mma.sync (product<false>, the backward's
+//     code); b[day] and softsign in registers, z back into the A tile;
+//     then z leaves in pieces of four rows of one channel, z4[b, s, c, r] =
+//     z[b, 4 s + r, c] (16-byte stores, 512 contiguous bytes a warp). z4
+//     (B, ceil(T / 4), 256, 4) is 12.6 MB at B=32 and stays in L2 for
+//     launch 2. Rows turn into channel-major pieces here, where z passes
+//     through shared memory anyway.
+//  2. unfold, one stream of the output. Main path (kernel_len 32, stride 4,
+//     compile-time): piece (t', c, q) of output row t' (floats c*32 + 4 q
+//     .. + 3) is z rows 4 (t' + q) .. + 3 of channel c: z4 piece (t' + q,
+//     c). A block owns 8 output rows of one sample; it stages the 15 z4
+//     groups of their windows (61 KB, each piece once, 16-byte cp.async,
+//     three blocks an SM) with piece (s, c) at s*256 + (c ^ (s & 7)), so
+//     that the pieces q = 0 .. 7 of one channel, which a quarter warp
+//     reads, lie in distinct bank groups. Each output piece is then one
+//     16-byte shared load and one 16-byte streaming store (st.global.cs:
+//     the output must not push z4 out of L2), consecutive threads on
+//     consecutive pieces, a warp's store 512 contiguous bytes; no
+//     division. Other windows: a scalar copy, one division an output
+//     float.
+// No library GEMM. An out-of-range day index is clamped to [0, n_days), as
+// XLA's gather clamps it in the JAX package; no memory outside W is read.
 //
 // Backward (replaces ::_fused_bwd_impl, the Pallas kernel _bwd_kernel), for
 // the upstream g (B, T', 256 * k), channel-major like the forward's output:
@@ -97,88 +113,14 @@
 
 namespace {
 
-constexpr int kRows = 32;  // time rows per block in the affine pass
-
-__global__ void smooth_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                     const float* __restrict__ bias,
-                                     const int* __restrict__ day_idxs,
-                                     const float* __restrict__ taps, float* __restrict__ z,
-                                     int T, int C, int n_taps, int n_days) {
-  extern __shared__ float ys[];  // [kRows][C] smoothed rows
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kRows;
-  const int c = threadIdx.x;
-  const int left = (n_taps - 1) / 2;
-  const float* xb = x + (size_t)b * T * C;
-
-  for (int r = 0; r < kRows; ++r) {
-    const int t = t0 + r;
-    float acc = 0.f;
-    if (t < T) {
-      for (int i = 0; i < n_taps; ++i) {
-        const int s = t - left + i;
-        const float xv = (s >= 0 && s < T) ? xb[(size_t)s * C + c] : 0.f;
-        acc = acc + taps[i] * xv;
-      }
-    }
-    ys[r * C + c] = acc;
-  }
-  __syncthreads();
-
-  int day = day_idxs[b];
-  day = day < 0 ? 0 : (day >= n_days ? n_days - 1 : day);
-  const float* wd = w + (size_t)day * C * C;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int d = 0; d < C; ++d) {
-    const float wv = wd[(size_t)d * C + c];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(ys[r * C + d], wv, acc[r]);
-  }
-  const float bv = bias[(size_t)day * C + c];
-  float* zb = z + (size_t)b * T * C;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = t0 + r;
-    if (t < T) {
-      const float v = acc[r] + bv;
-      zb[(size_t)t * C + c] = v / (1.f + fabsf(v));
-    }
-  }
-}
-
-__global__ void unfold_kernel(const float* __restrict__ z, float* __restrict__ out, int T, int C,
-                              int k, int stride, int t_out) {
-  extern __shared__ float win[];  // [k][C + 1]
-  const int b = blockIdx.y;
-  const int to = blockIdx.x;
-  const int ld = C + 1;
-  const float* zb = z + ((size_t)b * T + (size_t)to * stride) * C;
-  for (int i = threadIdx.x; i < k * C; i += blockDim.x) {
-    const int j = i / C;
-    const int c = i - j * C;
-    win[j * ld + c] = zb[(size_t)j * C + c];
-  }
-  __syncthreads();
-  float* ob = out + ((size_t)b * t_out + to) * (size_t)(C * k);
-  for (int o = threadIdx.x; o < C * k; o += blockDim.x) {
-    const int c = o / k;
-    const int j = o - c * k;
-    ob[o] = win[j * ld + c];
-  }
-}
-
 __device__ __forceinline__ int clamp_day(const int* day_idxs, int b, int n_days) {
   const int day = day_idxs[b];
   return day < 0 ? 0 : (day >= n_days ? n_days - 1 : day);
 }
 
-// ---- backward (header note) ----
-
-constexpr int kC = 256;             // channels: the backward takes no other
+constexpr int kC = 256;             // channels: the kernels take no other
 constexpr int kThreads = 256;       // 8 warps; one thread a channel in the row phases
-constexpr int kTile = 64;           // time rows per dz_dy block
+constexpr int kTile = 64;           // time rows per dz_dy block and wide affine block
 constexpr int kMT = kTile / 16;     // m16 tiles of a warp's rows (all of the block's)
 constexpr int kLdA = kC + 4;        // A tile pitch: banks 4 g + t for row-major fragments
 constexpr int kKc = 8;              // K rows of a staged W chunk: one k step
@@ -190,7 +132,12 @@ constexpr int kWBufs = 3;           // W chunk buffers: two chunks in flight
 constexpr int kMaxTaps = 32;
 constexpr int kRun = 16;            // rows of a smoothing register window
 static_assert(kKc * kLdWk <= kWBuf, "a pre chunk fits a W buffer");
-constexpr size_t kDzDySmem = (size_t)(kTile * kLdA + kWBufs * kWBuf) * sizeof(float);
+// shared memory of an affine or dz_dy block of mt m16 tiles: the A tile and the W buffers
+constexpr size_t tile_smem(int mt) { return (size_t)(16 * mt * kLdA + kWBufs * kWBuf) * sizeof(float); }
+
+constexpr int kURows = 8;              // output rows of an unfold block
+constexpr int kUGroups = kURows + 7;   // z4 groups their windows span (main path)
+constexpr size_t kUnfoldSmem = (size_t)kUGroups * kC * 4 * sizeof(float);
 
 constexpr int kGCh = 32;            // channels of a gather block
 constexpr int kGSpan = 8;           // s values of a gather block (rows 4 s .. 4 s + 3): one a warp
@@ -202,6 +149,240 @@ constexpr int kDwKc = 32;           // time rows of a staged dW chunk
 constexpr int kLdDw = kDwTile + 8;  // [t][d] and [t][c] chunk pitch: banks 8 t + g for both fragments
 constexpr int kDwStage = 2 * kDwKc * kLdDw;  // floats of one stage (y and dz chunks)
 constexpr size_t kDwDxSmem = (size_t)3 * kDwStage * sizeof(float);
+
+// out[i] = sum_{j < n_taps} tp[j] * src[(t0 + i - left + j) * kC], zero
+// outside rows [0, T): kRun outputs of a correlation along time for one
+// channel, from a register window of kRun + n_taps - 1 rows (loads issued
+// together); the terms of each output summed in tap order
+__device__ __forceinline__ void smooth_run(const float* __restrict__ src, int T, int t0, int left,
+                                           const float (&tp)[kMaxTaps], int n_taps, float (&out)[kRun]) {
+  float xr[kRun + kMaxTaps - 1];
+#pragma unroll
+  for (int j = 0; j < kRun + kMaxTaps - 1; ++j) {
+    const int s = t0 - left + j;
+    xr[j] = j < kRun + n_taps - 1 && s >= 0 && s < T ? src[(size_t)s * kC] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) out[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxTaps; ++j) {
+    if (j < n_taps) {
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) out[i] = fmaf(tp[j], xr[i + j], out[i]);
+    }
+  }
+}
+
+// W[day] chunk kc into buf (no commit): pre (kNK false) takes rows d = 8
+// kc .. + 7, all columns, as a [k][n] tile; dy (kNK true) columns 8 kc .. +
+// 7 of all rows, as an [n][k] tile. 512 16-byte copies, 2 a thread.
+template <bool kNK>
+__device__ __forceinline__ void stage_w(float* buf, const float* __restrict__ wd, int kc) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if constexpr (kNK) {
+      const int n = i >> 1, q = (i & 1) * 4;
+      w2vb::cp_async16(buf + n * kLdWn + q, wd + (size_t)n * kC + kc * kKc + q);
+    } else {
+      const int r = i >> 6, q = (i & 63) * 4;
+      w2vb::cp_async16(buf + r * kLdWk + q, wd + (size_t)(kc * kKc + r) * kC + q);
+    }
+  }
+}
+
+// acc (a warp's 4 m16n8 tiles of one row block) += a . b for one 8-deep k
+// step, split operands: the three TF32 products of the four tiles in turn,
+// the small ones first, so that four independent products separate two
+// that add into one accumulator
+__device__ __forceinline__ void mma_row(float (&acc)[4][4], const uint32_t (&ab)[4], const uint32_t (&asm_)[4],
+                                        const uint32_t (&bb)[4][2], const uint32_t (&bs)[4][2]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], ab, bs[nt]);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], asm_, bb[nt]);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], ab, bb[nt]);
+}
+
+// acc (a warp's 16 MT x 32 tile) += A[:, k0 .. k0 + 7] B[k0 .. k0 + 7,
+// n_base ..], A the row-major tile `as`, B a staged W chunk. The B fragments are
+// split once; each row block's A fragment is loaded and split in turn, so
+// that the operands take 24 registers and two blocks fit an SM.
+template <bool kNK, int MT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MT][4][4], const float* as, int k0, const float* bw,
+                                          int n_base) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int n = n_base + 8 * nt + gq;
+    const float* p = kNK ? bw + n * kLdWn + tq : bw + tq * kLdWk + n;
+    w2vb::split_tf32(p[0], bb[nt][0], bs[nt][0]);
+    w2vb::split_tf32(p[kNK ? 4 : 4 * kLdWk], bb[nt][1], bs[nt][1]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t ab[4], asm_[4];
+    const float* p = as + (16 * mt + gq) * kLdA + k0 + tq;
+    w2vb::split_tf32(p[0], ab[0], asm_[0]);
+    w2vb::split_tf32(p[8 * kLdA], ab[1], asm_[1]);
+    w2vb::split_tf32(p[4], ab[2], asm_[2]);
+    w2vb::split_tf32(p[8 * kLdA + 4], ab[3], asm_[3]);
+    mma_row(acc[mt], ab, asm_, bb, bs);
+  }
+}
+
+// acc = `as` (16 MT x 256) times W[day] (kNK false) or W[day]^T (kNK true):
+// 32 chunks through three buffers, two in flight. The caller staged chunks
+// 0 and 1 (one committed group each) into buffers 0 and 1.
+template <bool kNK, int MT>
+__device__ __forceinline__ void product(float (&acc)[MT][4][4], const float* as, const float* __restrict__ wd,
+                                        float* wbufs) {
+  const int n_base = (threadIdx.x >> 5) * 32;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int kc = 0; kc < kChunks; ++kc) {
+    w2vb::cp_async_wait<1>();  // chunk kc has landed (chunk kc + 1 may be in flight)
+    __syncthreads();           // for every thread; and chunk kc - 1's buffer is free
+    if (kc + 2 < kChunks) stage_w<kNK>(wbufs + (kc + 2) % kWBufs * kWBuf, wd, kc + 2);
+    w2vb::cp_async_commit();  // empty past the last chunk: the wait count holds
+    mma_chunk<kNK, MT>(acc, as, kc * kKc, wbufs + kc % kWBufs * kWBuf, n_base);
+  }
+}
+
+// y = smooth(x) for channel c = threadIdx.x over rows t0 .. t0 + 16 MT - 1
+// of one sample (x: that sample's rows): into the A tile (zeros past T)
+// and, where kKeepY, into that sample's rows of the ys scratch
+template <bool kKeepY, int MT>
+__device__ __forceinline__ void smooth_tile(const float* __restrict__ x, int T, int t0,
+                                            const float* __restrict__ taps, int n_taps, float* as,
+                                            float* __restrict__ ys) {
+  const int c = threadIdx.x;
+  float tp[kMaxTaps];
+#pragma unroll
+  for (int j = 0; j < kMaxTaps; ++j) tp[j] = j < n_taps ? taps[j] : 0.f;
+  for (int r0 = 0; r0 < 16 * MT; r0 += kRun) {
+    float yv[kRun];
+    smooth_run(x + c, T, t0 + r0, (n_taps - 1) / 2, tp, n_taps, yv);
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      const int t = t0 + r0 + i;
+      as[(r0 + i) * kLdA + c] = t < T ? yv[i] : 0.f;
+      if (kKeepY && t < T) ys[(size_t)t * kC + c] = yv[i];
+    }
+  }
+}
+
+// The A tile = acc (the product of `as` and W[day]) + b[day], through the
+// softsign where kSoftsign
+template <bool kSoftsign, int MT>
+__device__ __forceinline__ void store_pre(const float (&acc)[MT][4][4], float* as, const float* __restrict__ bd) {
+  const int tq = threadIdx.x & 3, gq = (threadIdx.x & 31) >> 2, n_base = (threadIdx.x >> 5) * 32;
+  const auto out = [](float v) { return kSoftsign ? v / (1.f + fabsf(v)) : v; };
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = n_base + 8 * nt + 2 * tq;
+    const float b0 = bd[col], b1 = bd[col + 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row = 16 * mt + gq;
+      *reinterpret_cast<float2*>(as + row * kLdA + col) =
+          make_float2(out(acc[mt][nt][0] + b0), out(acc[mt][nt][1] + b1));
+      *reinterpret_cast<float2*>(as + (row + 8) * kLdA + col) =
+          make_float2(out(acc[mt][nt][2] + b0), out(acc[mt][nt][3] + b1));
+    }
+  }
+}
+
+// ---- forward ----
+
+// Block (16 MT-row tile, sample): y = smooth(x) into the A tile; pre = y
+// W[day]; z = softsign(pre + b[day]) into z4 (B, ceil(T / 4), 256, 4),
+// z4[b, s, c, r] = z[b, 4 s + r, c]: a thread per channel, one 16-byte
+// piece a group. Two blocks an SM (at most 128 registers).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 2)
+    preproc_fwd_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ bias, const int* __restrict__ day_idxs,
+                              const float* __restrict__ taps, float* __restrict__ z4, int T, int n_taps,
+                              int n_days) {
+  extern __shared__ __align__(16) float sm[];
+  float* as = sm;                      // [16 MT][kLdA]: y, then z
+  float* wbufs = as + 16 * MT * kLdA;  // three W chunk buffers
+  const int b = blockIdx.y, t0 = blockIdx.x * 16 * MT, c = threadIdx.x;
+  const int day = clamp_day(day_idxs, b, n_days);
+  const float* wd = w + (size_t)day * kC * kC;
+  stage_w<false>(wbufs, wd, 0);  // W's first chunks land while the smoothing runs
+  w2vb::cp_async_commit();
+  stage_w<false>(wbufs + kWBuf, wd, 1);
+  w2vb::cp_async_commit();
+  smooth_tile<false, MT>(x + (size_t)b * T * kC, T, t0, taps, n_taps, as, nullptr);
+  float acc[MT][4][4];
+  product<false>(acc, as, wd, wbufs);
+  __syncthreads();  // every warp is done with y
+  store_pre<true>(acc, as, bias + (size_t)day * kC);
+  __syncthreads();
+  const int tg = (T + 3) >> 2, s0 = t0 >> 2;
+  float* zb = z4 + ((size_t)b * tg + s0) * kC * 4 + c * 4;
+#pragma unroll
+  for (int i = 0; i < 4 * MT; ++i) {
+    if (s0 + i >= tg) break;
+    const float* p = as + 4 * i * kLdA + c;
+    *reinterpret_cast<float4*>(zb + (size_t)i * kC * 4) = make_float4(p[0], p[kLdA], p[2 * kLdA], p[3 * kLdA]);
+  }
+}
+
+// out[b, t', c k + j] = z[b, t' stride + j, c], z read from z4. Block (8
+// output rows t0 .., sample). Main path (kernel_len 32, stride 4,
+// compile-time): z4 groups t0 .. t0 + 14 staged (each piece once, 16-byte
+// cp.async; piece (s, c) at s*256 + (c ^ (s & 7))); output piece p = 8 c +
+// q of row t0 + r is staged piece (r + q, c): one 16-byte shared load free
+// of bank conflicts (a quarter warp reads q = 0 .. 7 of one channel) and
+// one 16-byte streaming store, consecutive threads on consecutive pieces.
+// Other windows: a scalar copy, one division an output float.
+template <bool kMain>
+__global__ void __launch_bounds__(kThreads)
+    preproc_fwd_unfold_kernel(const float* __restrict__ z4, float* __restrict__ out, int T, int k, int stride,
+                              int t_out) {
+  extern __shared__ __align__(16) float zsm[];  // [kUGroups][kC] pieces of 4 floats
+  const int t0 = blockIdx.x * kURows, b = blockIdx.y, tid = threadIdx.x;
+  const int tg = (T + 3) >> 2, rows = min(kURows, t_out - t0);
+  const int row_len = kC * k;
+  float* ob = out + ((size_t)b * t_out + t0) * row_len;
+  if constexpr (kMain) {
+    const float* zb = z4 + ((size_t)b * tg + t0) * kC * 4;  // groups t0 .. t0 + rows + 6: contiguous
+#pragma unroll
+    for (int s = 0; s < kUGroups; ++s)  // piece (s, c = tid)
+      if (s < rows + 7) w2vb::cp_async16(zsm + (s * kC + (tid ^ (s & 7))) * 4, zb + (s * kC + tid) * 4);
+    w2vb::cp_async_commit();
+    w2vb::cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kURows; ++r) {
+      if (r >= rows) break;
+      float4* orow = reinterpret_cast<float4*>(ob + (size_t)r * row_len);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int p = tid + u * kThreads, c = p >> 3, s = r + (p & 7);
+        __stcs(orow + p, *reinterpret_cast<const float4*>(zsm + (s * kC + (c ^ (s & 7))) * 4));
+      }
+    }
+  } else {
+    const float* zb = z4 + (size_t)b * tg * kC * 4;
+    for (int r = 0; r < rows; ++r)
+      for (int o = tid; o < row_len; o += kThreads) {
+        const int c = o / k, t = (t0 + r) * stride + o - c * k;
+        ob[(size_t)r * row_len + o] = zb[((size_t)(t >> 2) * kC + c) * 4 + (t & 3)];
+      }
+  }
+}
+
+// ---- backward ----
 
 // 16 bytes into shared memory by cp.async, L2 told to evict them first: g
 // is read once, and W[day] and the scratch should stay in L2 around it
@@ -275,111 +456,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[i] = sum_{j < n_taps} tp[j] * src[(t0 + i - left + j) * kC], zero
-// outside rows [0, T): kRun outputs of a correlation along time for one
-// channel, from a register window of kRun + n_taps - 1 rows (loads issued
-// together); the terms of each output summed in tap order
-__device__ __forceinline__ void smooth_run(const float* __restrict__ src, int T, int t0, int left,
-                                           const float (&tp)[kMaxTaps], int n_taps, float (&out)[kRun]) {
-  float xr[kRun + kMaxTaps - 1];
-#pragma unroll
-  for (int j = 0; j < kRun + kMaxTaps - 1; ++j) {
-    const int s = t0 - left + j;
-    xr[j] = j < kRun + n_taps - 1 && s >= 0 && s < T ? src[(size_t)s * kC] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < kRun; ++i) out[i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxTaps; ++j) {
-    if (j < n_taps) {
-#pragma unroll
-      for (int i = 0; i < kRun; ++i) out[i] = fmaf(tp[j], xr[i + j], out[i]);
-    }
-  }
-}
-
-// W[day] chunk kc into buf (no commit): pre (kNK false) takes rows d = 8
-// kc .. + 7, all columns, as a [k][n] tile; dy (kNK true) columns 8 kc .. +
-// 7 of all rows, as an [n][k] tile. 512 16-byte copies, 2 a thread.
-template <bool kNK>
-__device__ __forceinline__ void stage_w(float* buf, const float* __restrict__ wd, int kc) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    if constexpr (kNK) {
-      const int n = i >> 1, q = (i & 1) * 4;
-      w2vb::cp_async16(buf + n * kLdWn + q, wd + (size_t)n * kC + kc * kKc + q);
-    } else {
-      const int r = i >> 6, q = (i & 63) * 4;
-      w2vb::cp_async16(buf + r * kLdWk + q, wd + (size_t)(kc * kKc + r) * kC + q);
-    }
-  }
-}
-
-// acc (a warp's 4 m16n8 tiles of one row block) += a . b for one 8-deep k
-// step, split operands: the three TF32 products of the four tiles in turn,
-// the small ones first, so that four independent products separate two
-// that add into one accumulator
-__device__ __forceinline__ void mma_row(float (&acc)[4][4], const uint32_t (&ab)[4], const uint32_t (&asm_)[4],
-                                        const uint32_t (&bb)[4][2], const uint32_t (&bs)[4][2]) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], ab, bs[nt]);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], asm_, bb[nt]);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) w2vb::mma_tf32(acc[nt], ab, bb[nt]);
-}
-
-// acc (a warp's 64 x 32 tile) += A[:, k0 .. k0 + 7] B[k0 .. k0 + 7, n_base
-// ..], A the row-major tile `as`, B a staged W chunk. The B fragments are
-// split once; each row block's A fragment is loaded and split in turn, so
-// that the operands take 24 registers and two blocks fit an SM.
-template <bool kNK>
-__device__ __forceinline__ void mma_chunk(float (&acc)[kMT][4][4], const float* as, int k0, const float* bw,
-                                          int n_base) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int n = n_base + 8 * nt + gq;
-    const float* p = kNK ? bw + n * kLdWn + tq : bw + tq * kLdWk + n;
-    w2vb::split_tf32(p[0], bb[nt][0], bs[nt][0]);
-    w2vb::split_tf32(p[kNK ? 4 : 4 * kLdWk], bb[nt][1], bs[nt][1]);
-  }
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    uint32_t ab[4], asm_[4];
-    const float* p = as + (16 * mt + gq) * kLdA + k0 + tq;
-    w2vb::split_tf32(p[0], ab[0], asm_[0]);
-    w2vb::split_tf32(p[8 * kLdA], ab[1], asm_[1]);
-    w2vb::split_tf32(p[4], ab[2], asm_[2]);
-    w2vb::split_tf32(p[8 * kLdA + 4], ab[3], asm_[3]);
-    mma_row(acc[mt], ab, asm_, bb, bs);
-  }
-}
-
-// acc = `as` (64 x 256) times W[day] (kNK false) or W[day]^T (kNK true):
-// 32 chunks through three buffers, two in flight. The caller staged chunks
-// 0 and 1 (one committed group each) into buffers 0 and 1.
-template <bool kNK>
-__device__ __forceinline__ void product(float (&acc)[kMT][4][4], const float* as, const float* __restrict__ wd,
-                                        float* wbufs) {
-  const int n_base = (threadIdx.x >> 5) * 32;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  for (int kc = 0; kc < kChunks; ++kc) {
-    w2vb::cp_async_wait<1>();  // chunk kc has landed (chunk kc + 1 may be in flight)
-    __syncthreads();           // for every thread; and chunk kc - 1's buffer is free
-    if (kc + 2 < kChunks) stage_w<kNK>(wbufs + (kc + 2) % kWBufs * kWBuf, wd, kc + 2);
-    w2vb::cp_async_commit();  // empty past the last chunk: the wait count holds
-    mma_chunk<kNK>(acc, as, kc * kKc, wbufs + kc % kWBufs * kWBuf, n_base);
-  }
-}
-
 // Block (64-row tile, sample): y = smooth(x) into the A tile and the ys
 // scratch; pre = y W[day] + b[day]; dz = dzs / (1 + |pre|)^2, in place in
 // dzs and into the A tile; dy = dz W[day]^T.
@@ -401,22 +477,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   stage_w<false>(wbufs + kWBuf, wd, 1);
   w2vb::cp_async_commit();
 
-  // y = smooth(x), thread = channel
-  {
-    float tp[kMaxTaps];
-#pragma unroll
-    for (int j = 0; j < kMaxTaps; ++j) tp[j] = j < n_taps ? taps[j] : 0.f;
-    for (int r0 = 0; r0 < kTile; r0 += kRun) {
-      float yv[kRun];
-      smooth_run(x + row0 * kC + c, T, t0 + r0, (n_taps - 1) / 2, tp, n_taps, yv);
-#pragma unroll
-      for (int i = 0; i < kRun; ++i) {
-        const int t = t0 + r0 + i;
-        as[(r0 + i) * kLdA + c] = t < T ? yv[i] : 0.f;
-        if (t < T) ys[(row0 + t) * kC + c] = yv[i];
-      }
-    }
-  }
+  smooth_tile<true, kMT>(x + row0 * kC, T, t0, taps, n_taps, as, ys + row0 * kC);  // y = smooth(x)
 
   // pre = y W[day] + b[day], back into the A tile
   float acc[kMT][4][4];
@@ -426,21 +487,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   w2vb::cp_async_commit();
   stage_w<true>(wbufs + kWBuf, wd, 1);
   w2vb::cp_async_commit();
-  {
-    const float* bd = bias + (size_t)day * kC;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n_base + 8 * nt + 2 * tq;
-      const float b0 = bd[col], b1 = bd[col + 1];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int row = 16 * mt + gq;
-        *reinterpret_cast<float2*>(as + row * kLdA + col) = make_float2(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
-        *reinterpret_cast<float2*>(as + (row + 8) * kLdA + col) =
-            make_float2(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
-      }
-    }
-  }
+  store_pre<false>(acc, as, bias + (size_t)day * kC);
   __syncthreads();
 
   // dz = dzs / (1 + |pre|)^2 for channel c's rows (dzs: the gather launch)
@@ -572,21 +619,51 @@ __global__ void __launch_bounds__(kThreads, kPerSm)
   if (sums_db) db[(size_t)b * kC + c0 + tid] = dbs;
 }
 
+cudaError_t sm_count(int* n_sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev) : e;
+}
+
+template <int MT>
+cudaError_t launch_affine(const float* x, const float* w, const float* bias, const int* day_idxs, const float* taps,
+                          float* z, int B, int T, int n_taps, int n_days, cudaStream_t s) {
+  const cudaError_t e = w2vb::allow_smem(preproc_fwd_affine_kernel<MT>, tile_smem(MT));
+  if (e != cudaSuccess) return e;
+  preproc_fwd_affine_kernel<MT><<<dim3((T + 16 * MT - 1) / (16 * MT), B), kThreads, tile_smem(MT), s>>>(
+      x, w, bias, day_idxs, taps, z, T, n_taps, n_days);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int w2vb_preproc_fwd(const float* x, const float* w, const float* bias,
-                                const int* day_idxs, const float* taps, float* z, float* out,
-                                int B, int T, int C, int n_taps, int n_days, int k, int stride,
-                                int t_out, void* stream) {
+// Forward: x (B, T, 256) f32; z (B, 4 ceil(T / 4), 256) f32 scratch (z4);
+// out (B, T', 256 k) f32. Needs C == 256, 1 <= n_taps <= 32 and t_out >=
+// 1; kernel_len 32 with stride 4 takes the staged unfold, any other pair
+// the scalar one.
+extern "C" int w2vb_preproc_fwd(const float* x, const float* w, const float* bias, const int* day_idxs,
+                                const float* taps, float* z, float* out, int B, int T, int C, int n_taps,
+                                int n_days, int k, int stride, int t_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 g1((T + kRows - 1) / kRows, B);
-  smooth_affine_kernel<<<g1, C, kRows * C * sizeof(float), s>>>(x, w, bias, day_idxs, taps, z, T,
-                                                                 C, n_taps, n_days);
-  cudaError_t e = cudaGetLastError();
+  if (C != kC || n_taps < 1 || n_taps > kMaxTaps || t_out < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int n_sms = 0;
+  cudaError_t e = sm_count(&n_sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (t_out > 0) {
-    const dim3 g2(t_out, B);
-    unfold_kernel<<<g2, 256, k * (C + 1) * sizeof(float), s>>>(z, out, T, C, k, stride, t_out);
+  // the tensor-core products bound an affine block, so the SM given the most rows sets the time:
+  // 64-row tiles unless 32-row tiles give that SM fewer (they stage W twice as often)
+  const int per_sm64 = (B * ((T + 63) / 64) + n_sms - 1) / n_sms, per_sm32 = (B * ((T + 31) / 32) + n_sms - 1) / n_sms;
+  e = 2 * per_sm64 <= per_sm32
+          ? launch_affine<kMT>(x, w, bias, day_idxs, taps, z, B, T, n_taps, n_days, s)
+          : launch_affine<kMT / 2>(x, w, bias, day_idxs, taps, z, B, T, n_taps, n_days, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 g2((t_out + kURows - 1) / kURows, B);
+  if (k == 32 && stride == 4) {
+    e = w2vb::allow_smem(preproc_fwd_unfold_kernel<true>, kUnfoldSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    preproc_fwd_unfold_kernel<true><<<g2, kThreads, kUnfoldSmem, s>>>(z, out, T, k, stride, t_out);
+  } else {
+    preproc_fwd_unfold_kernel<false><<<g2, kThreads, 0, s>>>(z, out, T, k, stride, t_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -613,15 +690,14 @@ extern "C" int w2vb_preproc_bwd(const float* x, const float* w, const float* bia
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = w2vb::allow_smem(preproc_bwd_dz_dy_kernel, kDzDySmem);
+  e = w2vb::allow_smem(preproc_bwd_dz_dy_kernel, tile_smem(kMT));
   if (e != cudaSuccess) return static_cast<int>(e);
-  preproc_bwd_dz_dy_kernel<<<dim3((T + kTile - 1) / kTile, B), kThreads, kDzDySmem, s>>>(
+  preproc_bwd_dz_dy_kernel<<<dim3((T + kTile - 1) / kTile, B), kThreads, tile_smem(kMT), s>>>(
       x, w, bias, day_idxs, taps, ys, dz, dy, T, n_taps, n_days);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, n_sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  int n_sms = 0;
+  e = sm_count(&n_sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_blocks = 4 * B + B * ((T + kTile - 1) / kTile);
   if (4 * B <= n_sms) {

@@ -11,12 +11,14 @@ g (B, T', 256 * k):
     dx = smooth with the reversed taps of (dz @ W[day]^T)
 and the per-sample dW/db are summed into the day tables outside the kernel
 (index_add_, the JAX package's segment_sum). The kernels are in
-csrc/preproc.cu; see its header for the design: the backward is three
-launches (the d unfold streamed from g; the smoothing, pre, dz and dy; dW,
-db and dx) whose 256-wide products run as split-TF32 tensor-core products,
-and it takes its (B, T, 256) scratch (y, dz, dy) from the wrapper. On a CPU
-tensor the wrapper runs the plain versions; on a CUDA tensor it launches
-the kernels or raises.
+csrc/preproc.cu; see its header for the design. The forward is two
+launches: the smoothing, the affine on split-TF32 tensor-core products and
+the softsign into a scratch z, held in pieces of four rows of one channel;
+then the unfold, one stream of 16-byte stores. The backward is
+three launches (the d unfold streamed from g; the smoothing, pre, dz and
+dy; dW, db and dx) on the same products. Both take their scratch from the
+wrapper and at most 32 smoothing taps. On a CPU tensor the wrapper runs the
+plain versions; on a CUDA tensor it launches the kernels or raises.
 """
 
 from typing import Tuple
@@ -33,7 +35,7 @@ from wav2vec2forbrain_tpu_torch.models.preprocessing import (
 )
 from wav2vec2forbrain_tpu_torch.ops import kernels
 
-MAX_TAPS = 32  # smoothing taps the backward kernel takes (the models use 20)
+MAX_TAPS = 32  # smoothing taps the kernels take (the models use 20)
 
 
 def fused_preproc_plain(x, day_weights, day_bias, day_idxs, taps, kernel_len=32, stride=4):
@@ -81,6 +83,8 @@ def _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
         raise ValueError("fused_preproc: day tables and taps must be float32")
     if day_idxs.shape != (b,) or taps.dim() != 1:
         raise ValueError("fused_preproc: day_idxs (B,) and taps (n,) expected")
+    if not 1 <= taps.shape[0] <= MAX_TAPS:
+        raise ValueError(f"fused_preproc: {taps.shape[0]} smoothing taps (the kernels take 1 .. {MAX_TAPS})")
     t_out = (t - kernel_len) // stride + 1
     if t_out <= 0:
         raise ValueError(f"fused_preproc: T={t} is shorter than the unfold window {kernel_len}")
@@ -92,7 +96,9 @@ def _fwd_kernel(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
     day32 = day_idxs.to(torch.int32).contiguous()
     x = x.contiguous()
     kernels.require_cuda("fused_preproc", x, day_weights, day_bias, day32, taps)
-    z = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
+    day_weights = _aligned(day_weights)
+    # scratch: z in pieces of four rows of one channel, (B, ceil(T / 4), 256, 4)
+    z = torch.empty((b, 4 * ((t + 3) // 4), c), dtype=torch.float32, device=x.device)
     out = torch.empty((b, t_out, c * kernel_len), dtype=torch.float32, device=x.device)
     lib = kernels.lib()
     with torch.cuda.device(x.device):
@@ -108,7 +114,7 @@ def _fwd_kernel(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride):
 
 def _aligned(t):
     """t, or a copy of it where its data does not start on a 16-byte boundary
-    (the backward stages W and g with 16-byte copies)."""
+    (the kernels stage W, and the backward g, with 16-byte copies)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -116,8 +122,6 @@ def _bwd_kernel(x, day_weights, day_bias, day_idxs, taps, g, kernel_len, stride)
     b, t, c, n_days, t_out = _check(x, day_weights, day_bias, day_idxs, taps, kernel_len, stride)
     if g.shape != (b, t_out, c * kernel_len):
         raise ValueError(f"fused_preproc backward: g {tuple(g.shape)} != {(b, t_out, c * kernel_len)}")
-    if not 1 <= taps.shape[0] <= MAX_TAPS:
-        raise ValueError(f"fused_preproc backward: {taps.shape[0]} smoothing taps (the kernel takes 1 .. {MAX_TAPS})")
     day32 = day_idxs.to(torch.int32).contiguous()
     x, g = x.contiguous(), g.float().contiguous()
     kernels.require_cuda("fused_preproc backward", x, day_weights, day_bias, day32, taps, g)
