@@ -70,9 +70,28 @@ Phases, each of which exits nonzero on failure:
      3072; biGRU 3 x 1024, latent 768), 4 requests of 64 x 384.
   6. wav2vec2-base training: phase 4 for the same model (GRU dropout 0.45,
      Adam at weight decay 1e-4), 4 steps of 64 x 384.
+  7. conformer CLI: `python -m wav2vec2forbrain_tpu_torch.run` in process
+     (run.main) on a synthetic T12 splits dir written by the port's .mat
+     writer (2 sessions, 200-700 frames a trial; train 70 samples, val 24,
+     test 10) with a filled config.yaml: --experiment_type=
+     b2p2t_gru+w2v_conformer at full width (conformer-rope-large, biGRU 2 x
+     256, random weights, --w2v_skip_loading_weights=true), the CLI's
+     default f32 compute, --batch_size=32 (a ragged last train batch),
+     --epochs=2, --return_best_model=true, --checkpoint_every_n_epochs=1;
+     then --only_test=true --from_checkpoint=<results>/model.pt. Fails
+     unless the results files exist (config.json, history.json,
+     metrics.jsonl, model.pt, train_state/state.pt; test_predictions.json
+     of the --only_test run), every loss is finite, the params stayed on
+     the card, exactly the family's kernels launched in each run, and the
+     --only_test test loss is within CLI_TEST_LOSS_REL of the training
+     run's; prints each run's wall time, train samples/s and launch counts.
+  8. wav2vec2-base CLI: phase 7 for --experiment_type=b2p2t_gru+w2v at the
+     fft sweep point (sweeps/b2p2t_gru+w2v_full_fine_tuning.yaml: biGRU 3 x
+     1024, batch 64, its LRs, dropout, smoothing and noise).
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
-kernel; launches summed over the two training runs; `profiler_ms` and
+kernel; launches summed over the two training runs and the two CLI
+training runs, by path in `launches_by_path`; `profiler_ms` and
 `library_profiler_ms` null unless the row's device_ms was starved), the
 last line {"ok": true, "device": {...}}.
 """
@@ -117,6 +136,20 @@ TRAIN_F32_LOSS_REL = 1e-4
 TRAIN_F32_GRAD_NORM_REL = 1e-4
 TRAIN_F32_PARAM_STEPS = 0.1
 N_REQUESTS = N_TRAIN_STEPS = 4
+# phases 7-8: the --only_test run evaluates the stored model on the same
+# batches at the same widths as the training run's final test evaluation
+CLI_TEST_LOSS_REL = 1e-5
+# phases 7-8: the CLI flags of each family (besides --epochs=2 and the checkpoint flags)
+CLI_FLAGS = {
+    "conformer": ["--experiment_type=b2p2t_gru+w2v_conformer", "--batch_size=32", "--return_best_model=true"],
+    "w2v": ["--experiment_type=b2p2t_gru+w2v", "--batch_size=64", "--loss_function=ctc",
+            "--early_stopping_patience=10", "--learning_rate=0.0001", "--return_best_model=true",
+            "--encoder_learnable_inital_state=false", "--unfreeze_strategy=brain_encoder+w2v",
+            "--weight_decay=0.0001", "--encoder_dropout=0.45", "--gaussian_smooth_width=1.5",
+            "--w2v_learning_rate=0.00001", "--w2v_warmup_steps=3", "--w2v_warmup_start_step=7",
+            "--whiteNoiseSD=0.02", "--constantOffsetSD=0.25", "--encoder_fc_hidden_sizes=[]",
+            "--encoder_gru_hidden_size=1024", "--encoder_num_gru_layers=3"],
+}
 LN_EPS = 1e-5
 # the bound's rates (NVIDIA's data sheet for the H100 SXM, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -938,6 +971,113 @@ def train_phase(dev, device_name, power, family):
     return launches, N_TRAIN_STEPS / wall, n / wall
 
 
+def _cli_run(argv):
+    """run.main(argv) on the card; (experiment, wall seconds)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch import run
+
+    t = time.perf_counter()
+    exp = run.main(argv)
+    torch.cuda.synchronize()
+    return exp, time.perf_counter() - t
+
+
+def cli_phase(device_name, power, family):
+    """Phases 7 and 8; returns the launches of the CLI training run."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    common = ["--w2v_skip_loading_weights=true", "--epochs=2", "--checkpoint_every_n_epochs=1",
+              f"--seed={SEED}"]
+    argv = CLI_FLAGS[family] + common
+    print(f"  python -m wav2vec2forbrain_tpu_torch.run {' '.join(argv)}")
+    kernels.reset_launches()
+    exp, wall = _cli_run(argv + [f"--results_subdir_name={family}_train"])
+    launches = dict(kernels.LAUNCHES)
+    results = exp.results_dir
+    for name in ("config.json", "history.json", "metrics.jsonl", "model.pt", os.path.join("train_state", "state.pt")):
+        if not os.path.exists(os.path.join(results, name)):
+            fail(f"{family} CLI: {name} missing from {results}")
+    if exp.device.type != "cuda" or not all(p.is_cuda for p in tree_leaves(exp.params) + tree_leaves(exp.model_state)):
+        fail(f"{family} CLI: the experiment left the card ({exp.device})")
+    with open(os.path.join(results, "history.json")) as f:
+        hist = json.load(f)
+    with open(os.path.join(results, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [e[s]["average"]["loss"] for e in hist["epochs"] for s in ("train", "val")]
+    test_loss = hist["test"]["average"]["loss"]
+    if len(hist["epochs"]) != 2 or not all(math.isfinite(x) for x in losses + [test_loss]):
+        fail(f"{family} CLI: {len(hist['epochs'])} epochs, losses {losses}, test {test_loss}")
+    sps = [r["train_samples_per_sec"] for r in rows if "train_samples_per_sec" in r]
+    n_train = len(exp.dataloader_train.dataset)
+    print(f"  training run: {wall:.2f} s wall for 2 epochs of {n_train} samples (batches "
+          f"{[len(b) for b in exp.dataloader_train.iter_index_batches()]}), train samples/s per epoch {sps}, "
+          f"batch widths (T, U) {exp.batch_widths}, on {device_name} ({power})")
+    print(f"  epoch losses (train, val) {[round(x, 4) for x in losses]}; test loss {test_loss!r}, "
+          f"WER {hist['test']['average']['metrics'].get('word_error_rate')}")
+    print(f"  kernel launches in the CLI training run: {json.dumps(launches)}")
+    _check_launches(launches, family, train=True)
+
+    kernels.reset_launches()
+    only, wall_test = _cli_run(argv + [f"--results_subdir_name={family}_only_test", "--only_test=true",
+                                       f"--from_checkpoint={os.path.join(results, 'model.pt')}"])
+    test_launches = dict(kernels.LAUNCHES)
+    pred_path = os.path.join(only.results_dir, "test_predictions.json")
+    if not os.path.exists(pred_path):
+        fail(f"{family} CLI: test_predictions.json missing from {only.results_dir}")
+    with open(pred_path) as f:
+        only_loss = json.load(f)["average"]["loss"]
+    rel = abs(only_loss - test_loss) / abs(test_loss)
+    print(f"  --only_test run: {wall_test:.2f} s wall; test loss {only_loss!r} vs the training run's "
+          f"{test_loss!r}: rel {rel:.2e} (bound {CLI_TEST_LOSS_REL:.0e}), bitwise equal {only_loss == test_loss}")
+    print(f"  kernel launches in the --only_test run: {json.dumps(test_launches)}")
+    _check_launches(test_launches, family, train=False)
+    if not (math.isfinite(only_loss) and rel <= CLI_TEST_LOSS_REL):
+        fail(f"{family} CLI: the --only_test loss {only_loss} is not the training run's {test_loss}")
+    select.set_kernel_policy("auto")
+    del exp, only
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cli_phases(device_name, power):
+    """Phases 7-8 in a scratch dir under build/ (git-ignored), removed after."""
+    import shutil
+
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_synthetic_splits_dir
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    try:
+        t = time.perf_counter()
+        # train/: 2 sessions x 40 trials in 8 blocks -> test 10, train 70 (32 + 32 + 6 at batch 32, 64 + 6
+        # at 64); test/ (the val split): 2 x 12 -> val 24
+        make_synthetic_splits_dir(os.path.join(work, "t12"), n_trials=40, n_blocks=8, test_dir_n_trials=12,
+                                  seed=SEED, min_frames=200, max_frames=700)
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            f.write(f"cache_dir: {work}/cache\nfig_dir: {work}/figs\n"
+                    f"n3gram_lm_model_path: {work}/missing_3gram.arpa\n"
+                    f"n5gram_lm_model_path: {work}/missing_5gram.arpa\n"
+                    f"dataset_splits_dir: {work}/t12\nwandb_api_key: offline\n")
+        print(f"  synthetic T12 splits and config.yaml written in {time.perf_counter() - t:.2f} s")
+        os.chdir(work)  # the CLI reads ./config.yaml
+        out = {}
+        for i, family in enumerate(("conformer", "w2v")):
+            print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
+            out[family] = cli_phase(device_name, power, family)
+        return out
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -988,15 +1128,20 @@ def main() -> None:
         print(f"[{4 + 2 * i}] training: {FAMILY_NAMES[family]}")
         train[family] = train_phase(dev, device_name, power, family)
         torch.cuda.synchronize()
+    cli = cli_phases(device_name, power)
 
     rows = []
     for name, label in ROW_LABELS.items():
         mine = [r for r in results if r["name"] == name]
         at = next(r for r in mine if r["label"] == label)
         by_path = {f"{fam}_train": train[fam][0][name] for fam in train}
+        by_path.update({f"{fam}_cli": cli[fam][name] for fam in cli})
         launches = sum(by_path.values())
         if launches <= 0:
             fail(f"{name}: launched in no training run")
+        for fam in cli:
+            if (by_path[f"{fam}_cli"] > 0) != (name.split("_bwd")[0] in PATH_KERNELS[fam]):
+                fail(f"{name}: {by_path[f'{fam}_cli']} launches in the {fam} CLI run")
         rows.append({
             "name": name,
             "route": "cuda",

@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch port, its tokenizer against the JAX
-package's, and chip_smoke.py's refusal to run without a CUDA card.
+package's, and the refusal of chip_smoke.py and of the port's CLI
+(run.py) to run without a CUDA card unless asked for the CPU.
 
-The GPU machine has no jax and no pydantic, so neither the port nor
-chip_smoke.py may import them, not even indirectly; nor do they import the
-JAX package itself."""
+The GPU machine has no jax, pydantic, yaml, flax or optax, so neither the
+port nor chip_smoke.py may import them, not even indirectly; nor do they
+import the JAX package itself."""
 
 import os
 import pkgutil
@@ -20,7 +21,7 @@ from wav2vec2forbrain_tpu.data.tokenizer import Wav2Vec2CTCTokenizer as JaxToken
 from wav2vec2forbrain_tpu_torch.data.tokenizer import W2V_CTC_VOCAB, Wav2Vec2CTCTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "pydantic", "optax", "flax", "transformers")
+BLOCKED = ("jax", "jaxlib", "pydantic", "optax", "flax", "transformers", "yaml")
 
 
 def _port_modules():
@@ -45,7 +46,14 @@ def test_port_and_chip_smoke_import_without_jax_or_pydantic():
             "wav2vec2forbrain_tpu_torch.models.seeds", "wav2vec2forbrain_tpu_torch.train.optim",
             "wav2vec2forbrain_tpu_torch.train.steps", "wav2vec2forbrain_tpu_torch.train.train_loop",
             "wav2vec2forbrain_tpu_torch.profile_train", "wav2vec2forbrain_tpu_torch.tree",
-            "wav2vec2forbrain_tpu_torch.ops.layernorm", "wav2vec2forbrain_tpu_torch.models.wav2vec2"} <= set(modules)
+            "wav2vec2forbrain_tpu_torch.ops.layernorm", "wav2vec2forbrain_tpu_torch.models.wav2vec2",
+            "wav2vec2forbrain_tpu_torch.run", "wav2vec2forbrain_tpu_torch.args.flags",
+            "wav2vec2forbrain_tpu_torch.args.argparsing", "wav2vec2forbrain_tpu_torch.args.yaml_config",
+            "wav2vec2forbrain_tpu_torch.experiments.impl", "wav2vec2forbrain_tpu_torch.experiments.registry",
+            "wav2vec2forbrain_tpu_torch.data.dataset", "wav2vec2forbrain_tpu_torch.data.loader",
+            "wav2vec2forbrain_tpu_torch.data.preprocessing", "wav2vec2forbrain_tpu_torch.train.checkpoint",
+            "wav2vec2forbrain_tpu_torch.train.logger", "wav2vec2forbrain_tpu_torch.models.pretrained",
+            "wav2vec2forbrain_tpu_torch.util.seq"} <= set(modules)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}
@@ -81,6 +89,35 @@ def test_port_tokenizer_matches_jax_tokenizer(text):
     for group in (True, False):
         assert port.batch_decode(ids, group_tokens=group) == ref.batch_decode(ids, group_tokens=group)
     assert port.decode(port.encode(text), group_tokens=False) == ref.decode(ref.encode(text), group_tokens=False)
+
+
+def test_port_tokenizer_batches_and_resolves_like_jax(tmp_path):
+    texts = ["HELLO WORLD", "A", "", "IT'S"]
+    port, ref = Wav2Vec2CTCTokenizer(), JaxTokenizer()
+    np.testing.assert_array_equal(port(texts).input_ids, ref(texts).input_ids)
+    assert port(texts).input_ids.dtype == ref(texts).input_ids.dtype
+    assert port.get_vocab_list() == ref.get_vocab_list() and port.eos_token_id == ref.eos_token_id
+    (tmp_path / "vocab.json").write_text('{"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, "|": 4, "X": 5}')
+    for name in ("facebook/wav2vec2-base-100h", "some/unknown-checkpoint", str(tmp_path)):
+        assert Wav2Vec2CTCTokenizer.from_pretrained(name).vocab == JaxTokenizer.from_pretrained(name).vocab
+
+
+def test_run_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """The CLI builds its experiment on the card: where there is none it
+    raises before touching any data; it never goes on on the CPU unasked."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text(
+        "".join(f"{k}: {tmp_path}/{k}\n" for k in ("cache_dir", "fig_dir", "n3gram_lm_model_path",
+                                                   "n5gram_lm_model_path", "dataset_splits_dir"))
+        + "wandb_api_key: offline\n")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        run.main(["--experiment_type=b2p2t_gru+w2v_conformer", "--w2v_skip_loading_weights=true"])
+    assert not (tmp_path / "cache_dir").exists()
 
 
 def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):

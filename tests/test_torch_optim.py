@@ -136,8 +136,34 @@ def test_tree_leaves_with_path_matches_jax_paths():
 
 
 def test_make_optimizer_ports_adam_only():
-    with pytest.raises(ValueError, match="sgd"):
-        port_optim.make_optimizer(_labels(_tree(np.random.default_rng(3))), "sgd")
+    """Adam and SGD are the two optimizers the flags allow (--optimizer);
+    SGD has the JAX semantics (momentum 0, weight decay added to the
+    gradient, no moments), held to the JAX make_optimizer over three steps;
+    any other name raises."""
+    with pytest.raises(ValueError, match="rmsprop"):
+        port_optim.make_optimizer(_labels(_tree(np.random.default_rng(3))), "rmsprop")
+    rng = np.random.default_rng(3)
+    params = _tree(rng)
+    labels = _labels(params)
+    trainable, frozen = jax_steps.partition_params(jax.tree_util.tree_map(jnp.asarray, params), labels)
+    tlabels = jax_steps.prune_labels(labels, trainable)
+    tx = jax_optim.make_optimizer(tlabels, "sgd", 1e-2)
+    jstate = tx.init(trainable)
+    tparams = tree_map(lambda a: torch.from_numpy(a.copy()), params)
+    opt = port_optim.make_optimizer(labels, "sgd", 1e-2)
+    pstate = opt.init(tparams)
+    assert pstate.mu is None and pstate.nu is None
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(lambda a: rng.standard_normal(a.shape).astype(np.float32), params)
+        g_t, _ = jax_steps.partition_params(jax.tree_util.tree_map(jnp.asarray, grads), labels)
+        updates, jstate = tx.update(g_t, jstate, trainable)
+        updates = jax_optim.scale_updates_by_lr(updates, tlabels, jnp.float32(BRAIN_LR), jnp.float32(W2V_LR))
+        trainable = optax.apply_updates(trainable, updates)
+        tgrads = tree_map(lambda g, lab: None if lab == "frozen" else torch.from_numpy(g), grads, labels)
+        pstate = opt.step(tparams, tgrads, pstate, BRAIN_LR, W2V_LR)
+    assert pstate.count == 3
+    for r, p in _walk(jax_steps.merge_params(trainable, frozen), tparams):
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=2e-6, atol=1e-7)
 
 
 def test_lr_schedules_match_jax():

@@ -1,9 +1,9 @@
 """wav2vec2forbrain_tpu_torch — the PyTorch + CUDA port of wav2vec2forbrain_tpu.
 
 The JAX package (`wav2vec2forbrain_tpu`) is the reference; this package
-mirrors its layout (`models/`, `ops/`, `train/`) so each module's
-counterpart is easy to find. Plain tensor code is eager PyTorch; every
-Pallas kernel on the ported path is a hand-written CUDA C++ kernel for
+mirrors its layout (`args/`, `data/`, `experiments/`, `models/`, `ops/`,
+`train/`, `util/`) so each module's counterpart is easy to find. Plain
+tensor code is eager PyTorch; every Pallas kernel on the ported path is a hand-written CUDA C++ kernel for
 Hopper (`csrc/*.cu`), built with nvcc at first use and bound with ctypes
 (`ops/kernels.py`).
 
@@ -17,10 +17,19 @@ steps (`train/steps.py::build_train_step`, the Adam port in
 forward and backward: preproc, the biGRU (fused and per direction),
 attention with hash dropout, GLU -> depthwise conv and LayerNorm. The
 entry points put their tensors on the card unless the caller names
-another device (`bridge.py`, `models/seeds.py::StepRng`). Not ported: the
-Trainer's epochs and checkpoints, the CLI, LM decoding, multi-GPU.
+another device (`bridge.py`, `models/seeds.py::StepRng`).
 
-This package never imports jax, optax, flax, transformers or pydantic.
+The CLI, `python -m wav2vec2forbrain_tpu_torch.run --experiment_type=...`
+(`run.py` -> `args/argparsing.py` -> `experiments/impl.py` ->
+`train/train_loop.py::Trainer`), takes the JAX CLI's flags and
+config.yaml, reads the T12 `.mat` splits (`data/`) and trains, evaluates,
+checkpoints (torch files, `train/checkpoint.py`) and predicts on the card
+for both experiment types.
+
+Not ported: the sweep runner, --length_buckets, a msgpack <-> .pt
+converter, pretrained HF weights, LM decoding, analysis, multi-GPU.
+
+This package never imports jax, optax, flax, transformers, pydantic or yaml.
 """
 
 __version__ = "0.1.0"

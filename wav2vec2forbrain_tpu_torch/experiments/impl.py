@@ -1,0 +1,495 @@
+"""Experiment lifecycle: construction, run(), prediction dumps (counterpart
+of wav2vec2forbrain_tpu/experiments/impl.py).
+
+Construction: the flags (args/flags.py) -> seeds -> tokenizer -> the three
+loaders -> the results dir cache_dir/experiment_results/<name>/[subdir]/
+<timestamp> with config.json (and its repro_cmd) -> the model on `device`
+(the card unless the caller asks for another) -> optimizer, steps and LR
+schedules -> --from_checkpoint. run(): logger -> Trainer.train() ->
+model.pt / brain_encoder.pt / history.json / history.png -> or, with
+--only_test, test_predictions.json and its plots.
+
+What the port does differently, or not at all:
+- Checkpoints are torch files of the JAX package's trees (train/checkpoint.py).
+- Pretrained HF weights are not loaded: runs need
+  --w2v_skip_loading_weights=true. `adopt_params` takes given weights
+  (for example the JAX package's, through bridge.params_from_jax) before
+  run().
+- --use_pallas does not gate the hand-written kernels: they are the port's
+  implementation on the card. --pallas_kernels selects them
+  (ops/select.py); --pallas_kernels=none runs the plain versions.
+- --device_data_cache keeps its width rule without the residency
+  (`batch_widths`): "on" runs every batch of a split, predictions too, at
+  the split's dataset-wide (T, U) rounded to --pad_to_multiple /
+  --target_pad_to_multiple; "off" at the collate's width; "auto" is "on"
+  on the card when the splits fit --device_data_cache_max_bytes, "off"
+  elsewhere (the JAX rule on an accelerator and on the CPU).
+- Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
+  --precompile_buckets, --multi_step_chunk, --host_prefetch.
+- Refused with NotImplementedError: more than one device
+  (--mesh_data_parallel / --mesh_model_parallel above 1,
+  --optimizer_state_sharding=zero1), --length_buckets other than "off",
+  --lm_decode_test_predictions=true.
+"""
+
+import json
+import os
+import random
+import sys
+from datetime import datetime
+from typing import Literal
+
+import numpy as np
+import torch
+
+from wav2vec2forbrain_tpu_torch.args.flags import (
+    PRETRAINED_LATENT_SIZES,
+    B2TGruAndW2VArgsModel,
+    B2TGruAndW2VConformerArgsModel,
+    validate,
+)
+from wav2vec2forbrain_tpu_torch.args.yaml_config import YamlConfigModel
+from wav2vec2forbrain_tpu_torch.data.dataset import Brain2TextDataset, dataset_width, time_axis_of
+from wav2vec2forbrain_tpu_torch.data.loader import Brain2TextBatchSampler, DataLoader
+from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
+from wav2vec2forbrain_tpu_torch.models import pretrained
+from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
+from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.ops.select import set_kernel_policy
+from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_subtree
+from wav2vec2forbrain_tpu_torch.train.evaluator import LM_DECODE_NOT_PORTED, EvaluatorWithLMDecoder
+from wav2vec2forbrain_tpu_torch.train.history import TrainHistory
+from wav2vec2forbrain_tpu_torch.train.logger import make_logger
+from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, step_lr, two_module_warmup_schedules
+from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_eval_step, build_train_step
+from wav2vec2forbrain_tpu_torch.train.train_loop import WIRE_DTYPES, Trainer
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch")
+MULTI_GPU_NOT_PORTED = "multi-GPU training is not ported yet: ROADMAP.md, Queue 1, Slice 6 item 8"
+LENGTH_BUCKETS_NOT_PORTED = (
+    "--length_buckets other than 'off' is not ported yet: ROADMAP.md, Queue 1, "
+    "Slice 3 leftovers (the length buckets)"
+)
+USE_PALLAS_NOTE = (
+    "--use_pallas=false: the port's CUDA kernels are its implementation; "
+    "use --pallas_kernels=none to run the plain versions"
+)
+
+
+def _have_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def resolve_device(device) -> torch.device:
+    """The experiment's device; a CUDA device must exist (no fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: the port runs on the card; build the experiment with device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class B2TGruW2VExperimentBase:
+    """Shared lifecycle of the two registered experiment types."""
+
+    ARGS_MODEL = B2TGruAndW2VArgsModel
+    NAME = "b2p2t_gru+w2v"
+    ENCODER_FAMILY = "wav2vec2"
+
+    def __init__(self, config: dict, yamlConfig: YamlConfigModel, device="cuda"):
+        self.base_config = validate(self.ARGS_MODEL, config)
+        self.yaml_config = yamlConfig
+        self.raw_config = config
+        self.device = resolve_device(device)
+        self._refuse_unported()
+
+        cfg = self.base_config
+        np.random.seed(cfg.seed)
+        random.seed(cfg.seed)
+        self.time_axis = time_axis_of(cfg.preprocessing)
+        self.tokenizer = self._create_tokenizer()
+        self.dataloader_train = self._create_dataloader("train")
+        self.dataloader_val = self._create_dataloader("val")
+        self.dataloader_test = self._create_dataloader("test")
+        self.batch_widths = self._resolve_batch_widths()
+
+        subdir = [cfg.results_subdir_name] if cfg.results_subdir_name is not None else []
+        self.results_dir = os.path.join(
+            yamlConfig.cache_dir, "experiment_results", self.get_name(), *subdir,
+            f"{datetime.now():%Y-%m-%d_%H#%M#%S}",
+        )
+        os.makedirs(self.results_dir, exist_ok=True)
+        with open(os.path.join(self.results_dir, "config.json"), "w") as f:
+            config_copy = dict(config)
+            config_copy["repro_cmd"] = "python " + " ".join(sys.argv)
+            json.dump(config_copy, f, indent=5)
+
+        self._log_ignored_flags()
+        self._build_model()
+        self._build_optimizer_and_steps()
+
+        self.checkpoint_history = None
+        if cfg.from_checkpoint is not None:
+            print(f"loading model from checkpoint {cfg.from_checkpoint}")
+            load_into(cfg.from_checkpoint, self.params, self.model_state)
+            history_path = os.path.join(os.path.dirname(cfg.from_checkpoint), "history.json")
+            if os.path.exists(history_path):
+                print("Attempting to load history from checkpoint")
+                try:
+                    self.checkpoint_history = TrainHistory.from_json(history_path)
+                except Exception:
+                    print("Failed to load history from checkpoint")
+
+        self.step_rng = StepRng(cfg.seed + 1, device=self.device)
+        self.logger = None  # created in run()
+        self.can_plot = _have_matplotlib()
+
+    # --- subclass hooks -----------------------------------------------------
+
+    @classmethod
+    def get_args_model(cls):
+        return cls.ARGS_MODEL
+
+    def get_name(self) -> str:
+        return self.NAME
+
+    def get_vocab(self):
+        return self.tokenizer.get_vocab_list()
+
+    # --- construction pieces ------------------------------------------------
+
+    def _refuse_unported(self):
+        cfg = self.base_config
+        if cfg.mesh_data_parallel > 1 or cfg.mesh_model_parallel > 1 or cfg.optimizer_state_sharding == "zero1":
+            raise NotImplementedError(
+                f"{MULTI_GPU_NOT_PORTED} (--mesh_data_parallel={cfg.mesh_data_parallel}, "
+                f"--mesh_model_parallel={cfg.mesh_model_parallel}, "
+                f"--optimizer_state_sharding={cfg.optimizer_state_sharding})"
+            )
+        if cfg.length_buckets != "off":
+            raise NotImplementedError(LENGTH_BUCKETS_NOT_PORTED)
+        if cfg.lm_decode_test_predictions:
+            raise NotImplementedError(LM_DECODE_NOT_PORTED)
+        if not cfg.w2v_skip_loading_weights:
+            raise NotImplementedError(
+                "loading pretrained HF weights needs files from outside the repository and is not "
+                "ported: run with --w2v_skip_loading_weights=true"
+            )
+
+    def _log_ignored_flags(self):
+        cfg = self.base_config
+        ignored = ", ".join(f"--{name}={getattr(cfg, name)}" for name in IGNORED_FLAGS)
+        print(f"XLA/TPU-only flags, parsed and ignored by the port: {ignored}")
+        if not cfg.use_pallas:
+            print(USE_PALLAS_NOTE)
+
+    def _create_tokenizer(self) -> Wav2Vec2CTCTokenizer:
+        cfg = self.base_config
+        if cfg.tokenizer != "wav2vec_pretrained":
+            raise NotImplementedError(f"Tokenizer {cfg.tokenizer} not implemented (only wav2vec_pretrained is live)")
+        if cfg.tokenizer_checkpoint != cfg.wav2vec_checkpoint:
+            print("Warning: tokenizer checkpoint differs from wav2vec checkpoint")
+        return Wav2Vec2CTCTokenizer.from_pretrained(cfg.tokenizer_checkpoint)
+
+    def _create_dataset(self, split: Literal["train", "val", "test"]):
+        return Brain2TextDataset(config=self.base_config, dataset_splits_dir=self.yaml_config.dataset_splits_dir,
+                                 split=split)
+
+    def _create_dataloader(self, split: Literal["train", "val", "test"]):
+        cfg = self.base_config
+        ds = self._create_dataset(split)
+        collate = ds.get_collate_fn(self.tokenizer, pad_to_multiple=cfg.pad_to_multiple,
+                                    target_pad_to_multiple=cfg.target_pad_to_multiple)
+        length_key = None
+        if cfg.length_sorted_batches:
+            t_axis = self.time_axis
+            length_key = lambda i: ds.samples[i].input.shape[t_axis]  # noqa: E731
+        sampler = None
+        if cfg.day_batches:
+            sampler = Brain2TextBatchSampler(ds, cfg.batch_size, shuffle=(split == "train"),
+                                             rng=random.Random(cfg.seed), length_key=length_key)
+        return DataLoader(ds, batch_size=cfg.batch_size, collate_fn=collate, shuffle=(split == "train"),
+                          batch_sampler=sampler, seed=cfg.seed, length_key=length_key)
+
+    def _resolve_batch_widths(self) -> dict:
+        """{split: (T, U)} for the splits whose batches run at the
+        dataset-wide width (--device_data_cache), nothing where they run at
+        the collate's."""
+        cfg = self.base_config
+        mode = cfg.device_data_cache
+        if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
+            return {}
+        loaders = {"train": self.dataloader_train, "val": self.dataloader_val, "test": self.dataloader_test}
+        plans = {
+            split: dataset_width(loader.dataset, self.tokenizer, cfg.pad_to_multiple, cfg.target_pad_to_multiple,
+                                 WIRE_DTYPES[cfg.h2d_dtype].itemsize)
+            for split, loader in loaders.items()
+        }
+        plans = {split: p for split, p in plans.items() if p is not None}
+        total = sum(p[2] for p in plans.values())
+        if mode == "auto" and total > cfg.device_data_cache_max_bytes:
+            print(f"device_data_cache: {total / 1e6:.0f} MB exceeds the "
+                  f"{cfg.device_data_cache_max_bytes / 1e6:.0f} MB budget; batches at the collate's width")
+            return {}
+        widths = {split: p[:2] for split, p in plans.items()}
+        print(f"device_data_cache: batches at the dataset-wide (T, U): {widths}")
+        return widths
+
+    def _encoder_config(self):
+        cfg = self.base_config
+        family, enc_cfg = pretrained.encoder_config_for_checkpoint(cfg.wav2vec_checkpoint)
+        if family != self.ENCODER_FAMILY:
+            raise AssertionError(
+                f"checkpoint {cfg.wav2vec_checkpoint} is a {family} model but experiment "
+                f"{self.get_name()} expects {self.ENCODER_FAMILY}"
+            )
+        if family == "wav2vec2" and getattr(cfg, "w2v_do_stable_layer_norm", False):
+            enc_cfg.do_stable_layer_norm = True
+        return enc_cfg
+
+    def _build_model(self):
+        cfg = self.base_config
+        set_kernel_policy(cfg.pallas_kernels)
+        self.spec = ModelSpec.from_args(
+            cfg,
+            latent_size=PRETRAINED_LATENT_SIZES[cfg.wav2vec_checkpoint],
+            encoder_family=self.ENCODER_FAMILY,
+            encoder_cfg=self._encoder_config(),
+            ctc_loss_reduction=cfg.ctc_loss_reduction,
+            compute_dtype=DTYPES[cfg.compute_dtype],
+            activation_dtype=DTYPES[cfg.activation_dtype],
+        )
+        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.params, self.model_state = init_model_params(generator, self.spec, self.device)
+        if cfg.brain_encoder_path is not None:
+            # a brain-encoder subtree written by store_trained_model
+            copy_into(self.params["brain"], load_tree(cfg.brain_encoder_path)["params"])
+        self.labels = param_labels(self.params, cfg.unfreeze_strategy)
+
+    def adopt_params(self, params: dict, state: dict) -> None:
+        """Take given weights and BN state (trees like the port's, for
+        example bridge.params_from_jax of the JAX package's) before run()."""
+        copy_into(self.params, params)
+        copy_into(self.model_state, state)
+
+    def _step_cfg(self) -> StepConfig:
+        cfg = self.base_config
+        return StepConfig(gradient_clipping=cfg.gradient_clipping, white_noise_sd=cfg.whiteNoiseSD,
+                          constant_offset_sd=cfg.constantOffsetSD)
+
+    def _build_optimizer_and_steps(self):
+        cfg = self.base_config
+        self.optimizer = make_optimizer(
+            self.labels,
+            optimizer=cfg.optimizer,
+            weight_decay=cfg.weight_decay,
+            eps=cfg.optimizer_epsilon,
+            mu_dtype=torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else None,
+            nu_dtype=torch.bfloat16 if cfg.adam_nu_dtype == "bfloat16" else None,
+        )
+        self.opt_state = self.optimizer.init(self.params)
+        self.train_step = build_train_step(self.spec, self.labels, self.optimizer, self._step_cfg())
+        self.eval_step = build_eval_step(self.spec)
+        self.lr_schedules = self._make_lr_schedules()
+
+    def _make_lr_schedules(self) -> LRSchedules:
+        cfg = self.base_config
+        if cfg.unfreeze_strategy == "brain_encoder":
+            for name in ("w2v_learning_rate", "w2v_warmup_steps", "adjust_global_lr_to_w2v_postwarmup_lr"):
+                if getattr(cfg, name) is not None:
+                    raise AssertionError(f"{name} can only be set if unfreeze strategy is brain_encoder+w2v")
+            brain = step_lr(cfg.learning_rate, cfg.scheduler_step_size, cfg.scheduler_gamma)
+            return LRSchedules(brain=brain, w2v=lambda e: 0.0)
+        return two_module_warmup_schedules(
+            cfg.learning_rate,
+            cfg.w2v_warmup_start_step or 0,
+            cfg.w2v_warmup_steps or 0,
+            cfg.w2v_learning_rate if cfg.w2v_learning_rate is not None else cfg.learning_rate,
+            cfg.adjust_global_lr_to_w2v_postwarmup_lr == True,  # noqa: E712
+        )
+
+    # --- evaluator ----------------------------------------------------------
+
+    def create_evaluator(self, mode: Literal["train", "val", "test"], track_non_test_predictions: bool = False):
+        return EvaluatorWithLMDecoder(
+            self.tokenizer,
+            mode,
+            lm_decoder=None,
+            track_non_test_predictions=track_non_test_predictions,
+            lm_decode_test_predictions=self.base_config.lm_decode_test_predictions,
+            crop_lens=self.base_config.greedy_decode_crop_lens,
+        )
+
+    def decode_predictions(self, pred_ids, targets=None):
+        predicted = self.tokenizer.batch_decode(pred_ids, group_tokens=True)
+        labels = self.tokenizer.batch_decode(targets, group_tokens=False) if targets is not None else None
+        return predicted, labels
+
+    # --- checkpointing ------------------------------------------------------
+
+    def store_trained_model(self):
+        save_checkpoint(os.path.join(self.results_dir, "model.pt"), self.params, self.model_state)
+        if getattr(self.base_config, "store_brain_encoder", False):
+            save_subtree(os.path.join(self.results_dir, "brain_encoder.pt"), self.params["brain"])
+
+    # --- run ----------------------------------------------------------------
+
+    def run(self):
+        cfg = self.base_config
+        self.logger = make_logger(
+            self.results_dir,
+            self.raw_config,
+            cfg.use_wandb,
+            wandb_api_key=self.yaml_config.wandb_api_key,
+            wandb_project=self.yaml_config.wandb_project_name,
+            wandb_entity=self.yaml_config.wandb_entity,
+            experiment_name=cfg.experiment_name,
+        )
+        trainer = Trainer(self)
+        if not self.can_plot:
+            print("matplotlib is not installed: history.png and the prediction plots are skipped")
+        try:
+            if not cfg.only_test:
+                history = trainer.train()
+                # adopt the trainer's (possibly best-reloaded) state
+                self.opt_state = trainer.opt_state
+                self.model_state = trainer.model_state
+                if cfg.store_final_model:
+                    self.store_trained_model()
+                with open(os.path.join(self.results_dir, "history.json"), "w") as f:
+                    json.dump(history.to_dict(), f, indent=5)
+                self.plot_results(history)
+            else:
+                test_results = self.run_real_world_test(trainer)
+                self.logger.log(trainer._get_wandb_metrics(test_results, "test"))
+            if cfg.log_results_as_artifact:
+                self._log_results_artifact()
+            print(f"Done. Saved results to {self.results_dir}")
+        finally:
+            self.logger.finish()
+
+    def _log_results_artifact(self):
+        """W&B results artifact; a no-op without an active wandb run."""
+        try:
+            import wandb
+
+            if wandb.run is not None:
+                artifact = wandb.Artifact(name="results", type="experiment_results")
+                artifact.add_dir(f"{self.results_dir}/")
+                wandb.run.log_artifact(artifact)
+        except ImportError:
+            print("log_results_as_artifact: wandb not installed, skipping")
+
+    def plot_results(self, history: TrainHistory):
+        if self.can_plot:
+            history.plot(os.path.join(self.results_dir, "history.png"), loss_name=self.base_config.loss_function)
+
+    def run_real_world_test(self, trainer):
+        test_results = self._predict_and_store(trainer, "test")
+        if self.base_config.predict_on_train:
+            self._predict_and_store(trainer, "train")
+        return test_results
+
+    def _predict_and_store(self, trainer, mode: Literal["train", "test"]):
+        prediction = self._predict(trainer, mode)
+        with open(os.path.join(self.results_dir, f"{mode}_predictions.json"), "w") as f:
+            json.dump(prediction.to_dict(), f, indent=5)
+        return prediction
+
+    def _predict(self, trainer, mode: Literal["train", "test"]):
+        """Lag-1 pipelined prediction pass: batch i+1 is queued on the device
+        before batch i's logits are fetched and decoded. Batches run at the
+        width the Trainer gives that split, so --only_test reproduces the
+        test loss of the run that stored the model."""
+        dataloader = self.dataloader_train if mode == "train" else self.dataloader_test
+        evaluator = self.create_evaluator("test" if mode == "test" else "train", True)
+        n = len(dataloader)
+        pending = None
+        plots = self.can_plot
+
+        def process(outs, host_batch, true_b, i):
+            loss, logits, logit_lens, pred_ids, _metrics = outs
+            preds = {
+                "loss": float(loss),
+                "pred_ids": pred_ids[:true_b].cpu().numpy(),
+                "logits": logits[:true_b].cpu().numpy(),
+                "logit_lens": logit_lens[:true_b].cpu().numpy(),
+            }
+            evaluator.track_batch(preds, host_batch)
+            if plots and i < self.base_config.visualize_predictions_n_batches:
+                out_dir = os.path.join(self.results_dir, f"{mode}_predictions")
+                os.makedirs(out_dir, exist_ok=True)
+                self.visualize_predictions(host_batch, preds, os.path.join(out_dir, f"batch_{i}.png"), i)
+            print(f"Running predictions on {mode}. Batch {i + 1}/{n} done\r", end="")
+
+        for i, host_batch in enumerate(dataloader):
+            batch, true_b = trainer._put(host_batch, mode)
+            outs = trainer.eval_step(trainer.params, trainer.model_state, batch)
+            if pending is not None:
+                process(*pending)
+            pending = (outs, host_batch, true_b, i)
+        if pending is not None:
+            process(*pending)
+        result = evaluator.evaluate()
+        evaluator.clean_up()
+        return result
+
+    def visualize_predictions(self, batch, preds, out_path: str, batch_id: int):
+        """Per-sample probability tables."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from matplotlib.colors import Normalize
+
+        vocab = self.get_vocab()
+        logits = preds["logits"]
+        probs = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        probs = probs / probs.sum(axis=-1, keepdims=True)
+        batch_size, seq_len, vocab_size = probs.shape
+        nrows = min(batch_size, 4)
+        px = 1 / plt.rcParams["figure.dpi"]
+        fig, _axs = plt.subplots(
+            nrows=nrows,
+            figsize=(max(seq_len * 18 * px, 4), max(((vocab_size + 1) * 1.5) * nrows * 18 * px, 4)),
+        )
+        axs = np.atleast_1d(_axs)
+        norm = Normalize(vmin=0, vmax=1)
+        pred_strs, label_strs = self.decode_predictions(
+            np.argmax(probs, axis=-1), np.asarray(batch.target) if batch.target is not None else None
+        )
+        for sample_index in range(nrows):
+            ax = axs[sample_index]
+            ax.imshow(probs[sample_index].T, aspect="auto", cmap="Blues", norm=norm, interpolation="nearest")
+            ax.set_yticks(range(vocab_size))
+            ax.set_yticklabels(vocab, fontsize=5)
+            ax.set_xlabel("frame")
+            title = f"pred: {pred_strs[sample_index]!r}"
+            if label_strs is not None:
+                title += f"  target: {label_strs[sample_index]!r}"
+            ax.set_title(title, fontsize=7)
+        plt.tight_layout()
+        plt.savefig(out_path)
+        plt.close(fig)
+
+
+class B2TGruAndW2VExperiment(B2TGruW2VExperimentBase):
+    """b2p2t_gru+w2v: the wav2vec2 family."""
+
+    ARGS_MODEL = B2TGruAndW2VArgsModel
+    NAME = "b2p2t_gru+w2v"
+    ENCODER_FAMILY = "wav2vec2"
+
+
+class B2TGruAndW2VConformerExperiment(B2TGruW2VExperimentBase):
+    """b2p2t_gru+w2v_conformer: the conformer family."""
+
+    ARGS_MODEL = B2TGruAndW2VConformerArgsModel
+    NAME = "b2p2t_gru+w2v_conformer"
+    ENCODER_FAMILY = "conformer"

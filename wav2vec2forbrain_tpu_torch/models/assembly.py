@@ -103,6 +103,43 @@ class ModelSpec:
         else:
             raise ValueError(f"encoder_family {self.encoder_family!r}: expected 'conformer' or 'wav2vec2'")
 
+    @classmethod
+    def from_args(
+        cls,
+        bfe_args,
+        latent_size: int,
+        encoder_family: str,
+        encoder_cfg,
+        ctc_loss_reduction: str = "mean",
+        compute_dtype: torch.dtype = torch.float32,
+        activation_dtype: torch.dtype = torch.float32,
+    ) -> "ModelSpec":
+        """The spec of an experiment's flags (args/flags.py), as the JAX
+        ModelSpec.from_args builds it (without its scan / remat fields)."""
+        return cls(
+            unfolder_kernel_len=bfe_args.unfolder_kernel_len,
+            unfolder_stride_len=bfe_args.unfolder_stride_len,
+            gaussian_smooth_width=bfe_args.gaussian_smooth_width,
+            gru_hidden_size=bfe_args.encoder_gru_hidden_size,
+            gru_bidirectional=bfe_args.encoder_bidirectional,
+            gru_num_layers=bfe_args.encoder_num_gru_layers,
+            gru_bias=bfe_args.encoder_bias,
+            gru_dropout=bfe_args.encoder_dropout,
+            gru_learnable_initial_state=bfe_args.encoder_learnable_inital_state,
+            fc_hidden_sizes=tuple(bfe_args.encoder_fc_hidden_sizes),
+            fc_activation=bfe_args.encoder_fc_activation_function,
+            latent_size=latent_size,
+            encoder_family=encoder_family,
+            w2v_cfg=encoder_cfg if encoder_family == "wav2vec2" else None,
+            conformer_cfg=encoder_cfg if encoder_family == "conformer" else None,
+            ctc_loss_reduction=ctc_loss_reduction,
+            compute_dtype=compute_dtype,
+            activation_dtype=activation_dtype,
+            aux_head_vocab_size=getattr(bfe_args, "aux_head_vocab_size", None),
+            additional_loss_weight=getattr(bfe_args, "additional_loss_weight", None) or 1.0,
+            additional_loss_squared=bool(getattr(bfe_args, "additional_loss_squared", False)),
+        )
+
 
 def init_model_params(generator: torch.Generator, spec: ModelSpec, device) -> Tuple[dict, dict]:
     """Random params + BN state with the JAX init's distributions, created

@@ -22,16 +22,22 @@ PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm")
 _policy = "auto"
 
 
+def validate_kernel_policy(policy: str) -> None:
+    """Raise ValueError unless policy is a valid --pallas_kernels value."""
+    if policy in ("auto", "all", "none"):
+        return
+    names = {s.strip() for s in policy.split(",") if s.strip()}
+    if not names or names - set(KERNELS):
+        raise ValueError(
+            f"kernel policy {policy!r}: expected 'auto', 'all', 'none' or "
+            f"a comma list drawn from {KERNELS}"
+        )
+
+
 def set_kernel_policy(policy: str) -> None:
     """Install the process-wide kernel policy (validated)."""
     global _policy
-    if policy not in ("auto", "all", "none"):
-        names = {s.strip() for s in policy.split(",") if s.strip()}
-        if not names or names - set(KERNELS):
-            raise ValueError(
-                f"kernel policy {policy!r}: expected 'auto', 'all', 'none' or "
-                f"a comma list drawn from {KERNELS}"
-            )
+    validate_kernel_policy(policy)
     _policy = policy
 
 

@@ -14,6 +14,9 @@
   mu_dtype set the arithmetic follows stock optax.scale_by_adam (the decay
   term b1 * mu is taken in the storage dtype); with nu_dtype set, the JAX
   package's scale_by_adam_nu_dtype (everything in f32).
+- SGD (--optimizer=sgd) as torch.optim.SGD at momentum 0 and the JAX
+  package: the weight decay is added to the gradient, p -= lr * (g + wd * p);
+  it keeps no moments (its state's mu / nu are None).
 - clip_by_global_norm: torch clip_grad_norm_ over the whole tree.
 
 The update is a loop over the leaves in PyTorch ops, in place on the
@@ -110,7 +113,8 @@ class Optimizer:
     """make_optimizer's result: init(params) -> state; step(params, grads,
     state, brain_lr, w2v_lr) -> new state, with params updated in place."""
 
-    def __init__(self, labels, weight_decay=0.0, eps=1e-8, mu_dtype=None, nu_dtype=None):
+    def __init__(self, labels, weight_decay=0.0, eps=1e-8, mu_dtype=None, nu_dtype=None, kind="adam"):
+        self.kind = kind
         self.labels = labels
         self.weight_decay = weight_decay
         self.eps = eps
@@ -118,6 +122,9 @@ class Optimizer:
         self.nu_dtype = nu_dtype
 
     def init(self, params) -> AdamState:
+        if self.kind == "sgd":
+            return AdamState(0, None, None)
+
         def zeros(p, label, dtype):
             if label == "frozen":
                 return None
@@ -134,6 +141,18 @@ class Optimizer:
         LayerDrop skipped)."""
         lr_of = {"brain": float(brain_lr), "w2v": float(w2v_lr)}
         count = state.count + 1
+        if self.kind == "sgd":
+
+            def sgd_leaf(p, g, label):
+                if label == "frozen" or (g is None and self.weight_decay == 0.0):
+                    return
+                g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                if self.weight_decay != 0.0:
+                    g = g + self.weight_decay * p
+                p.add_((g * (-lr_of[label])).to(p.dtype))
+
+            tree_map(sgd_leaf, params, grads, self.labels)
+            return AdamState(count, None, None)
         # the f32 bias corrections 1 - b ** count, held as python floats
         # (exact f32 values, so no per-leaf device copies)
         bc1 = float(1.0 - torch.tensor(B1) ** float(count))
@@ -167,8 +186,8 @@ class Optimizer:
 
 def make_optimizer(labels, optimizer: str = "adam", weight_decay: float = 0.0, eps: float = 1e-8,
                    mu_dtype=None, nu_dtype=None) -> Optimizer:
-    """The two trained groups share one rule; frozen leaves get no update.
-    `optimizer` keeps the JAX package's signature; only "adam" is ported."""
-    if optimizer != "adam":
+    """The two trained groups share one rule ("adam" or "sgd"); frozen
+    leaves get no update."""
+    if optimizer not in ("adam", "sgd"):
         raise ValueError(f"Optimizer {optimizer} not implemented")
-    return Optimizer(labels, weight_decay, eps, mu_dtype, nu_dtype)
+    return Optimizer(labels, weight_decay, eps, mu_dtype, nu_dtype, kind=optimizer)
