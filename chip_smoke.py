@@ -85,17 +85,38 @@ Phases, each of which exits nonzero on failure:
      the card, exactly the family's kernels launched in each run, and the
      --only_test test loss is within CLI_TEST_LOSS_REL of the training
      run's; prints each run's wall time, train samples/s and launch counts.
+     A third run is the paper's decode: --only_test=true
+     --lm_decode_test_predictions=true --length_buckets=exact from the same
+     model.pt, with config.yaml's n3gram_lm_model_path at a 3-gram ARPA
+     written from the synthetic transcripts (maximum-likelihood n-grams).
+     Fails unless the decoder's LM order is 3, every stored test batch has
+     predictions_lm_decoded, word_error_rate_lm_decode and
+     char_error_rate_lm_decode are finite, each batch ran at its collate's
+     width, the params stayed on the card and exactly the family's serving
+     kernels launched; prints the wall, the batch widths, the LM decode's
+     host seconds per batch (beam 100) and the launch counts.
   8. wav2vec2-base CLI: phase 7 for --experiment_type=b2p2t_gru+w2v at the
      fft sweep point (sweeps/b2p2t_gru+w2v_full_fine_tuning.yaml: biGRU 3 x
-     1024, batch 64, its LRs, dropout, smoothing and noise).
+     1024, batch 64, its LRs, dropout, smoothing and noise), without the
+     third run.
+  9. the sweep runner: `wav2vec2forbrain_tpu_torch.sweep` runs
+     sweeps/b2p2t_gru+w2v_training_from_scratch.yaml with --max_runs 2
+     --extra --epochs=1 --length_buckets=4 on phase 7's splits, each point
+     in process (run.main): wav2vec2-base at batch 64, f32, biGRU 1 and 3 x
+     256, which take the fused GRU kernels. Fails unless both points
+     returned 0, summary.jsonl has two rows with a finite test_ctc_loss, the
+     best point is the one with the smaller loss and exactly the path's
+     kernels launched (`gru`, `gru_bwd`, not `gru_dir`); prints each
+     point's wall and the bucket widths.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
-kernel; launches summed over the two training runs and the two CLI
-training runs, by path in `launches_by_path`; `profiler_ms` and
-`library_profiler_ms` null unless the row's device_ms was starved), the
-last line {"ok": true, "device": {...}}.
+kernel; launches summed over the two training runs, the two CLI training
+runs, the LM decode run and the sweep, by path in `launches_by_path`;
+`profiler_ms` and `library_profiler_ms` null unless the row's device_ms
+was starved), the last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -153,8 +174,9 @@ CLI_FLAGS = {
 LN_EPS = 1e-5
 # the bound's rates (NVIDIA's data sheet for the H100 SXM, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-# f32 outside the tensor cores; bf16 tensor cores; f32 products on the TF32 tensor cores (495 TFLOP/s) as
-# three TF32 products each (the split-TF32 attention kernels at f32 compute, the preproc affine products)
+# bf16 products on the tensor cores; every f32 product (matmul, recurrence, convolution, smoothing) at the
+# fastest rate that keeps f32 accuracy: the TF32 tensor cores (495 TFLOP/s) at three TF32 products each, as
+# the split-TF32 kernels do it; other f32 arithmetic (LayerNorm's statistics) at the f32 rate outside them
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 _PALLAS = "wav2vec2forbrain_tpu/ops/"
 REPLACES = {
@@ -177,7 +199,12 @@ SOURCES = {name: "wav2vec2forbrain_tpu_torch/csrc/{}.cu".format(name.split("_bwd
 PATH_KERNELS = {
     "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm"),
     "w2v": ("preproc", "gru_dir", "attention", "layernorm"),
+    "w2v_sweep": ("preproc", "gru", "attention", "layernorm"),  # biGRU H 256: the fused entry
 }
+# phase 7's third run (the paper's decode) and phase 9 (the sweep runner)
+LM_FLAGS = ["--only_test=true", "--lm_decode_test_predictions=true", "--length_buckets=exact"]
+SWEEP_YAML = os.path.join("sweeps", "b2p2t_gru+w2v_training_from_scratch.yaml")
+SWEEP_EXTRA = ["--epochs=1", "--length_buckets=4"]
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -451,6 +478,10 @@ def kernel_phases(dev, results):
     def cd_name(cd):
         return str(cd)[6:]
 
+    def product_rate(cd):
+        """The PEAK_FLOPS key of products in the compute dtype cd."""
+        return "tf32x3" if cd == f32 else cd_name(cd)
+
     def preproc_rows(gen, batch, sigma, others=False):
         """preproc at T=384, days spread over 0..23 (the chain is f32 only);
         with `others` the forward also at T=99 and at kernel_len 20, stride 3."""
@@ -465,8 +496,7 @@ def kernel_phases(dev, results):
         if others:
             shapes += [(x[:, :99].contiguous(), 32, 4, f"B{batch} T99 sigma{sigma} f32"), (x, 20, 3, f"{label} k20 s3")]
         for xs, k, stride, at in shapes:
-            # the affine products at the rate the card does them at the f32 tolerance (split TF32)
-            ops = [(2 * xs.numel() * 256, "tf32x3"), (2 * xs.numel() * taps.numel(), "float32")]
+            ops = [(2 * xs.numel() * 256, "tf32x3"), (2 * xs.numel() * taps.numel(), "tf32x3")]
             compare("preproc", at, lambda: preproc._fwd_kernel(xs, w, b, days, taps, k, stride),
                     lambda: preproc.fused_preproc_plain(xs, w, b, days, taps, k, stride), f32_tol("preproc"),
                     results, (xs, w, b, days, taps), ops)
@@ -476,7 +506,7 @@ def kernel_phases(dev, results):
         # dx through W^T and the per-sample dW: two affine-sized products; the smoothing and its adjoint
         compare("preproc_bwd", label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                 lambda: preproc.fused_preproc_bwd_plain(x, w, b, days, taps, gp), f32_rel_tol("preproc_bwd"),
-                results, (x, w, b, days, taps, gp), [(2 * affine, "tf32x3"), (2 * smooth, "float32")])
+                results, (x, w, b, days, taps, gp), [(2 * affine, "tf32x3"), (2 * smooth, "tf32x3")])
         kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                      {"preproc_bwd_gather": 1, "preproc_bwd_dz_dy": 1, "preproc_bwd_dw_dx": 1})
 
@@ -506,17 +536,16 @@ def kernel_phases(dev, results):
                     if rows is not None and (sd, cd, rate) not in rows:
                         continue
                     label = f"B{batch} T{t} {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
-                    op = "tf32x3" if cd == f32 else cd_name(cd)  # f32 products run as three TF32 ones
                     compare("attention", label,
                             lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77),
                             lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77),
                             f32_tol("attention") if cd == f32 else bf16_tol, results,
-                            (q, k, v), [(2 * qkt, op)], sdpa_fwd)
+                            (q, k, v), [(2 * qkt, product_rate(cd))], sdpa_fwd)
                     compare("attention_bwd", label,
                             lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77),
                             lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77),
                             f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results,
-                            (q, k, v, ga), [(5 * qkt, op)], sdpa_bwd)
+                            (q, k, v, ga), [(5 * qkt, product_rate(cd))], sdpa_bwd)
             del sdpa_out
 
     def attention_f64(q, k, v, ga, heads, scale, rate, seed):
@@ -604,7 +633,7 @@ def kernel_phases(dev, results):
                         lambda: gru._fwd_kernel(gi, w_hh, b_hh, h0, cd, per_dir),
                         lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, h0, cd),
                         f32_tol(name) if cd == f32 else bf16_tol, results,
-                        (gi, w_cd, b_hh, h0), [(step, cd_name(cd))], lib_fwd)
+                        (gi, w_cd, b_hh, h0), [(step, product_rate(cd))], lib_fwd)
                 r = results[-1]  # the forward's time per step
                 per_call, by = (r["ms"], "") if r["profiler_ms"] is None else (r["profiler_ms"], " (profiler)")
                 print(f"  {'':13s} {label:42s} {1e3 * per_call / gi.shape[0]:.2f} us per step{by}")
@@ -614,7 +643,7 @@ def kernel_phases(dev, results):
                         lambda: gru.gru_recurrence_bwd_plain(gi, w_hh, b_hh, h0, ys, gy, cd, per_dir),
                         f32_rel_tol(f"{name}_bwd") if cd == f32 else bf16_tol, results,
                         (gi, w_cd, b_hh, h0, ys, gy),
-                        [(2 * step, cd_name(cd)), (step, "float32" if per_dir else cd_name(cd))], lib_bwd)
+                        [(2 * step, product_rate(cd)), (step, "tf32x3" if per_dir else product_rate(cd))], lib_bwd)
                 if not per_dir:  # the backward's kernels: hprev, gh, the step launches (T + 1), dW
                     kernel_split(label, lambda: gru._bwd_kernel(gi, w_hh, b_hh, h0, ys, gy, cd),
                                  {"gru_hprev": 1, "gru_gh": 1, "gru_bwd_step": gi.shape[0] + 1, "gru_dw": 1})
@@ -645,12 +674,12 @@ def kernel_phases(dev, results):
                     lambda: conv_glu._fwd_kernel(y, wdw, cd),
                     lambda: conv_glu.glu_dwconv_plain(y, wdw, cd),
                     f32_tol("conv_glu") if exact else bf16_tol, results,
-                    (y, wdw), [(conv, cd_name(cd))])
+                    (y, wdw), [(conv, product_rate(cd))])
             compare("conv_glu_bwd", label,
                     lambda: conv_glu._bwd_kernel(y, wdw, dz, cd),
                     lambda: conv_glu.glu_dwconv_bwd_plain(y, wdw, dz, cd),
                     f32_rel_tol("conv_glu_bwd") if exact else bf16_tol, results,
-                    (y, wdw, dz), [(2 * conv, cd_name(cd))])
+                    (y, wdw, dz), [(2 * conv, product_rate(cd))])
 
     # 5. LayerNorm at the wav2vec2-base (64 x 89 x 768) and conformer (32 x
     # 89 x 1024) shapes, f32 and bf16 streams. The library call: F.layer_norm
@@ -984,7 +1013,8 @@ def _cli_run(argv):
 
 
 def cli_phase(device_name, power, family):
-    """Phases 7 and 8; returns the launches of the CLI training run."""
+    """Phases 7 and 8; returns {path: launches} of the CLI training run (and
+    of the conformer's LM decode run)."""
     import math
 
     import torch
@@ -1040,14 +1070,185 @@ def cli_phase(device_name, power, family):
     if not (math.isfinite(only_loss) and rel <= CLI_TEST_LOSS_REL):
         fail(f"{family} CLI: the --only_test loss {only_loss} is not the training run's {test_loss}")
     select.set_kernel_policy("auto")
-    del exp, only
+    del only
+    torch.cuda.empty_cache()
+    out = {f"{family}_cli": launches}
+    if family == "conformer":
+        out["conformer_lm"] = lm_run(argv, os.path.join(results, "model.pt"), device_name, power)
+    del exp
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_arpa(sentences, path):
+    """A 3-gram ARPA of the sentences' maximum-likelihood n-grams (with <s>
+    and </s>; every n-gram's prefix is an (n-1)-gram, backoffs log10 0.5)."""
+    import math
+    from collections import Counter
+
+    counts = [Counter() for _ in range(3)]
+    for sentence in sentences:
+        words = ["<s>"] + sentence.upper().split() + ["</s>"]
+        for n in range(3):
+            for i in range(len(words) - n):
+                counts[n][tuple(words[i:i + n + 1])] += 1
+    counts[0][("<unk>",)] = 1
+    total = sum(c for w, c in counts[0].items() if w != ("<s>",))
+    lines = ["\\data\\"] + [f"ngram {n + 1}={len(counts[n])}" for n in range(3)]
+    for n in range(3):
+        lines += ["", f"\\{n + 1}-grams:"]
+        for gram, c in sorted(counts[n].items()):
+            denom = total if n == 0 else counts[n - 1][gram[:-1]]
+            logp = -99.0 if gram == ("<s>",) else math.log10(c / denom)
+            backoff = "" if n == 2 or gram[-1] == "</s>" else f"\t{math.log10(0.5):.4f}"
+            lines.append(f"{logp:.6f}\t{' '.join(gram)}{backoff}")
+    lines += ["", "\\end\\", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+@contextlib.contextmanager
+def recorded_widths():
+    """[(split, time width run, the collate's time width)] of every batch
+    Trainer._put puts on the card while the block runs."""
+    from wav2vec2forbrain_tpu_torch.train import train_loop
+
+    put = train_loop.Trainer._put
+    seen = []
+
+    def recording(self, batch, split):
+        out = put(self, batch, split)
+        axis = 1 + self.experiment.time_axis
+        seen.append((split, out[0].input.shape[axis], batch.input.shape[axis]))
+        return out
+
+    train_loop.Trainer._put = recording
+    try:
+        yield seen
+    finally:
+        train_loop.Trainer._put = put
+
+
+@contextlib.contextmanager
+def timed_decodes():
+    """Host seconds of every CTCBeamDecoder.decode_batch call while the block runs."""
+    from wav2vec2forbrain_tpu_torch.decode import lm_decode
+
+    decode = lm_decode.CTCBeamDecoder.decode_batch
+    seconds = []
+
+    def timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = decode(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    lm_decode.CTCBeamDecoder.decode_batch = timed
+    try:
+        yield seconds
+    finally:
+        lm_decode.CTCBeamDecoder.decode_batch = decode
+
+
+def lm_run(argv, model_path, device_name, power):
+    """Phase 7's third run; returns its launches."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    flags = argv + ["--results_subdir_name=conformer_lm", *LM_FLAGS, f"--from_checkpoint={model_path}"]
+    print(f"  python -m wav2vec2forbrain_tpu_torch.run ... {' '.join(flags[len(argv):])}")
+    kernels.reset_launches()
+    with recorded_widths() as widths, timed_decodes() as decode_s:
+        exp, wall = _cli_run(flags)
+    launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(exp.results_dir, "test_predictions.json")) as f:
+        pred = json.load(f)
+    order = exp.lm_decoder.decoder.lm_order
+    metrics = pred["average"]["metrics"]
+    lm_wer, lm_cer = metrics.get("word_error_rate_lm_decode"), metrics.get("char_error_rate_lm_decode")
+    print(f"  LM decode run: {wall:.2f} s wall; LM order {order}; test loss {pred['average']['loss']!r}; "
+          f"WER {metrics.get('word_error_rate')} CER {metrics.get('char_error_rate')}; "
+          f"LM WER {lm_wer} CER {lm_cer}; on {device_name} ({power})")
+    print(f"  batch widths (split, run, collate): {widths}; length buckets {exp.t_buckets}")
+    print(f"  LM decode host seconds per test batch (beam {exp.base_config.lm_decode_beam_width}, "
+          f"{len(pred['history'])} batches): {[round(x, 4) for x in decode_s]}")
+    print(f"  kernel launches in the LM decode run: {json.dumps(launches)}")
+    if order != 3:
+        fail(f"conformer LM decode: the decoder's LM order is {order}, not 3")
+    if not pred["history"] or not all("predictions_lm_decoded" in b["batch"] for b in pred["history"]):
+        fail("conformer LM decode: a stored test batch lacks predictions_lm_decoded")
+    if not (lm_wer is not None and lm_cer is not None and math.isfinite(lm_wer) and math.isfinite(lm_cer)):
+        fail(f"conformer LM decode: LM WER {lm_wer}, CER {lm_cer}")
+    if not exp.t_buckets or not widths or any(run != collate for _, run, collate in widths):
+        fail(f"conformer LM decode: batches off their collate's width under exact buckets: {widths}, "
+             f"buckets {exp.t_buckets}")
+    if exp.device.type != "cuda" or not all(p.is_cuda for p in tree_leaves(exp.params) + tree_leaves(exp.model_state)):
+        fail(f"conformer LM decode: the experiment left the card ({exp.device})")
+    _check_launches(launches, "conformer", train=False)
+    del exp
     torch.cuda.empty_cache()
     return launches
 
 
+def sweep_phase(work, device_name, power):
+    """Phase 9; returns the sweep's launches."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch import sweep
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [os.path.join(repo, SWEEP_YAML), "--max_runs", "2", "--config_yaml", os.path.join(work, "config.yaml"),
+            "--extra", *SWEEP_EXTRA, f"--seed={SEED}"]
+    print(f"  python -m wav2vec2forbrain_tpu_torch.sweep {' '.join(argv)}")
+    points = []  # (wall, buckets, [(split, width run, collate width)], params on the card)
+    kernels.reset_launches()
+    with recorded_widths() as widths:
+        def launch(flags):
+            start = len(widths)
+            exp, wall = _cli_run(flags)
+            points.append((wall, exp.t_buckets, widths[start:], all(p.is_cuda for p in tree_leaves(exp.params))))
+            return 0
+
+        summary, best = sweep.main(argv, launch=launch)
+    launches = dict(kernels.LAUNCHES)
+    torch.cuda.empty_cache()
+    with open(summary) as f:
+        rows = [json.loads(line) for line in f]
+    for (wall, buckets, seen, on_card), row in zip(points, rows):
+        print(f"  point {row['run']} {row['params']}: {wall:.2f} s wall, test_ctc_loss {row['test_ctc_loss']!r}, "
+              f"rc {row['returncode']}, params on the card {on_card}")
+        print(f"    length buckets {buckets}; batch widths (split, run, collate) {seen}")
+    print(f"  best {best}; on {device_name} ({power})")
+    print(f"  kernel launches in the sweep: {json.dumps(launches)}")
+    losses = [row["test_ctc_loss"] for row in rows]
+    if len(rows) != 2 or any(row["returncode"] != 0 for row in rows) or not all(p[3] for p in points):
+        fail(f"sweep: {len(rows)} rows, return codes {[row['returncode'] for row in rows]}, params on the card "
+             f"{[p[3] for p in points]}")
+    if not all(x is not None and math.isfinite(x) for x in losses):
+        fail(f"sweep: test_ctc_loss {losses}")
+    if best is None or best[0] != min(losses):
+        fail(f"sweep: best {best} is not the smaller of {losses}")
+    for _, buckets, seen, _ in points:
+        if not buckets or not seen or any(run not in buckets[split] or run < collate for split, run, collate in seen):
+            fail(f"sweep: batches off the --length_buckets=4 grid {buckets}: {seen}")
+    _check_launches(launches, "w2v_sweep", train=True)
+    return launches
+
+
 def cli_phases(device_name, power):
-    """Phases 7-8 in a scratch dir under build/ (git-ignored), removed after."""
+    """Phases 7-9 in a scratch dir under build/ (git-ignored), removed after;
+    {path: launches} of the CLI training runs, the LM decode run and the sweep."""
     import shutil
+
+    from scipy.io import loadmat
 
     from wav2vec2forbrain_tpu_torch.data.synthetic import make_synthetic_splits_dir
 
@@ -1059,19 +1260,25 @@ def cli_phases(device_name, power):
         t = time.perf_counter()
         # train/: 2 sessions x 40 trials in 8 blocks -> test 10, train 70 (32 + 32 + 6 at batch 32, 64 + 6
         # at 64); test/ (the val split): 2 x 12 -> val 24
-        make_synthetic_splits_dir(os.path.join(work, "t12"), n_trials=40, n_blocks=8, test_dir_n_trials=12,
-                                  seed=SEED, min_frames=200, max_frames=700)
+        splits = make_synthetic_splits_dir(os.path.join(work, "t12"), n_trials=40, n_blocks=8, test_dir_n_trials=12,
+                                           seed=SEED, min_frames=200, max_frames=700)
+        sentences = [str(s).strip() for name in sorted(os.listdir(os.path.join(splits, "train")))
+                     for s in loadmat(os.path.join(splits, "train", name))["sentenceText"]]
+        write_arpa(sentences, os.path.join(work, "3gram.arpa"))
         with open(os.path.join(work, "config.yaml"), "w") as f:
             f.write(f"cache_dir: {work}/cache\nfig_dir: {work}/figs\n"
-                    f"n3gram_lm_model_path: {work}/missing_3gram.arpa\n"
+                    f"n3gram_lm_model_path: {work}/3gram.arpa\n"
                     f"n5gram_lm_model_path: {work}/missing_5gram.arpa\n"
                     f"dataset_splits_dir: {work}/t12\nwandb_api_key: offline\n")
-        print(f"  synthetic T12 splits and config.yaml written in {time.perf_counter() - t:.2f} s")
+        print(f"  synthetic T12 splits, a 3-gram ARPA of their {len(sentences)} train sentences and config.yaml "
+              f"written in {time.perf_counter() - t:.2f} s")
         os.chdir(work)  # the CLI reads ./config.yaml
         out = {}
         for i, family in enumerate(("conformer", "w2v")):
             print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
-            out[family] = cli_phase(device_name, power, family)
+            out.update(cli_phase(device_name, power, family))
+        print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
+        out["w2v_sweep"] = sweep_phase(work, device_name, power)
         return out
     finally:
         os.chdir(cwd)
@@ -1089,7 +1296,7 @@ def main() -> None:
         fail(f"needs compute capability 9.0 (Hopper), found {torch.cuda.get_device_capability(0)}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from wav2vec2forbrain_tpu_torch.ops import kernels
+        from wav2vec2forbrain_tpu_torch.ops import kernels, select
     except ImportError as e:
         fail(f"the port package is not beside this script ({e})")
 
@@ -1104,8 +1311,7 @@ def main() -> None:
     power = smi.stdout.strip()
     print(power)  # the card's name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    select.f32_products()
 
     print("[1] build")
     kernels.lib(verbose=True)
@@ -1135,13 +1341,16 @@ def main() -> None:
         mine = [r for r in results if r["name"] == name]
         at = next(r for r in mine if r["label"] == label)
         by_path = {f"{fam}_train": train[fam][0][name] for fam in train}
-        by_path.update({f"{fam}_cli": cli[fam][name] for fam in cli})
+        by_path.update({path: cli[path][name] for path in cli})
         launches = sum(by_path.values())
         if launches <= 0:
             fail(f"{name}: launched in no training run")
-        for fam in cli:
-            if (by_path[f"{fam}_cli"] > 0) != (name.split("_bwd")[0] in PATH_KERNELS[fam]):
-                fail(f"{name}: {by_path[f'{fam}_cli']} launches in the {fam} CLI run")
+        for path in cli:
+            family = path if path in PATH_KERNELS else path.rsplit("_", 1)[0]
+            serving = path.endswith("_lm")
+            want = name.split("_bwd")[0] in PATH_KERNELS[family] and not (serving and name.endswith("_bwd"))
+            if (by_path[path] > 0) != want:
+                fail(f"{name}: {by_path[path]} launches in the {path} run")
         rows.append({
             "name": name,
             "route": "cuda",

@@ -139,8 +139,8 @@ def _preproc_inputs(seed, b=2, t=96):
 
 @pytest.mark.parametrize("sigma,t", [(0.3, 96), (1.5, 99), (0.3, 32)], ids=["s0.3_T96", "s1.5_T99", "s0.3_T32"])
 def test_preproc_bwd_plain_and_function_match_jax_vjp(sigma, t):
-    """Two samples share a day, so the day-table sum (index_add_) is
-    exercised; T 96, a ragged T 99 (T - 32 not a multiple of the stride 4)
+    """Two samples share a day, so the day-table sum (ops/preproc.py::day_sum)
+    is exercised; T 96, a ragged T 99 (T - 32 not a multiple of the stride 4)
     and T 32 (one window), at both smoothing widths the models use."""
     import jax
     import jax.numpy as jnp

@@ -145,7 +145,7 @@ def test_device_data_cache_widths_match(cache, pad, tpad, splits):
         width = dataset_width(got_ds, tok, pad, tpad)
         if cache == "on":
             plan = DeviceDatasetCache.plan(ref_ds, jtok, pad_to_multiple=pad, target_pad_to_multiple=tpad)
-            assert width == (plan._t_full, plan._host_targets.shape[1], plan.nbytes)
+            assert width[:3] == (plan._t_full, plan._host_targets.shape[1], plan.nbytes)
             ref_batches = [tuple(None if a is None else np.asarray(a) for a in b)
                            for b, _, _ in plan.upload().stream(ref_loader, batch_size)]
         else:

@@ -67,8 +67,21 @@ def test_evaluators_match(mode, crop, track):
 
 
 def test_lm_decode_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        evaluator.EvaluatorWithLMDecoder(Wav2Vec2CTCTokenizer(), "test", lm_decode_test_predictions=True)
+    """The LM decode is ported (it no longer raises NotImplementedError):
+    without a decoder the test evaluator decodes greedily, as the JAX one
+    does; with one it raises on a batch that brings no logits."""
+    tok = Wav2Vec2CTCTokenizer()
+    (preds, batch), = _batches(n=1)
+    plain = evaluator.EvaluatorWithLMDecoder(tok, "test", lm_decode_test_predictions=True)
+    ref = jax_evaluator.EvaluatorWithLMDecoder(JaxTokenizer(), "test", lm_decode_test_predictions=True)
+    assert plain.lm_decoder is None and ref.lm_decoder is None
+    plain.track_batch(dict(preds), batch)
+    ref.track_batch(dict(preds), batch)
+    assert plain.evaluate().to_dict() == ref.evaluate().to_dict()
+    with_lm = evaluator.EvaluatorWithLMDecoder(tok, "test", lm_decoder=lambda logits, lens: [""] * len(lens),
+                                               lm_decode_test_predictions=True)
+    with pytest.raises(ValueError, match="logits"):
+        with_lm.track_batch(dict(preds), batch)
 
 
 def _history(mod, ev_mod, tok):
@@ -188,8 +201,8 @@ def test_trainer_put_matches_the_jax_host_side(wire, width):
     trainer = Trainer.__new__(Trainer)
     trainer.config = validate(B2TGruAndW2VArgsModel, {"batch_size": 5, "h2d_dtype": wire})
     trainer.device = torch.device("cpu")
-    trainer.experiment = SimpleNamespace(batch_widths={} if width is None else {"train": width}, time_axis=0,
-                                         tokenizer=Wav2Vec2CTCTokenizer())
+    trainer.experiment = SimpleNamespace(batch_widths={} if width is None else {"train": width}, t_buckets={},
+                                         time_axis=0, tokenizer=Wav2Vec2CTCTokenizer())
     got, true_b = trainer._put(batch, "train")
     ref = _pad_batch(batch, 5)
     if width is not None:

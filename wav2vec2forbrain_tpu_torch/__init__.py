@@ -26,8 +26,14 @@ config.yaml, reads the T12 `.mat` splits (`data/`) and trains, evaluates,
 checkpoints (torch files, `train/checkpoint.py`) and predicts on the card
 for both experiment types.
 
-Not ported: the sweep runner, --length_buckets, a msgpack <-> .pt
-converter, pretrained HF weights, LM decoding, analysis, multi-GPU.
+The paper's results path: the LM beam-search decode of the test split
+(`decode/lm_decode.py`, a first-party C++ beam search over an ARPA or
+kenlm binary n-gram model, built by g++ at first use into `build/`),
+`--length_buckets` (`train/buckets.py`) and the sweep runner over
+`sweeps/*.yaml` (`python -m wav2vec2forbrain_tpu_torch.sweep`).
+
+Not ported: a msgpack <-> .pt converter, pretrained HF weights, analysis,
+multi-GPU.
 
 This package never imports jax, optax, flax, transformers, pydantic or yaml.
 """

@@ -51,21 +51,23 @@ def process_label(label: str, remove_punctuation: bool) -> str:
 
 def dataset_width(dataset, tokenizer, pad_to_multiple: int = 1, target_pad_to_multiple: int = 1,
                   wire_bytes: int = 4):
-    """(T, U, bytes) of a split's dataset-wide padding bucket, as the JAX
-    package's device data cache plans it (train/device_cache.py): the
-    longest sample's frames and the longest target's tokens, rounded up to
-    the multiples, and the bytes such a cache would hold. None for an empty
-    split."""
+    """(T, U, bytes, lengths) of a split's dataset-wide padding bucket, as
+    the JAX package's device data cache plans it (train/device_cache.py):
+    the longest sample's frames and the longest target's tokens, rounded up
+    to the multiples, the bytes such a cache would hold, and each sample's
+    frames (after resampling, as the collate's input_lens). None for an
+    empty split."""
     n = len(dataset)
     if n == 0:
         return None
     time_axis = time_axis_of(dataset.config.preprocessing)
     samples = [dataset[i] for i in range(n)]
-    t_max = round_up(max(s.input.shape[time_axis] for s in samples), pad_to_multiple)
+    lengths = [s.input.shape[time_axis] for s in samples]
+    t_max = round_up(max(lengths), pad_to_multiple)
     ids = tokenizer([process_label(s.target, dataset.config.remove_punctuation) for s in samples]).input_ids
     u_max = round_up(ids.shape[1], target_pad_to_multiple)
-    per_frame = samples[0].input.size // samples[0].input.shape[time_axis]
-    return t_max, u_max, n * t_max * per_frame * wire_bytes + n * u_max * 4 + 3 * n * 4
+    per_frame = samples[0].input.size // lengths[0]
+    return t_max, u_max, n * t_max * per_frame * wire_bytes + n * u_max * 4 + 3 * n * 4, lengths
 
 
 class B2tSample:

@@ -7,7 +7,12 @@ loaders -> the results dir cache_dir/experiment_results/<name>/[subdir]/
 (the card unless the caller asks for another) -> optimizer, steps and LR
 schedules -> --from_checkpoint. run(): logger -> Trainer.train() ->
 model.pt / brain_encoder.pt / history.json / history.png -> or, with
---only_test, test_predictions.json and its plots.
+--only_test, test_predictions.json and its plots. With
+--lm_decode_test_predictions the test evaluations also decode with the
+n-gram LM of config.yaml's n3gram_lm_model_path (decode/lm_decode.py).
+
+TF32 is off for cuBLAS and cuDNN once an experiment is built: at the
+default f32 compute every product is an f32 product, as in the tests.
 
 What the port does differently, or not at all:
 - Checkpoints are torch files of the JAX package's trees (train/checkpoint.py).
@@ -23,13 +28,18 @@ What the port does differently, or not at all:
   the split's dataset-wide (T, U) rounded to --pad_to_multiple /
   --target_pad_to_multiple; "off" at the collate's width; "auto" is "on"
   on the card when the splits fit --device_data_cache_max_bytes, "off"
-  elsewhere (the JAX rule on an accelerator and on the CPU).
+  elsewhere (the JAX rule on an accelerator and on the CPU). Under "on",
+  --length_buckets runs each batch at its bucket's width (`t_buckets`,
+  train/buckets.py); under "off" buckets change nothing, as in JAX.
+- --only_test runs each test batch at the width the Trainer gives the
+  split (the JAX package runs it at the collate's): its loss is the
+  training run's test loss. The two agree under --device_data_cache=off.
 - Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
-  --precompile_buckets, --multi_step_chunk, --host_prefetch.
+  --precompile_buckets, --multi_step_chunk, --host_prefetch,
+  --length_bucket_order.
 - Refused with NotImplementedError: more than one device
   (--mesh_data_parallel / --mesh_model_parallel above 1,
-  --optimizer_state_sharding=zero1), --length_buckets other than "off",
-  --lm_decode_test_predictions=true.
+  --optimizer_state_sharding=zero1).
 """
 
 import json
@@ -55,9 +65,10 @@ from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models import pretrained
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
-from wav2vec2forbrain_tpu_torch.ops.select import set_kernel_policy
+from wav2vec2forbrain_tpu_torch.ops.select import f32_products, set_kernel_policy
+from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_subtree
-from wav2vec2forbrain_tpu_torch.train.evaluator import LM_DECODE_NOT_PORTED, EvaluatorWithLMDecoder
+from wav2vec2forbrain_tpu_torch.train.evaluator import EvaluatorWithLMDecoder
 from wav2vec2forbrain_tpu_torch.train.history import TrainHistory
 from wav2vec2forbrain_tpu_torch.train.logger import make_logger
 from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, step_lr, two_module_warmup_schedules
@@ -65,12 +76,9 @@ from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_eval_step, 
 from wav2vec2forbrain_tpu_torch.train.train_loop import WIRE_DTYPES, Trainer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch")
-MULTI_GPU_NOT_PORTED = "multi-GPU training is not ported yet: ROADMAP.md, Queue 1, Slice 6 item 8"
-LENGTH_BUCKETS_NOT_PORTED = (
-    "--length_buckets other than 'off' is not ported yet: ROADMAP.md, Queue 1, "
-    "Slice 3 leftovers (the length buckets)"
-)
+IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch",
+                 "length_bucket_order")
+MULTI_GPU_NOT_PORTED = "multi-GPU training is not ported yet: ROADMAP.md, Queue 1, Multi-GPU"
 USE_PALLAS_NOTE = (
     "--use_pallas=false: the port's CUDA kernels are its implementation; "
     "use --pallas_kernels=none to run the plain versions"
@@ -108,6 +116,7 @@ class B2TGruW2VExperimentBase:
         self.raw_config = config
         self.device = resolve_device(device)
         self._refuse_unported()
+        f32_products()
 
         cfg = self.base_config
         np.random.seed(cfg.seed)
@@ -117,7 +126,7 @@ class B2TGruW2VExperimentBase:
         self.dataloader_train = self._create_dataloader("train")
         self.dataloader_val = self._create_dataloader("val")
         self.dataloader_test = self._create_dataloader("test")
-        self.batch_widths = self._resolve_batch_widths()
+        self.batch_widths, self.t_buckets = self._resolve_batch_widths()
 
         subdir = [cfg.results_subdir_name] if cfg.results_subdir_name is not None else []
         self.results_dir = os.path.join(
@@ -147,6 +156,7 @@ class B2TGruW2VExperimentBase:
                     print("Failed to load history from checkpoint")
 
         self.step_rng = StepRng(cfg.seed + 1, device=self.device)
+        self.lm_decoder = None  # built at the first test evaluator
         self.logger = None  # created in run()
         self.can_plot = _have_matplotlib()
 
@@ -172,10 +182,6 @@ class B2TGruW2VExperimentBase:
                 f"--mesh_model_parallel={cfg.mesh_model_parallel}, "
                 f"--optimizer_state_sharding={cfg.optimizer_state_sharding})"
             )
-        if cfg.length_buckets != "off":
-            raise NotImplementedError(LENGTH_BUCKETS_NOT_PORTED)
-        if cfg.lm_decode_test_predictions:
-            raise NotImplementedError(LM_DECODE_NOT_PORTED)
         if not cfg.w2v_skip_loading_weights:
             raise NotImplementedError(
                 "loading pretrained HF weights needs files from outside the repository and is not "
@@ -217,14 +223,15 @@ class B2TGruW2VExperimentBase:
         return DataLoader(ds, batch_size=cfg.batch_size, collate_fn=collate, shuffle=(split == "train"),
                           batch_sampler=sampler, seed=cfg.seed, length_key=length_key)
 
-    def _resolve_batch_widths(self) -> dict:
-        """{split: (T, U)} for the splits whose batches run at the
-        dataset-wide width (--device_data_cache), nothing where they run at
-        the collate's."""
+    def _resolve_batch_widths(self):
+        """({split: (T, U)}, {split: T widths}): the dataset-wide widths of
+        the splits whose batches run at them (--device_data_cache), and
+        their --length_buckets widths; ({}, {}) where batches run at the
+        collate's width."""
         cfg = self.base_config
         mode = cfg.device_data_cache
         if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
-            return {}
+            return {}, {}
         loaders = {"train": self.dataloader_train, "val": self.dataloader_val, "test": self.dataloader_test}
         plans = {
             split: dataset_width(loader.dataset, self.tokenizer, cfg.pad_to_multiple, cfg.target_pad_to_multiple,
@@ -236,10 +243,17 @@ class B2TGruW2VExperimentBase:
         if mode == "auto" and total > cfg.device_data_cache_max_bytes:
             print(f"device_data_cache: {total / 1e6:.0f} MB exceeds the "
                   f"{cfg.device_data_cache_max_bytes / 1e6:.0f} MB budget; batches at the collate's width")
-            return {}
+            return {}, {}
         widths = {split: p[:2] for split, p in plans.items()}
         print(f"device_data_cache: batches at the dataset-wide (T, U): {widths}")
-        return widths
+        t_buckets = {}
+        if cfg.length_buckets != "off":
+            lengths = {split: p[3] for split, p in plans.items()}
+            t_buckets = plan_buckets(lengths, {split: w[0] for split, w in widths.items()}, cfg.length_buckets,
+                                     cfg.pad_to_multiple)
+            if t_buckets:
+                print(f"device_data_cache: length buckets (frames) {sorted({w for b in t_buckets.values() for w in b})}")
+        return widths, t_buckets
 
     def _encoder_config(self):
         cfg = self.base_config
@@ -316,11 +330,32 @@ class B2TGruW2VExperimentBase:
 
     # --- evaluator ----------------------------------------------------------
 
+    def _make_lm_decoder(self):
+        """The LM decode hook, built once an experiment (an n-gram model is
+        parsed once); None without --lm_decode_test_predictions."""
+        cfg = self.base_config
+        if not cfg.lm_decode_test_predictions:
+            return None
+        if self.lm_decoder is None:
+            from wav2vec2forbrain_tpu_torch.decode.lm_decode import make_lm_decoder
+
+            self.lm_decoder = make_lm_decoder(
+                vocab=self.tokenizer.get_vocab_list(),
+                lm_path=self.yaml_config.n3gram_lm_model_path,
+                beam_width=cfg.lm_decode_beam_width,
+                beam_prune_logp=cfg.lm_decode_beam_prune_logp,
+                token_min_logp=cfg.lm_decode_token_min_logp,
+                alpha=cfg.lm_decode_alpha,
+                beta=cfg.lm_decode_beta,
+                score_boundary=cfg.lm_score_boundary,
+            )
+        return self.lm_decoder
+
     def create_evaluator(self, mode: Literal["train", "val", "test"], track_non_test_predictions: bool = False):
         return EvaluatorWithLMDecoder(
             self.tokenizer,
             mode,
-            lm_decoder=None,
+            lm_decoder=self._make_lm_decoder() if mode == "test" else None,
             track_non_test_predictions=track_non_test_predictions,
             lm_decode_test_predictions=self.base_config.lm_decode_test_predictions,
             crop_lens=self.base_config.greedy_decode_crop_lens,
@@ -404,9 +439,10 @@ class B2TGruW2VExperimentBase:
 
     def _predict(self, trainer, mode: Literal["train", "test"]):
         """Lag-1 pipelined prediction pass: batch i+1 is queued on the device
-        before batch i's logits are fetched and decoded. Batches run at the
-        width the Trainer gives that split, so --only_test reproduces the
-        test loss of the run that stored the model."""
+        before batch i's logits are fetched and decoded (the LM decode, where
+        it is on, runs on the evaluator's threads). Batches run at the width
+        the Trainer gives that split, so --only_test reproduces the test loss
+        of the run that stored the model."""
         dataloader = self.dataloader_train if mode == "train" else self.dataloader_test
         evaluator = self.create_evaluator("test" if mode == "test" else "train", True)
         n = len(dataloader)

@@ -10,7 +10,8 @@ g (B, T', 256 * k):
     dW_b = y^T dz, db_b = sum_t dz                 per sample
     dx = smooth with the reversed taps of (dz @ W[day]^T)
 and the per-sample dW/db are summed into the day tables outside the kernel
-(index_add_, the JAX package's segment_sum). The kernels are in
+(`day_sum`, the JAX package's segment_sum, in a fixed order: a run is
+bitwise reproducible in them). The kernels are in
 csrc/preproc.cu; see its header for the design. The forward is two
 launches: the smoothing, the affine on split-TF32 tensor-core products and
 the softsign into a scratch z, held in pieces of four rows of one channel;
@@ -158,10 +159,18 @@ class _FusedPreproc(torch.autograd.Function):
         x, day_weights, day_bias, day_idxs, taps = ctx.saved_tensors
         fn = _bwd_kernel if x.is_cuda else fused_preproc_bwd_plain
         dx, dw_b, db_b = fn(x, day_weights, day_bias, day_idxs, taps, g, *ctx.args)
-        days = day_idxs.long()
-        dw = torch.zeros_like(day_weights).index_add_(0, days, dw_b)
-        db = torch.zeros_like(day_bias).index_add_(0, days, db_b)
-        return dx, dw, db, None, None, None, None
+        n_days = day_weights.shape[0]
+        return dx, day_sum(dw_b, day_idxs, n_days), day_sum(db_b, day_idxs, n_days), None, None, None, None
+
+
+def day_sum(parts: torch.Tensor, day_idxs: torch.Tensor, n_days: int) -> torch.Tensor:
+    """Per-day sums (n_days, ...) of per-sample parts (B, ...) f32: one f32
+    product with the (n_days, B) one-hot of the days, whose sums run in a
+    fixed order (index_add_ adds with float atomics on the card, in the
+    order they land)."""
+    days = torch.arange(n_days, device=parts.device)
+    onehot = (days[:, None] == day_idxs.to(parts.device).long()[None, :]).to(parts.dtype)
+    return (onehot @ parts.reshape(parts.shape[0], -1)).reshape(n_days, *parts.shape[1:])
 
 
 def fused_preproc(

@@ -14,7 +14,12 @@ the policy says.
 
 A routed kernel's wrapper runs the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises.
+
+`f32_products()` is the port's one switch for the libraries' numerics: the
+experiment, `predict.predict` and the chip scripts call it.
 """
+
+import torch
 
 KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout")
 PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm")
@@ -52,3 +57,11 @@ def kernel_enabled(name: str) -> bool:
     if _policy == "none":
         return False
     return name in {s.strip() for s in _policy.split(",") if s.strip()}
+
+
+def f32_products() -> None:
+    """Turn TF32 off for cuBLAS and cuDNN, process-wide, so that f32
+    compute takes f32 products in the library calls too (the w2v pos-conv's
+    cuDNN convolution, the f32 matmuls around the kernels)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

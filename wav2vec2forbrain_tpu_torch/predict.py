@@ -17,6 +17,7 @@ from typing import Callable, Iterable, Optional
 from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch, to_device
 from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec
+from wav2vec2forbrain_tpu_torch.ops import select
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
 from wav2vec2forbrain_tpu_torch.train.history import SingleEpochHistory
 from wav2vec2forbrain_tpu_torch.train.steps import build_eval_step
@@ -31,7 +32,9 @@ def predict(
 ) -> SingleEpochHistory:
     """Run every host batch (numpy B2tBatch) through the eval step and the
     evaluator. on_batch(i, preds), if given, sees each batch's host-side
-    predictions dict (loss, pred_ids, logits, logit_lens, metrics)."""
+    predictions dict (loss, pred_ids, logits, logit_lens, metrics). TF32
+    is turned off for cuBLAS and cuDNN (select.f32_products)."""
+    select.f32_products()
     device = params["w2v"]["lm_head"]["kernel"].device
     eval_step = build_eval_step(spec)
     evaluator = GreedyEvaluator(Wav2Vec2CTCTokenizer())

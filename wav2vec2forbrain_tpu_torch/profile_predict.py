@@ -52,8 +52,7 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    select.f32_products()
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
     spec = ModelSpec(compute_dtype=getattr(torch, args.compute_dtype), activation_dtype=torch.float32, **fields)

@@ -105,8 +105,7 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    select.f32_products()
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
     tr = build_trainer(dev, family=args.family, compute_dtype=getattr(torch, args.compute_dtype))

@@ -1,29 +1,26 @@
-"""Evaluators: greedy decode + WER/CER per batch (counterpart of
+"""Evaluators: greedy decode + WER/CER per batch, and the LM beam-search
+decode of the test split (counterpart of
 wav2vec2forbrain_tpu/train/evaluator.py).
 
-The same classes and metric names (word_error_rate, char_error_rate) as the
-JAX package; tests hold them to the originals on the same predictions. The
-evaluators take argmax ids computed on the device; the greedy decode runs at
-the batch's max logit length, and with --greedy_decode_crop_lens each
-sample's frames past its own length are blanked too. The LM beam-search
-decode (`*_lm_decode` metrics) is not ported yet (ROADMAP, Slice 5):
-asking for it raises.
+The same classes and metric names (word_error_rate, char_error_rate,
+word_error_rate_lm_decode, char_error_rate_lm_decode) as the JAX package;
+tests hold them to the originals on the same predictions. The evaluators
+take argmax ids computed on the device; the greedy decode runs at the
+batch's max logit length, and with --greedy_decode_crop_lens each sample's
+frames past its own length are blanked too. The LM decode takes the test
+batches' logits on the host (decode/lm_decode.py).
 """
 
+import os
 from abc import ABC, abstractmethod
+from concurrent.futures import ThreadPoolExecutor
 from math import isnan, nan
-from typing import Callable, Literal, Optional
+from typing import Callable, List, Literal, Optional
 
 import numpy as np
 
 from wav2vec2forbrain_tpu_torch.train.history import DecodedPredictionBatch, MetricEntry, SingleEpochHistory
 from wav2vec2forbrain_tpu_torch.train.metrics import char_error_rate, word_error_rate
-
-LM_DECODE_NOT_PORTED = (
-    "the LM beam-search decode (--lm_decode_test_predictions=true) is not ported yet: "
-    "ROADMAP.md, Queue 1, Slice 5 item 6"
-)
-
 
 def cut_after_eos_token(string: str, eos_token: str = "</s>") -> str:
     idx = string.find(eos_token)
@@ -109,9 +106,15 @@ class DefaultEvaluator(Evaluator):
 
 
 class EvaluatorWithLMDecoder(DefaultEvaluator):
-    """DefaultEvaluator plus the CER on every batch. An LM decoder on the
-    test split is not ported: passing one with lm_decode_test_predictions
-    raises NotImplementedError."""
+    """DefaultEvaluator plus the CER on every batch and, on the test split
+    with lm_decode_test_predictions, the LM decode.
+
+    `lm_decoder`: callable(logits (B, T', V) f32, logit_lens) -> list[str],
+    run on the host (decode/lm_decode.py::make_lm_decoder). Decodes go to a
+    thread pool (the native decoder releases the GIL), at most two held per
+    worker; each is resolved in batch order, and its metrics are folded into
+    the batch's entry and into the running total before evaluate() returns.
+    The stored batch gains `predictions_lm_decoded`."""
 
     def __init__(
         self,
@@ -121,23 +124,73 @@ class EvaluatorWithLMDecoder(DefaultEvaluator):
         track_non_test_predictions: bool = False,
         lm_decode_test_predictions: bool = False,
         crop_lens: bool = False,
+        lm_decode_workers: int = 0,
     ):
         super().__init__(tokenizer, mode, track_non_test_predictions, crop_lens)
-        if lm_decode_test_predictions and mode == "test":
-            raise NotImplementedError(LM_DECODE_NOT_PORTED)
-        self.lm_decoder = None
+        self.lm_decoder = lm_decoder if (lm_decode_test_predictions and mode == "test") else None
+        self.lm_decoded_batches: List[List[str]] = []
+        self._lm_workers = lm_decode_workers or min(4, os.cpu_count() or 1)
+        self._lm_pool = None
+        self._lm_pending: List[tuple] = []  # (future, MetricEntry, stored dict or None, labels)
+
+    def _submit_lm_decode(self, logits, logit_lens):
+        if self._lm_pool is None:
+            self._lm_pool = ThreadPoolExecutor(max_workers=self._lm_workers, thread_name_prefix="lm-decode")
+        while len(self._lm_pending) >= 2 * self._lm_workers:  # backpressure
+            self._resolve_lm(self._lm_pending.pop(0))
+        return self._lm_pool.submit(self.lm_decoder, np.asarray(logits), np.asarray(logit_lens))
+
+    def _resolve_lm(self, pending):
+        fut, entry, stored, labels = pending
+        lm_decoded = fut.result()
+        lm_metrics = {
+            "word_error_rate_lm_decode": word_error_rate(lm_decoded, labels),
+            "char_error_rate_lm_decode": char_error_rate(lm_decoded, labels),
+        }
+        entry.metrics.update(lm_metrics)
+        # the running total took this entry before its decode finished: fold
+        # the late metrics in with MetricEntry.__iadd__'s semantics
+        total = self.history._total.metrics
+        for k, v in lm_metrics.items():
+            if k in total and total[k] is not None:
+                total[k] += v
+            else:
+                total[k] = v
+        if stored is not None:
+            stored["predictions_lm_decoded"] = lm_decoded
+        self.lm_decoded_batches.append(lm_decoded)
 
     def _track_batch(self, predictions, batch):
         predicted, labels = self.decode_predictions(predictions, batch)
         predicted = [cut_after_eos_token(s) for s in predicted]
         metrics = dict(predictions.get("metrics") or {})
+        lm_future = None
         if labels is not None:
             metrics["word_error_rate"] = word_error_rate(predicted, labels)
+            if self.lm_decoder is not None:
+                if "logits" not in predictions:
+                    raise ValueError("the LM decode needs the batch's logits in the predictions dict")
+                lm_future = self._submit_lm_decode(predictions["logits"], predictions["logit_lens"])
             cer = char_error_rate(predicted, labels)
             if not isnan(cer):
                 metrics["char_error_rate"] = cer
         stored = DecodedPredictionBatch(predicted, labels)._asdict() if self._stores() else None
-        self.history.add_batch_metric(MetricEntry(metrics, float(predictions["loss"])), stored)
+        entry = MetricEntry(metrics, float(predictions["loss"]))
+        self.history.add_batch_metric(entry, stored)
+        if lm_future is not None:
+            self._lm_pending.append((lm_future, entry, stored, labels))
+
+    def evaluate(self) -> SingleEpochHistory:
+        for pending in self._lm_pending:  # in batch order
+            self._resolve_lm(pending)
+        self._lm_pending = []
+        return self.history
+
+    def clean_up(self):
+        if self._lm_pool is not None:
+            self._lm_pool.shutdown(wait=False)
+            self._lm_pool = None
+        super().clean_up()
 
 
 def GreedyEvaluator(tokenizer) -> EvaluatorWithLMDecoder:

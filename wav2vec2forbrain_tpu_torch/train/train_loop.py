@@ -17,7 +17,10 @@ ragged batch's rows up to --batch_size with masked duplicates of its last
 row (the loss and the metrics ignore them; in train mode the conformer's
 BatchNorm batch statistics see them, as in the JAX package), pads the time
 and target axes to the split's width under --device_data_cache (the
-experiment's `batch_widths`) and applies the --h2d_dtype host cast.
+experiment's `batch_widths`; with --length_buckets the time axis to the
+batch's bucket, `t_buckets`) and applies the --h2d_dtype host cast. Where
+the test evaluator decodes with an LM, each test batch's logits come to
+the host with its ids.
 
 Left out, being XLA- or TPU-only: the K-step chunked epochs, the bucket
 precompile, the host prefetch thread and the multi-host fetches.
@@ -35,6 +38,7 @@ import torch
 from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch, to_device
 from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.train.buckets import width_for
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_tree, to_cpu
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
 from wav2vec2forbrain_tpu_torch.train.history import EpochLosses, SingleEpochHistory, TrainHistory
@@ -152,7 +156,11 @@ class Trainer:
         batch = pad_rows(batch, max(self.config.batch_size, true_b))
         width = self.experiment.batch_widths.get(split)
         if width is not None:
-            batch = pad_width(batch, *width, time_axis=self.experiment.time_axis,
+            t, u = width
+            buckets = self.experiment.t_buckets.get(split)
+            if buckets:
+                t = width_for(buckets, int(batch.input_lens.max()))
+            batch = pad_width(batch, t, u, time_axis=self.experiment.time_axis,
                               pad_id=self.experiment.tokenizer.pad_token_id)
         dev = to_device(batch._replace(input=None), self.device)
         x = torch.from_numpy(np.ascontiguousarray(batch.input)).to(WIRE_DTYPES[self.config.h2d_dtype])
@@ -212,15 +220,18 @@ class Trainer:
     def _evaluate_epoch(self, mode: Literal["val", "test"]) -> SingleEpochHistory:
         dataloader = self.dataloader_val if mode == "val" else self.dataloader_test
         evaluator = self.experiment.create_evaluator(mode)
+        need_logits = evaluator.lm_decoder is not None
         n = len(dataloader)
         pending = None
 
         def process(outs, host_batch, true_b, i):
-            loss, _logits, logit_lens, pred_ids, metrics = outs
+            loss, logits, logit_lens, pred_ids, metrics = outs
             preds = {"loss": float(loss), "pred_ids": pred_ids[:true_b].cpu().numpy()}
             if metrics:
                 preds["metrics"] = {k: float(v) for k, v in metrics.items()}
             preds["logit_lens"] = logit_lens[:true_b].cpu().numpy()
+            if need_logits:
+                preds["logits"] = logits[:true_b].cpu().numpy()
             self._track(evaluator, preds, host_batch, i, n)
 
         for i, host_batch in enumerate(dataloader):
