@@ -108,10 +108,36 @@ Phases, each of which exits nonzero on failure:
      best point is the one with the smaller loss and exactly the path's
      kernels launched (`gru`, `gru_bwd`, not `gru_dir`); prints each
      point's wall and the bucket widths.
+ 10. weights in: in phase 7's scratch dir, with its config.yaml, two HF
+     hub-cache snapshots under cache_dir at full width (random values
+     from SEED: the port's init plus seeded noise), in the checkpoints'
+     own key layout (written out here as the converter's inverse):
+     facebook/wav2vec2-base-960h as pytorch_model.bin (pos-conv weight_g /
+     weight_v, and audio front-end keys the converter drops) and
+     facebook/wav2vec2-conformer-rope-large-960h-ft as model.safetensors
+     (`write_safetensors`). a. The first point of
+     sweeps/b2p2t_gru+w2v_frozen_w2v.yaml through the sweep runner in
+     process (--max_runs 1 --extra --epochs=1 --length_buckets=4:
+     w2v-base pretrained, --unfreeze_strategy=brain_encoder, biGRU 1 x
+     256, FC [], batch 64, f32). Fails unless it returned 0 with a finite
+     test_ctc_loss, the converted cache exists, every w2v leaf on the
+     card is bitwise the snapshot's after training, the brain moved, and
+     exactly the w2v_sweep path's kernels launched, forward and backward
+     (the backward runs through the frozen encoder). b. The conformer's
+     default flags with --only_test=true, twice: the first run converts
+     the snapshot and writes the cache, the second reads only the cache.
+     Fails unless the two test losses are bitwise equal, the w2v subtree
+     and the BN state are the snapshot's, the params stayed on the card
+     and exactly the conformer's serving kernels launched. c. `convert
+     to-msgpack` of run a's model.pt, then --only_test=true at run a's
+     flags from the .msgpack and from the .pt. Fails unless the test
+     losses are bitwise equal. Prints each run's wall and the loader's
+     seconds (snapshot read, conversion, cache write, cache read).
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the two CLI training
-runs, the LM decode run and the sweep, by path in `launches_by_path`;
+runs, the LM decode run, the sweep and phase 10's runs a and b, by path
+in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -205,6 +231,16 @@ PATH_KERNELS = {
 LM_FLAGS = ["--only_test=true", "--lm_decode_test_predictions=true", "--length_buckets=exact"]
 SWEEP_YAML = os.path.join("sweeps", "b2p2t_gru+w2v_training_from_scratch.yaml")
 SWEEP_EXTRA = ["--epochs=1", "--length_buckets=4"]
+# phase 10: the frozen-encoder sweep (its first point: w2v-base, biGRU 1 x 256, FC [], batch 64) and the two
+# pretrained checkpoints whose hub-cache snapshots it writes, with each one's weights file
+FROZEN_YAML = os.path.join("sweeps", "b2p2t_gru+w2v_frozen_w2v.yaml")
+SNAPSHOTS = {"facebook/wav2vec2-base-960h": "pytorch_model.bin",
+             "facebook/wav2vec2-conformer-rope-large-960h-ft": "model.safetensors"}
+SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off its init value
+# each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
+CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
+             "w2v_cli": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
+             "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -1243,9 +1279,339 @@ def sweep_phase(work, device_name, power):
     return launches
 
 
+def snapshot_tree(checkpoint, seed):
+    """Full-width random weights of the checkpoint's encoder in the port's
+    layout, on the card: (family, the {"encoder", "lm_head"} tree, the BN
+    state tree). The port's init from `seed`, then seeded noise on every
+    leaf (BN variances scaled, so they stay positive)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models import conformer, fc, pretrained, wav2vec2
+    from wav2vec2forbrain_tpu_torch.tree import tree_map
+
+    family, cfg = pretrained.encoder_config_for_checkpoint(checkpoint)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if family == "conformer":
+        tree = {"encoder": conformer.init_conformer_encoder_params(g, cfg, "cuda"),
+                "lm_head": fc.init_linear(g, cfg.hidden_size, cfg.vocab_size, "cuda")}
+        state = {"encoder": conformer.init_conformer_state(cfg, "cuda")}
+    else:
+        tree = {"encoder": wav2vec2.init_w2v_encoder_params(g, cfg, "cuda"),
+                "lm_head": wav2vec2.init_lm_head_params(g, cfg, "cuda")}
+        state = {"encoder": {}}
+    noise = lambda t: t + SNAPSHOT_NOISE * torch.randn(t.shape, generator=g, device="cuda")  # noqa: E731
+    scale = lambda t: t * (1.0 + torch.rand(t.shape, generator=g, device="cuda"))  # noqa: E731
+    for layer in state["encoder"].get("layers", []):
+        bn = layer["batch_norm"]
+        bn["mean"], bn["var"] = noise(bn["mean"]), scale(bn["var"])
+    return family, tree_map(noise, tree), state
+
+
+def hf_state_dict(family, tree, state):
+    """The checkpoint files' own key layout for a tree in the port's layout
+    (models/convert.py's inverse, written out independently): torch (out,
+    in) linears, the pos-conv as weight_g / weight_v, conv weights (out,
+    in / groups, k), BN running statistics, and keys the converter drops:
+    the audio front end, masked_spec_embed, the rotary inv_freq and the BN
+    counters. CPU tensors, each with a storage of its own."""
+    import torch
+
+    sd = {}
+    base = "wav2vec2_conformer" if family == "conformer" else "wav2vec2"
+    enc = f"{base}.encoder"
+
+    def linear(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["kernel"].t(), p["bias"]
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    pc = tree["encoder"]["pos_conv"]
+    for key in ("weight_g", "weight_v", "bias"):
+        sd[f"{enc}.pos_conv_embed.conv.{key}"] = pc[key]
+    ln(f"{enc}.layer_norm", tree["encoder"]["layer_norm"])
+    for i, layer in enumerate(tree["encoder"]["layers"]):
+        p = f"{enc}.layers.{i}"
+        if family == "conformer":
+            for part in ("ffn1", "ffn2"):
+                ln(f"{p}.{part}_layer_norm", layer[f"{part}_layer_norm"])
+                for name in ("intermediate_dense", "output_dense"):
+                    linear(f"{p}.{part}.{name}", layer[part][name])
+            ln(f"{p}.self_attn_layer_norm", layer["self_attn_layer_norm"])
+            for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+                linear(f"{p}.self_attn.{name}", layer["self_attn"][name])
+            cm, c = layer["conv_module"], f"{p}.conv_module"
+            ln(f"{c}.layer_norm", cm["layer_norm"])
+            sd[f"{c}.pointwise_conv1.weight"] = cm["pointwise_conv1"]["kernel"].t()[:, :, None]
+            sd[f"{c}.depthwise_conv.weight"] = cm["depthwise_conv"]["kernel"].permute(2, 1, 0)
+            ln(f"{c}.batch_norm", cm["batch_norm"])  # its affine scale and bias
+            bn = state["encoder"]["layers"][i]["batch_norm"]
+            sd[f"{c}.batch_norm.running_mean"], sd[f"{c}.batch_norm.running_var"] = bn["mean"], bn["var"]
+            sd[f"{c}.batch_norm.num_batches_tracked"] = torch.tensor(0)
+            sd[f"{c}.pointwise_conv2.weight"] = cm["pointwise_conv2"]["kernel"].t()[:, :, None]
+        else:
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                linear(f"{p}.attention.{name}", layer["attention"][name])
+            ln(f"{p}.layer_norm", layer["layer_norm"])
+            for name in ("intermediate_dense", "output_dense"):
+                linear(f"{p}.feed_forward.{name}", layer["feed_forward"][name])
+        ln(f"{p}.final_layer_norm", layer["final_layer_norm"])
+    linear("lm_head", tree["lm_head"])
+    h = tree["lm_head"]["kernel"].shape[0]
+    sd[f"{base}.masked_spec_embed"] = torch.rand(h)
+    sd[f"{base}.feature_extractor.conv_layers.0.conv.weight"] = torch.rand(512, 1, 10)
+    sd[f"{base}.feature_projection.projection.weight"] = torch.rand(h, 512)
+    sd[f"{base}.feature_projection.projection.bias"] = torch.rand(h)
+    if family == "conformer":
+        sd[f"{enc}.embed_positions.inv_freq"] = 1.0 / 10000 ** (torch.arange(0, 64, 2).float() / 64)
+    return {k: v.detach().contiguous().to("cpu") for k, v in sd.items()}
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file: an 8-byte little-endian header length, a JSON
+    header of {name: dtype, shape, data_offsets} padded to 8 bytes, the raw
+    bytes."""
+    import torch
+
+    names = {torch.float32: "F32", torch.int64: "I64"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(memoryview(t.reshape(-1).view(torch.uint8).numpy()))
+
+
+def write_snapshots(cache_dir):
+    """The two checkpoints' hub-cache snapshots under cache_dir (models--
+    {org}--{name}/refs/main -> snapshots/<revision>/); {checkpoint: (its
+    tree, its BN state)} on the card."""
+    import torch
+
+    trees = {}
+    for i, (checkpoint, weights) in enumerate(SNAPSHOTS.items()):
+        t = time.perf_counter()
+        family, tree, state = snapshot_tree(checkpoint, SEED + 10 + i)
+        sd = hf_state_dict(family, tree, state)
+        repo = os.path.join(cache_dir, "models--" + checkpoint.replace("/", "--"))
+        revision = f"{SEED + 10 + i:040x}"
+        snap = os.path.join(repo, "snapshots", revision)
+        os.makedirs(snap)
+        os.makedirs(os.path.join(repo, "refs"))
+        with open(os.path.join(repo, "refs", "main"), "w") as f:
+            f.write(revision)
+        if weights == "model.safetensors":
+            write_safetensors(os.path.join(snap, weights), sd)
+        else:
+            torch.save(sd, os.path.join(snap, weights))
+        size = os.path.getsize(os.path.join(snap, weights))
+        print(f"  snapshot {checkpoint}: {weights}, {len(sd)} keys, {size / 1e9:.3f} GB, "
+              f"written in {time.perf_counter() - t:.2f} s")
+        trees[checkpoint] = (tree, state)
+    return trees
+
+
+@contextlib.contextmanager
+def timed_loads():
+    """[(part, seconds)] of the pretrained loader's parts while the block
+    runs: snapshot_read (hf_snapshot.read_state_dict), convert
+    (convert_from_hf less its read), cache_write and cache_read."""
+    from wav2vec2forbrain_tpu_torch.models import hf_snapshot, pretrained
+
+    seen = []
+    originals = {(hf_snapshot, "read_state_dict"): "snapshot_read", (pretrained, "convert_from_hf"): "convert",
+                 (pretrained, "write_msgpack"): "cache_write", (pretrained, "read_msgpack"): "cache_read"}
+
+    def timed(fn, part):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seen.append((part, time.perf_counter() - t))
+            return out
+        return run
+
+    saved = {key: getattr(*key) for key in originals}
+    for (module, name), part in originals.items():
+        setattr(module, name, timed(saved[(module, name)], part))
+    try:
+        yield seen
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+
+
+def load_seconds(seen):
+    """{part: seconds} of timed_loads' record; convert less its read."""
+    out = {}
+    for part, seconds in seen:
+        out[part] = out.get(part, 0.0) + seconds
+    if "convert" in out:
+        out["convert"] -= out.get("snapshot_read", 0.0)
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def initial_brains():
+    """Clones of the brain leaves at each Trainer's construction (before
+    training) while the block runs."""
+    from wav2vec2forbrain_tpu_torch.train import train_loop
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path
+
+    init = train_loop.Trainer.__init__
+    seen = []
+
+    def recording(self, experiment):
+        init(self, experiment)
+        seen.append({p: t.clone() for p, t in tree_leaves_with_path(experiment.params["brain"])})
+
+    train_loop.Trainer.__init__ = recording
+    try:
+        yield seen
+    finally:
+        train_loop.Trainer.__init__ = init
+
+
+def _w2v_mismatches(exp, tree, state):
+    """Paths of the experiment's w2v leaves and BN state that are not
+    bitwise the snapshot's (or live off the card)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path
+
+    want = dict(tree_leaves_with_path({"w2v": tree, "state": state}))
+    got = dict(tree_leaves_with_path({"w2v": exp.params["w2v"], "state": exp.model_state}))
+    if set(want) != set(got):
+        return sorted(set(want) ^ set(got))
+    return [p for p in want if not (got[p].device == want[p].device and torch.equal(got[p], want[p]))]
+
+
+def _test_loss(exp):
+    with open(os.path.join(exp.results_dir, "test_predictions.json")) as f:
+        return json.load(f)["average"]["loss"]
+
+
+def weights_phase(work, device_name, power):
+    """Phase 10; returns {"w2v_frozen": launches of run a, "conformer_pretrained": launches of run b's two runs}."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch import convert, sweep
+    from wav2vec2forbrain_tpu_torch.models import pretrained
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    cache_dir = os.path.join(work, "cache")
+    trees = write_snapshots(cache_dir)
+    w2v_ckpt, conf_ckpt = SNAPSHOTS
+
+    # a. the frozen sweep's first point, through the sweep runner in process
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [os.path.join(repo, FROZEN_YAML), "--max_runs", "1", "--config_yaml", os.path.join(work, "config.yaml"),
+            "--extra", *SWEEP_EXTRA, f"--seed={SEED}"]
+    print(f"  a. python -m wav2vec2forbrain_tpu_torch.sweep {' '.join(argv)}")
+    runs = []  # (flags, experiment, wall)
+    kernels.reset_launches()
+    with timed_loads() as loads, initial_brains() as brains:
+        def launch(flags):
+            exp, wall = _cli_run(flags)
+            runs.append((flags, exp, wall))
+            return 0
+
+        summary, _ = sweep.main(argv, launch=launch)
+    frozen_launches = dict(kernels.LAUNCHES)
+    with open(summary) as f:
+        rows = [json.loads(line) for line in f]
+    (flags_a, exp_a, wall_a), = runs
+    runs.clear()
+    loss_a = rows[0]["test_ctc_loss"] if rows else None
+    cache_a = pretrained.converted_cache_path(w2v_ckpt, cache_dir)
+    moved = [p for p, t in tree_leaves_with_path(exp_a.params["brain"]) if not torch.equal(t, brains[0][p])]
+    n_brain = len(brains[0])
+    brains.clear()
+    frozen_wrong = _w2v_mismatches(exp_a, *trees[w2v_ckpt])
+    print(f"  point {rows[0]['params'] if rows else None}: {wall_a:.2f} s wall, test_ctc_loss {loss_a!r}, "
+          f"rc {rows[0]['returncode'] if rows else None}; load seconds {load_seconds(loads)}; "
+          f"on {device_name} ({power})")
+    print(f"  frozen w2v leaves bitwise the snapshot's after training: {not frozen_wrong}; "
+          f"brain leaves moved {len(moved)} of {n_brain}")
+    print(f"  kernel launches in run a: {json.dumps(frozen_launches)}")
+    if len(rows) != 1 or rows[0]["returncode"] != 0 or loss_a is None or not math.isfinite(loss_a):
+        fail(f"weights in, run a: rows {rows}")
+    if not os.path.exists(cache_a):
+        fail(f"weights in, run a: no converted cache at {cache_a}")
+    if frozen_wrong or not moved:
+        fail(f"weights in, run a: w2v leaves off the snapshot {frozen_wrong[:5]}, brain leaves moved {len(moved)}")
+    _check_launches(frozen_launches, "w2v_sweep", train=True)
+
+    # b. the conformer's default flags, --only_test, twice: the first run converts, the second reads the cache
+    conf_launches = {}
+    losses = []
+    for i in range(2):
+        flags = ["--experiment_type=b2p2t_gru+w2v_conformer", "--only_test=true", f"--seed={SEED}",
+                 f"--results_subdir_name=conformer_pretrained_{i}"]
+        print(f"  b{i + 1}. python -m wav2vec2forbrain_tpu_torch.run {' '.join(flags)}")
+        kernels.reset_launches()
+        with timed_loads() as loads:
+            exp, wall = _cli_run(flags)
+        launches = dict(kernels.LAUNCHES)
+        parts = load_seconds(loads)
+        losses.append(_test_loss(exp))
+        wrong = _w2v_mismatches(exp, *trees[conf_ckpt])
+        leaves = tree_leaves(exp.params) + tree_leaves(exp.model_state)
+        on_card = exp.device.type == "cuda" and all(p.is_cuda for p in leaves)
+        print(f"    {wall:.2f} s wall; test loss {losses[-1]!r}; load seconds {parts}; w2v and BN state bitwise "
+              f"the snapshot's {not wrong}; params on the card {on_card}")
+        print(f"    kernel launches: {json.dumps(launches)}")
+        if wrong or not on_card:
+            fail(f"weights in, run b{i + 1}: w2v leaves off the snapshot {wrong[:5]}, on the card {on_card}")
+        if set(parts) != ({"snapshot_read", "convert", "cache_write"} if i == 0 else {"cache_read"}):
+            fail(f"weights in, run b{i + 1}: the loader's parts {parts}")
+        _check_launches(launches, "conformer", train=False)
+        conf_launches = {k: conf_launches.get(k, 0) + v for k, v in launches.items()}
+        del exp
+        torch.cuda.empty_cache()
+    print(f"  b. test losses {losses}: bitwise equal {losses[0] == losses[1]}")
+    if not (math.isfinite(losses[0]) and losses[0] == losses[1]):
+        fail(f"weights in, run b: the cached load's test loss {losses[1]} is not the converting load's {losses[0]}")
+
+    # c. run a's model.pt in the JAX package's format, served at run a's flags
+    model_pt = os.path.join(exp_a.results_dir, "model.pt")
+    model_msgpack = os.path.join(work, "model.msgpack")
+    t = time.perf_counter()
+    convert.main(["to-msgpack", model_pt, model_msgpack])
+    print(f"  c. convert to-msgpack {model_pt} -> {model_msgpack}: {time.perf_counter() - t:.2f} s, "
+          f"{os.path.getsize(model_msgpack) / 1e6:.1f} MB")
+    del exp_a
+    served = {}
+    for path in (model_msgpack, model_pt):
+        kernels.reset_launches()
+        exp, wall = _cli_run(flags_a + ["--only_test=true", f"--from_checkpoint={path}",
+                                        f"--results_subdir_name=served_{os.path.basename(path)}"])
+        served[path] = _test_loss(exp)
+        launches = dict(kernels.LAUNCHES)
+        print(f"    --from_checkpoint={os.path.basename(path)}: {wall:.2f} s wall, test loss {served[path]!r}")
+        _check_launches(launches, "w2v_sweep", train=False)
+        del exp
+        torch.cuda.empty_cache()
+    if not (math.isfinite(served[model_pt]) and served[model_msgpack] == served[model_pt]):
+        fail(f"weights in, run c: the .msgpack's test loss {served[model_msgpack]} is not the .pt's "
+             f"{served[model_pt]}")
+    print(f"  c. test losses bitwise equal: True; phase 10 took {time.perf_counter() - t_phase:.2f} s "
+          f"on {device_name} ({power})")
+    return {"w2v_frozen": frozen_launches, "conformer_pretrained": conf_launches}
+
+
 def cli_phases(device_name, power):
-    """Phases 7-9 in a scratch dir under build/ (git-ignored), removed after;
-    {path: launches} of the CLI training runs, the LM decode run and the sweep."""
+    """Phases 7-10 in a scratch dir under build/ (git-ignored), removed after;
+    {path: launches} of the CLI training runs, the LM decode run, the sweep
+    and phase 10's runs."""
     import shutil
 
     from scipy.io import loadmat
@@ -1279,6 +1645,9 @@ def cli_phases(device_name, power):
             out.update(cli_phase(device_name, power, family))
         print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
         out["w2v_sweep"] = sweep_phase(work, device_name, power)
+        print("[10] weights in: pretrained snapshots in the hub cache, the frozen sweep's first point, the "
+              "conformer's defaults, a JAX-format checkpoint")
+        out.update(weights_phase(work, device_name, power))
         return out
     finally:
         os.chdir(cwd)
@@ -1346,9 +1715,8 @@ def main() -> None:
         if launches <= 0:
             fail(f"{name}: launched in no training run")
         for path in cli:
-            family = path if path in PATH_KERNELS else path.rsplit("_", 1)[0]
-            serving = path.endswith("_lm")
-            want = name.split("_bwd")[0] in PATH_KERNELS[family] and not (serving and name.endswith("_bwd"))
+            family, training = CLI_PATHS[path]
+            want = name.split("_bwd")[0] in PATH_KERNELS[family] and (training or not name.endswith("_bwd"))
             if (by_path[path] > 0) != want:
                 fail(f"{name}: {by_path[path]} launches in the {path} run")
         rows.append({

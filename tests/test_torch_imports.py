@@ -2,8 +2,9 @@
 package's, and the refusal of chip_smoke.py and of the port's CLI
 (run.py) to run without a CUDA card unless asked for the CPU.
 
-The GPU machine has no jax, pydantic, yaml, flax or optax, so neither the
-port nor chip_smoke.py may import them, not even indirectly; nor do they
+The GPU machine has no jax, pydantic, yaml, flax, optax, msgpack,
+transformers, safetensors or huggingface_hub, so neither the port nor
+chip_smoke.py may import them, not even indirectly; nor do they
 import the JAX package itself, or the repository's sweep.py (the port's
 sweep runner reads the sweep YAMLs itself)."""
 
@@ -22,7 +23,8 @@ from wav2vec2forbrain_tpu.data.tokenizer import Wav2Vec2CTCTokenizer as JaxToken
 from wav2vec2forbrain_tpu_torch.data.tokenizer import W2V_CTC_VOCAB, Wav2Vec2CTCTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "pydantic", "optax", "flax", "transformers", "yaml", "sweep")
+BLOCKED = ("jax", "jaxlib", "pydantic", "optax", "flax", "transformers", "yaml", "sweep", "msgpack", "safetensors",
+           "huggingface_hub")
 
 
 def _port_modules():
@@ -56,7 +58,9 @@ def test_port_and_chip_smoke_import_without_jax_or_pydantic():
             "wav2vec2forbrain_tpu_torch.train.logger", "wav2vec2forbrain_tpu_torch.models.pretrained",
             "wav2vec2forbrain_tpu_torch.util.seq", "wav2vec2forbrain_tpu_torch.sweep",
             "wav2vec2forbrain_tpu_torch.decode.lm_decode", "wav2vec2forbrain_tpu_torch.train.buckets",
-            "wav2vec2forbrain_tpu_torch.train.evaluator"} <= set(modules)
+            "wav2vec2forbrain_tpu_torch.train.evaluator", "wav2vec2forbrain_tpu_torch.train.msgpack_codec",
+            "wav2vec2forbrain_tpu_torch.models.convert", "wav2vec2forbrain_tpu_torch.models.hf_snapshot",
+            "wav2vec2forbrain_tpu_torch.convert"} <= set(modules)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}

@@ -32,10 +32,18 @@ kenlm binary n-gram model, built by g++ at first use into `build/`),
 `--length_buckets` (`train/buckets.py`) and the sweep runner over
 `sweeps/*.yaml` (`python -m wav2vec2forbrain_tpu_torch.sweep`).
 
-Not ported: a msgpack <-> .pt converter, pretrained HF weights, analysis,
-multi-GPU.
+Weights from files: pretrained HF encoders read offline from a local hub
+cache (`models/hf_snapshot.py` -> `models/convert.py` -> the converted
+cache of `models/pretrained.py`, shared with the JAX package), the JAX
+package's msgpack checkpoints (`train/msgpack_codec.py`,
+`train/checkpoint.py`) and the original reference's model.pt /
+brain_encoder.pt; the converter CLI is `python -m
+wav2vec2forbrain_tpu_torch.convert`.
 
-This package never imports jax, optax, flax, transformers, pydantic or yaml.
+Not ported: analysis, multi-GPU.
+
+This package never imports jax, optax, flax, msgpack, transformers,
+huggingface_hub, safetensors, pydantic or yaml.
 """
 
 __version__ = "0.1.0"

@@ -46,26 +46,31 @@ def _stack(layers: list) -> dict:
     return go(layers)
 
 
+def unstack_encoder(params: dict, state: dict) -> Tuple[dict, dict]:
+    """A model's (params, state) with a scan-stacked encoder
+    (`layers_stacked` in params["w2v"]["encoder"] and state["encoder"]) as
+    the per-layer list; other trees (no "w2v" subtree) as they are."""
+    if "w2v" not in params:
+        return params, state
+    enc, enc_state = dict(params["w2v"]["encoder"]), dict(state.get("encoder", {}))
+    if "layers_stacked" in enc:
+        enc["layers"] = _unstack(enc.pop("layers_stacked"))
+    if "layers_stacked" in enc_state:
+        enc_state["layers"] = _unstack(enc_state.pop("layers_stacked"))
+    return dict(params, w2v=dict(params["w2v"], encoder=enc)), dict(state, encoder=enc_state)
+
+
 def params_from_jax(params: dict, state: dict, device="cuda") -> Tuple[dict, dict]:
     """JAX (params, state) as numpy pytrees -> the port's (params, state),
     tensors on `device` (the card unless the caller asks for another;
     raises where there is no card). Accepts per-layer and scan-stacked
     encoders."""
-    params = dict(params)
-    w2v = dict(params["w2v"])
-    enc = dict(w2v["encoder"])
-    enc_state = dict(state["encoder"])
-    if "layers_stacked" in enc:
-        enc["layers"] = _unstack(enc.pop("layers_stacked"))
-    if "layers_stacked" in enc_state:
-        enc_state["layers"] = _unstack(enc_state.pop("layers_stacked"))
-    w2v["encoder"] = enc
-    params["w2v"] = w2v
+    params, state = unstack_encoder(params, state)
 
     def to_tensor(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    return tree_map(to_tensor, params), {"encoder": tree_map(to_tensor, enc_state)}
+    return tree_map(to_tensor, params), {"encoder": tree_map(to_tensor, state["encoder"])}
 
 
 def params_to_jax(params: dict, state: dict, stacked: bool = False) -> Tuple[dict, dict]:

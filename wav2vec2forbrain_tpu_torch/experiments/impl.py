@@ -4,8 +4,9 @@ of wav2vec2forbrain_tpu/experiments/impl.py).
 Construction: the flags (args/flags.py) -> seeds -> tokenizer -> the three
 loaders -> the results dir cache_dir/experiment_results/<name>/[subdir]/
 <timestamp> with config.json (and its repro_cmd) -> the model on `device`
-(the card unless the caller asks for another) -> optimizer, steps and LR
-schedules -> --from_checkpoint. run(): logger -> Trainer.train() ->
+(the card unless the caller asks for another), its encoder pretrained
+unless --w2v_skip_loading_weights -> optimizer, steps and LR schedules ->
+--from_checkpoint. run(): logger -> Trainer.train() ->
 model.pt / brain_encoder.pt / history.json / history.png -> or, with
 --only_test, test_predictions.json and its plots. With
 --lm_decode_test_predictions the test evaluations also decode with the
@@ -14,12 +15,16 @@ n-gram LM of config.yaml's n3gram_lm_model_path (decode/lm_decode.py).
 TF32 is off for cuBLAS and cuDNN once an experiment is built: at the
 default f32 compute every product is an f32 product, as in the tests.
 
+Pretrained weights (--w2v_skip_loading_weights=false, the default) come
+from --wav2vec_checkpoint's snapshot in config.yaml's cache_dir hub cache,
+through the converted cache the JAX package also reads and writes
+(models/pretrained.py); a missing snapshot raises.
+
 What the port does differently, or not at all:
-- Checkpoints are torch files of the JAX package's trees (train/checkpoint.py).
-- Pretrained HF weights are not loaded: runs need
-  --w2v_skip_loading_weights=true. `adopt_params` takes given weights
-  (for example the JAX package's, through bridge.params_from_jax) before
-  run().
+- Checkpoints are torch files of the JAX package's trees; --from_checkpoint
+  and --brain_encoder_path also take the JAX package's .msgpack files
+  (train/checkpoint.py). `adopt_params` takes given weights (for example
+  the JAX package's, through bridge.params_from_jax) before run().
 - --use_pallas does not gate the hand-written kernels: they are the port's
   implementation on the card. --pallas_kernels selects them
   (ops/select.py); --pallas_kernels=none runs the plain versions.
@@ -67,7 +72,7 @@ from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_par
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.ops.select import f32_products, set_kernel_policy
 from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
-from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_subtree
+from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_checkpoint, load_into, save_checkpoint, save_subtree
 from wav2vec2forbrain_tpu_torch.train.evaluator import EvaluatorWithLMDecoder
 from wav2vec2forbrain_tpu_torch.train.history import TrainHistory
 from wav2vec2forbrain_tpu_torch.train.logger import make_logger
@@ -182,11 +187,6 @@ class B2TGruW2VExperimentBase:
                 f"--mesh_model_parallel={cfg.mesh_model_parallel}, "
                 f"--optimizer_state_sharding={cfg.optimizer_state_sharding})"
             )
-        if not cfg.w2v_skip_loading_weights:
-            raise NotImplementedError(
-                "loading pretrained HF weights needs files from outside the repository and is not "
-                "ported: run with --w2v_skip_loading_weights=true"
-            )
 
     def _log_ignored_flags(self):
         cfg = self.base_config
@@ -281,9 +281,15 @@ class B2TGruW2VExperimentBase:
         )
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.params, self.model_state = init_model_params(generator, self.spec, self.device)
+        if not cfg.w2v_skip_loading_weights:
+            # the pretrained encoder, lm_head and BN state (models/pretrained.py), strictly in place
+            enc, head, enc_state = pretrained.load_pretrained_encoder(cfg.wav2vec_checkpoint,
+                                                                      cache_dir=self.yaml_config.cache_dir)
+            copy_into(self.params["w2v"], {"encoder": enc, "lm_head": head}, "/w2v")
+            copy_into(self.model_state, enc_state)
         if cfg.brain_encoder_path is not None:
-            # a brain-encoder subtree written by store_trained_model
-            copy_into(self.params["brain"], load_tree(cfg.brain_encoder_path)["params"])
+            # a brain-encoder subtree written by store_trained_model (.pt) or by the JAX package (.msgpack)
+            copy_into(self.params["brain"], load_checkpoint(cfg.brain_encoder_path)[0])
         self.labels = param_labels(self.params, cfg.unfreeze_strategy)
 
     def adopt_params(self, params: dict, state: dict) -> None:

@@ -1,12 +1,17 @@
 """Checkpoint I/O for the port's param / state trees (counterpart of
 wav2vec2forbrain_tpu/train/checkpoint.py, which writes flax msgpack).
 
-A checkpoint is `torch.save` of {"params": tree, "state": tree}: nested
-dicts and lists of CPU tensors, in the JAX package's tree structure and key
-names (bridge.py), read back with `torch.load(weights_only=True)`. The
-results dir keeps the JAX package's layout with `.pt` for `.msgpack`:
-model.pt, brain_encoder.pt ({"params": the brain subtree}),
-train_state/state.pt.
+A checkpoint is {"params": tree, "state": tree} (a subtree such as the
+brain encoder: {"params": tree}): nested dicts and lists of CPU tensors, in
+the JAX package's tree structure and key names (bridge.py). The file's
+suffix picks its format:
+- `.pt`: `torch.save`, read back with `torch.load(weights_only=True)`;
+- `.msgpack`: the JAX package's own files (flax msgpack, lists as
+  {"0": ...} maps; train/msgpack_codec.py), read and written without
+  flax; a scan-stacked encoder (`layers_stacked`) is read as the per-layer
+  list (bridge.py::unstack_encoder).
+The results dir keeps the JAX package's layout with `.pt` for `.msgpack`:
+model.pt, brain_encoder.pt, train_state/state.pt.
 """
 
 import os
@@ -14,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.bridge import unstack_encoder
+from wav2vec2forbrain_tpu_torch.train.msgpack_codec import read_msgpack, relistify, to_state_dict, write_msgpack
 from wav2vec2forbrain_tpu_torch.tree import tree_map
 
 
@@ -34,13 +41,31 @@ def load_tree(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def save_bundle(path: str, bundle: dict) -> None:
+    """A checkpoint bundle in the format of the path's suffix."""
+    if path.endswith(".msgpack"):
+        write_msgpack(path, to_state_dict(to_cpu(bundle)))
+    else:
+        save_tree(path, to_cpu(bundle))
+
+
+def load_bundle(path: str) -> dict:
+    """A checkpoint bundle of either format, as CPU tensor trees."""
+    if not path.endswith(".msgpack"):
+        return load_tree(path)
+    bundle = relistify(read_msgpack(path))
+    if "state" in bundle:  # a whole model: its encoder per layer
+        bundle["params"], bundle["state"] = unstack_encoder(bundle["params"], bundle["state"])
+    return bundle
+
+
 def save_checkpoint(path: str, params: dict, state: Optional[dict] = None) -> None:
-    save_tree(path, {"params": to_cpu(params), "state": to_cpu(state or {})})
+    save_bundle(path, {"params": params, "state": state or {}})
 
 
 def load_checkpoint(path: str) -> Tuple[dict, dict]:
     """(params, state) as CPU tensor trees."""
-    bundle = load_tree(path)
+    bundle = load_bundle(path)
     return bundle["params"], bundle.get("state", {})
 
 
@@ -55,7 +80,7 @@ def load_into(path: str, params: dict, state: dict) -> None:
 
 def save_subtree(path: str, subtree: dict) -> None:
     """e.g. the brain encoder alone (--store_brain_encoder)."""
-    save_tree(path, {"params": to_cpu(subtree)})
+    save_bundle(path, {"params": subtree})
 
 
 def copy_into(dst, src, where: str = "") -> None:
