@@ -133,11 +133,32 @@ Phases, each of which exits nonzero on failure:
      flags from the .msgpack and from the .pt. Fails unless the test
      losses are bitwise equal. Prints each run's wall and the loader's
      seconds (snapshot read, conversion, cache write, cache read).
+ 11. data parallel. a. Two ranks on the one card (this script started twice
+     with --dp-rank, joined by gloo over localhost with CUDA tensors: NCCL
+     takes one rank a device), each one conformer-rope-large train step at
+     full width and f32 compute (the CLI's) on its 16 rows of phase 4's
+     first batch (B32 x 384 frames, dropout and LayerDrop on, the sweeps'
+     noise), once with the Adam moments replicated and once under ZeRO-1.
+     Rank 0 then takes the same step in one process on the whole batch.
+     Fails unless the ranks' losses are the one-process loss (DP_LOSS_REL),
+     the all-reduced gradients are its gradients (each leaf within DP_GRAD_REL
+     of its largest magnitude), the BN running stats are its stats
+     (DP_BN_REL), the two ranks hold bitwise the same params and the
+     ZeRO-1 params are bitwise the replicated ones, each rank keeps half of
+     every split moment leaf, and each rank launched exactly the
+     conformer's training kernels, its attention calls at row0 0 (rank 0)
+     and 16 (rank 1). Prints the gradient all-reduce's seconds a step (gloo
+     through the host: no NCCL figure). b. The CLI under `python -m
+     torch.distributed.run --standalone --nproc_per_node=1` (NCCL) with
+     phase 7's splits and flags and --mesh_data_parallel=0
+     --optimizer_state_sharding=zero1. Fails unless it returned 0, wrote
+     its results once (one results dir, one run_config in metrics.jsonl)
+     and its test loss is bitwise phase 7's training run's.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the two CLI training
-runs, the LM decode run, the sweep and phase 10's runs a and b, by path
-in `launches_by_path`;
+runs, the LM decode run, the sweep, phase 10's runs a and b and both ranks
+of phase 11a, by path in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -238,9 +259,11 @@ SNAPSHOTS = {"facebook/wav2vec2-base-960h": "pytorch_model.bin",
              "facebook/wav2vec2-conformer-rope-large-960h-ft": "model.safetensors"}
 SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off its init value
 # each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
+# (phase 11a's two ranks: "conformer_dp")
 CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
              "w2v_cli": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
-             "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False)}
+             "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False),
+             "conformer_dp": ("conformer", True)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -251,6 +274,14 @@ ROW_LABELS = {
     "layernorm": "B64 T89 C768 float32",
 }
 ROW_LABELS.update({f"{k}_bwd": v for k, v in list(ROW_LABELS.items())})
+# phase 11a: the two ranks' step against one process's, f32 sums taken in another order (the GRU, preproc and
+# LN kernels at 16 rows, the BN statistics as sums over the ranks): the loss, each gradient leaf against its own
+# largest magnitude (at least 1), the BN running stats against max(1, |ref|)
+DP_LOSS_REL = 1e-5
+DP_GRAD_REL = 1e-4
+DP_BN_REL = 1e-5
+DP_ROWS = 16  # rows a rank: phase 4's batch of 32 over 2 ranks
+DP_TIMEOUT = 420  # seconds for phase 11a's ranks
 FAMILY_NAMES = {
     "conformer": "b2p2t_gru+w2v_conformer: conformer-rope-large (24 x d1024, 16 heads, FFN 4096, k31), biGRU 2 x 256",
     "w2v": "b2p2t_gru+w2v: wav2vec2-base-960h (12 x d768 post-LN, 12 heads, FFN 3072), biGRU 3 x 1024",
@@ -546,11 +577,12 @@ def kernel_phases(dev, results):
         kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                      {"preproc_bwd_gather": 1, "preproc_bwd_dz_dy": 1, "preproc_bwd_dw_dx": 1})
 
-    def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None):
+    def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None, row0=0):
         """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,
         seed 77); q is multiplied by q_scale in the stream dtype first (the
         wav2vec2 encoder's pre-scaling); rows: the (stream, compute dtype,
-        rate) triples to run. The library call: F.scaled_dot_product_attention
+        rate) triples to run; row0: the global batch index of row 0 (a
+        data-parallel rank's, which keys the dropout mask). The library call: F.scaled_dot_product_attention
         at rate 0 (forward, and its backward), in the stream dtype (at f32 its
         memory-efficient kernel, split TF32 on the tensor cores)."""
         width = 64 * heads
@@ -572,14 +604,15 @@ def kernel_phases(dev, results):
                     if rows is not None and (sd, cd, rate) not in rows:
                         continue
                     label = f"B{batch} T{t} {heads}x64 scale{scale:g} io {cd_name(sd)} cd {cd_name(cd)} p{rate}"
+                    label += f" row0 {row0}" if row0 else ""
                     compare("attention", label,
-                            lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77),
-                            lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77),
+                            lambda: attention._fwd_kernel(q, k, v, heads, scale, rate, cd, 77, row0),
+                            lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77, row0),
                             f32_tol("attention") if cd == f32 else bf16_tol, results,
                             (q, k, v), [(2 * qkt, product_rate(cd))], sdpa_fwd)
                     compare("attention_bwd", label,
-                            lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77),
-                            lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77),
+                            lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77, row0),
+                            lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77, row0),
                             f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results,
                             (q, k, v, ga), [(5 * qkt, product_rate(cd))], sdpa_bwd)
             del sdpa_out
@@ -690,8 +723,10 @@ def kernel_phases(dev, results):
                 del gi, ys, gy, lib_fwd, lib_bwd
         del params, x0, x1
 
-    # 3. attention: the conformer's B=32, 16 heads of 64 at scale 1/8
+    # 3. attention: the conformer's B=32, 16 heads of 64 at scale 1/8; then rank 1's rows of it at data
+    # parallel 2 (phase 11a): B=16 at row0 16, dropout on, at f32 and bf16 compute
     attention_rows(g, 32, 16, 0.125, 1.0)
+    attention_rows(g, DP_ROWS, 16, 0.125, 1.0, rows=[(f32, f32, 0.1), (f32, bf16, 0.1)], row0=DP_ROWS)
 
     # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31 (no one PyTorch call computes it); then
     # B=8 at T=169 and T=400, several of the backward's 96-frame chunks (T=400: past the whole-sequence
@@ -1048,9 +1083,10 @@ def _cli_run(argv):
     return exp, time.perf_counter() - t
 
 
-def cli_phase(device_name, power, family):
+def cli_phase(device_name, power, family, test_losses):
     """Phases 7 and 8; returns {path: launches} of the CLI training run (and
-    of the conformer's LM decode run)."""
+    of the conformer's LM decode run); test_losses[family] = the training
+    run's test loss."""
     import math
 
     import torch
@@ -1077,6 +1113,7 @@ def cli_phase(device_name, power, family):
         rows = [json.loads(line) for line in f]
     losses = [e[s]["average"]["loss"] for e in hist["epochs"] for s in ("train", "val")]
     test_loss = hist["test"]["average"]["loss"]
+    test_losses[family] = test_loss
     if len(hist["epochs"]) != 2 or not all(math.isfinite(x) for x in losses + [test_loss]):
         fail(f"{family} CLI: {len(hist['epochs'])} epochs, losses {losses}, test {test_loss}")
     sps = [r["train_samples_per_sec"] for r in rows if "train_samples_per_sec" in r]
@@ -1146,23 +1183,23 @@ def write_arpa(sentences, path):
 @contextlib.contextmanager
 def recorded_widths():
     """[(split, time width run, the collate's time width)] of every batch
-    Trainer._put puts on the card while the block runs."""
+    Trainer._place puts on the card while the block runs."""
     from wav2vec2forbrain_tpu_torch.train import train_loop
 
-    put = train_loop.Trainer._put
+    place = train_loop.Trainer._place
     seen = []
 
     def recording(self, batch, split):
-        out = put(self, batch, split)
+        out = place(self, batch, split)
         axis = 1 + self.experiment.time_axis
         seen.append((split, out[0].input.shape[axis], batch.input.shape[axis]))
         return out
 
-    train_loop.Trainer._put = recording
+    train_loop.Trainer._place = recording
     try:
         yield seen
     finally:
-        train_loop.Trainer._put = put
+        train_loop.Trainer._place = place
 
 
 @contextlib.contextmanager
@@ -1608,6 +1645,248 @@ def weights_phase(work, device_name, power):
     return {"w2v_frozen": frozen_launches, "conformer_pretrained": conf_launches}
 
 
+def _leaf_sums(tree):
+    """A fingerprint of a tensor tree: each leaf's f64 sum, as floats."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    return torch.stack([t.double().sum() for t in tree_leaves(tree)]).tolist()
+
+
+def dp_rank(rank: int, port: str, out_path: str) -> None:
+    """Phase 11a's rank `rank` of two, on cuda:0 over gloo (this script run
+    with --dp-rank); rank 0 then takes the one-process step and compares.
+    Writes its results as JSON to out_path."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch, to_device
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
+    from wav2vec2forbrain_tpu_torch.models.assembly import init_model_params
+    from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+    from wav2vec2forbrain_tpu_torch.ops import attention, kernels, select
+    from wav2vec2forbrain_tpu_torch.parallel import distributed
+    from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
+    from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1, zero1_dim
+    from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, STEP_CFG, W2V_LR, build_trainer
+    from wav2vec2forbrain_tpu_torch.train.checkpoint import to_cpu
+    from wav2vec2forbrain_tpu_torch.train.optim import make_optimizer
+    from wav2vec2forbrain_tpu_torch.train.steps import build_grad_fn
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_leaves_with_path as leaves, tree_map
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    select.f32_products()
+    select.set_kernel_policy("auto")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
+    shard = make_mesh(0, 1)
+    tr = build_trainer(dev, SEED, "conformer", compute_dtype=torch.float32)
+    spec = tr.spec
+    whole = make_requests(1, 2 * DP_ROWS, 384, SEED + 1)[0]
+    mine = shard.rows(2 * DP_ROWS)
+    batch = to_device(B2tBatch(*(None if a is None else a[mine] for a in whole)), dev)
+    kernels.lib()
+
+    # the row offsets the attention kernels are launched at, and the gradient all-reduce's seconds
+    row0s = set()
+    fwd_kernel, bwd_kernel = attention._fwd_kernel, attention._bwd_kernel
+
+    def fwd_rec(q, k, v, num_heads, scale, rate, cd, seed, row0=0):
+        row0s.add(int(row0))
+        return fwd_kernel(q, k, v, num_heads, scale, rate, cd, seed, row0)
+
+    def bwd_rec(q, k, v, g, num_heads, scale, rate, cd, seed, row0=0):
+        row0s.add(int(row0))
+        return bwd_kernel(q, k, v, g, num_heads, scale, rate, cd, seed, row0)
+
+    attention._fwd_kernel, attention._bwd_kernel = fwd_rec, bwd_rec
+    reduce_s = []
+    all_reduce = distributed.all_reduce_tensors
+
+    def timed_all_reduce(tensors, group=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_reduce(tensors, group)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t)
+
+    distributed.all_reduce_tensors = timed_all_reduce
+
+    res = {"rank": rank}
+    keep = {}
+    for variant in ("replicated", "zero1"):
+        if variant == "zero1":  # the same initial weights again
+            tr.params.clear()
+            tr.params.update(init_model_params(torch.Generator(device=dev).manual_seed(SEED), spec, dev)[0])
+        params, state = tr.params, tr.state
+        opt = make_optimizer(tr.labels, "adam", 0.0, zero=Zero1(shard) if variant == "zero1" else None)
+        opt_state = opt.init(params)
+        grad_fn = build_grad_fn(spec, tr.labels, STEP_CFG, shard)
+        row0s.clear()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, grads, norm = grad_fn(params, state, batch, StepRng(SEED, dev), float(2 * DP_ROWS))
+        opt.step(params, grads, opt_state, BRAIN_LR, W2V_LR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        moments = []  # (moment shape, param shape) of every trained leaf
+        tree_map(lambda p, m: m is not None and moments.append((tuple(m.shape), tuple(p.shape))), params,
+                 opt_state.mu)
+        res[variant] = dict(
+            loss=float(out["loss"].detach()), norm=float(norm), wall_s=wall, all_reduce_s=reduce_s[-1],
+            launches=dict(kernels.LAUNCHES), row0s=sorted(row0s), params=_leaf_sums(params),
+            split=sum(zero1_dim(p, 2) is not None for _, p in moments),
+            halves=sum(zero1_dim(p, 2) is not None and m[zero1_dim(p, 2)] * 2 == p[zero1_dim(p, 2)]
+                       for m, p in moments),
+        )
+        if rank == 0 and variant == "replicated":
+            keep = dict(grads=to_cpu(grads), state=to_cpu(out["state"]), params=to_cpu(params))
+        elif rank == 0:
+            res["zero1_params_bitwise"] = all(
+                torch.equal(a, b.to(dev)) for a, b in zip(tree_leaves(params), tree_leaves(keep["params"])))
+        del out, grads, opt_state, opt
+    del tr, params, state, batch
+    torch.cuda.empty_cache()
+    attention._fwd_kernel, attention._bwd_kernel = fwd_kernel, bwd_kernel
+    distributed.all_reduce_tensors = all_reduce
+    dist.barrier()  # rank 1's memory is free
+    dist.destroy_process_group()
+    if rank == 0:
+        # the same step in one process on the whole batch
+        tr = build_trainer(dev, SEED, "conformer", compute_dtype=torch.float32)
+        grad_fn = build_grad_fn(tr.spec, tr.labels, STEP_CFG)
+        out, grads, norm = grad_fn(tr.params, tr.state, to_device(whole, dev), StepRng(SEED, dev))
+        res["single"] = dict(loss=float(out["loss"].detach()), norm=float(norm))
+        worst = (0.0, "")
+        got = dict(leaves(keep["grads"]))
+        if set(got) != {path for path, _ in leaves(grads)}:
+            raise RuntimeError("phase 11a: the two-rank step's gradient leaves are not the one-process step's")
+        for path, ref in leaves(grads):
+            ratio = (got[path].to(dev) - ref).abs().max().item() / (DP_GRAD_REL * max(1.0, ref.abs().max().item()))
+            worst = max(worst, (ratio, path))
+        res["grad_worst"] = worst
+        bn = 0.0
+        got = dict(leaves(keep["state"]))
+        for path, b in leaves(out["state"]):
+            bn = max(bn, (got[path].to(dev) - b).abs().max().item() / max(1.0, b.abs().max().item()))
+        res["bn_rel"] = bn
+        res["single"]["grad_leaves"] = len(leaves(grads))
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def dp_step_phase(device_name, power):
+    """Phase 11a; returns the launches summed over both ranks and both steps."""
+    import math
+    import shutil
+    import socket
+
+    import torch
+
+    torch.cuda.empty_cache()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dp_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), port,
+                               os.path.join(work, f"rank{r}.json")]) for r in range(2)]
+    # as soon as one rank fails (the other then waits in a collective) or the time runs out, stop both
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t < DP_TIMEOUT:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        fail(f"phase 11a: the ranks exited with {codes} after {wall:.1f} s (limit {DP_TIMEOUT} s)")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    single = ranks[0]["single"]
+    launches = {}
+    for r, res in enumerate(ranks):
+        for variant in ("replicated", "zero1"):
+            v = res[variant]
+            for k, n in v["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            _check_launches(v["launches"], "conformer", train=True)
+            rel = abs(v["loss"] - single["loss"]) / abs(single["loss"])
+            print(f"  rank {r} {variant:10s}: loss {v['loss']!r} (one process {single['loss']!r}, rel {rel:.2e}, "
+                  f"bound {DP_LOSS_REL:.0e}); grad norm {v['norm']:.6f} (one process {single['norm']:.6f}); "
+                  f"step {v['wall_s']:.3f} s, gradient all-reduce {v['all_reduce_s']:.3f} s (gloo through the "
+                  f"host, CUDA tensors: no NCCL figure) on {device_name} ({power}); attention row0 {v['row0s']}; "
+                  f"moment leaves split {v['halves']} of {v['split']} splittable")
+            if rel > DP_LOSS_REL or not math.isfinite(v["loss"]):
+                fail(f"phase 11a rank {r} {variant}: loss {v['loss']} vs one process {single['loss']}")
+            if v["row0s"] != [DP_ROWS * r]:
+                fail(f"phase 11a rank {r}: attention launched at row0 {v['row0s']}, not [{DP_ROWS * r}]")
+            want_half = v["split"] if variant == "zero1" else 0
+            if v["halves"] != want_half or v["split"] < 100:
+                fail(f"phase 11a rank {r} {variant}: {v['halves']} of {v['split']} moment leaves halved")
+        if res["replicated"]["params"] != ranks[0]["replicated"]["params"] or \
+                res["zero1"]["params"] != ranks[0]["zero1"]["params"]:
+            fail(f"phase 11a: rank {r}'s params differ from rank 0's after the step")
+    ratio, path = ranks[0]["grad_worst"]
+    print(f"  all-reduced gradients vs one process: worst leaf {path} at {ratio:.3f} of its bound "
+          f"(DP_GRAD_REL {DP_GRAD_REL:.0e} x max(1, max |g|)), {single['grad_leaves']} leaves; BN running stats "
+          f"rel {ranks[0]['bn_rel']:.2e} (bound {DP_BN_REL:.0e}); ZeRO-1 params bitwise the replicated ones: "
+          f"{ranks[0]['zero1_params_bitwise']}; both ranks hold the same params; phase 11a {wall:.2f} s on {power}")
+    if not (ratio <= 1.0 and ranks[0]["bn_rel"] <= DP_BN_REL and ranks[0]["zero1_params_bitwise"]):
+        fail("phase 11a: the two-rank step differs from the one-process step beyond its bounds")
+    return launches
+
+
+def dp_cli_phase(work, device_name, power, ref):
+    """Phase 11b: phase 7's CLI run under torchrun, one rank on NCCL, ZeRO-1;
+    ref is phase 7's test loss."""
+    argv = CLI_FLAGS["conformer"] + ["--w2v_skip_loading_weights=true", "--epochs=2", "--checkpoint_every_n_epochs=1",
+                                     f"--seed={SEED}", "--results_subdir_name=dp_cli", "--mesh_data_parallel=0",
+                                     "--optimizer_state_sharding=zero1"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "wav2vec2forbrain_tpu_torch.run", *argv]
+    print(f"  {' '.join(cmd[1:])}")
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-3000:])
+        fail(f"phase 11b: torchrun exited with {proc.returncode}")
+    root = os.path.join(work, "cache", "experiment_results", "b2p2t_gru+w2v_conformer", "dp_cli")
+    runs = os.listdir(root)
+    if len(runs) != 1:
+        fail(f"phase 11b: {len(runs)} results dirs under {root}")
+    results = os.path.join(root, runs[0])
+    for name in ("config.json", "history.json", "metrics.jsonl", "model.pt", os.path.join("train_state", "state.pt")):
+        if not os.path.exists(os.path.join(results, name)):
+            fail(f"phase 11b: {name} missing from {results}")
+    with open(os.path.join(results, "metrics.jsonl")) as f:
+        n_config = sum(json.loads(line)["_type"] == "run_config" for line in f)
+    with open(os.path.join(results, "history.json")) as f:
+        test_loss = json.load(f)["test"]["average"]["loss"]
+    print(f"  torchrun (NCCL, 1 rank, ZeRO-1): {wall:.2f} s wall; test loss {test_loss!r} vs phase 7's {ref!r}: "
+          f"bitwise equal {test_loss == ref}; run_config rows in metrics.jsonl: {n_config}; on {device_name} ({power})")
+    if test_loss != ref or n_config != 1:
+        fail("phase 11b: the torchrun CLI run is not phase 7's run")
+
+
 def cli_phases(device_name, power):
     """Phases 7-10 in a scratch dir under build/ (git-ignored), removed after;
     {path: launches} of the CLI training runs, the LM decode run, the sweep
@@ -1639,15 +1918,19 @@ def cli_phases(device_name, power):
         print(f"  synthetic T12 splits, a 3-gram ARPA of their {len(sentences)} train sentences and config.yaml "
               f"written in {time.perf_counter() - t:.2f} s")
         os.chdir(work)  # the CLI reads ./config.yaml
-        out = {}
+        out, test_losses = {}, {}
         for i, family in enumerate(("conformer", "w2v")):
             print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
-            out.update(cli_phase(device_name, power, family))
+            out.update(cli_phase(device_name, power, family, test_losses))
         print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
         out["w2v_sweep"] = sweep_phase(work, device_name, power)
         print("[10] weights in: pretrained snapshots in the hub cache, the frozen sweep's first point, the "
               "conformer's defaults, a JAX-format checkpoint")
         out.update(weights_phase(work, device_name, power))
+        print("[11] data parallel: a. two ranks on the card over gloo, one conformer train step each, "
+              "replicated and ZeRO-1; b. the CLI under torchrun (NCCL, one rank, ZeRO-1)")
+        out["conformer_dp"] = dp_step_phase(device_name, power)
+        dp_cli_phase(work, device_name, power, test_losses["conformer"])
         return out
     finally:
         os.chdir(cwd)
@@ -1748,4 +2031,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # phase 11a's ranks
+        dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -335,6 +335,37 @@ def test_cuda_attention_mma_fwd_matches_plain(t, sd, rate, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [89, 400])
+@pytest.mark.parametrize("sd,cd", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_bf16cd", "bf16"])
+@pytest.mark.parametrize("row0", [1, 16])
+def test_cuda_attention_at_a_row_offset_matches_plain(t, sd, cd, row0):
+    """A data-parallel rank's call: rows [row0, row0 + 4) of a batch of 20
+    at dropout 0.1, forward and backward (both tensor-core routes), against
+    the plain versions at the same row0 (the f32 tolerances, 2 bf16 ulps
+    at bf16), and bitwise the whole batch's rows from the kernels."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(t + row0)
+    q, k, v, go = (torch.randn((20, t, 1024), generator=g, device=dev).to(sd) for _ in range(4))
+    sl = slice(row0, row0 + 4)
+    args = (16, 0.125, 0.1, cd, 13)
+    mine = [port_attn._fwd_kernel(q[sl], k[sl], v[sl], *args, row0=row0),
+            *port_attn._bwd_kernel(q[sl], k[sl], v[sl], go[sl], *args, row0=row0)]
+    plain = [port_attn.mha_dense_bth(q[sl], k[sl], v[sl], *args, row0=row0),
+             *port_attn.mha_bwd_plain(q[sl], k[sl], v[sl], go[sl], *args, row0=row0)]
+    whole = [port_attn._fwd_kernel(q, k, v, *args), *port_attn._bwd_kernel(q, k, v, go, *args)]
+    for i, (m, p, w) in enumerate(zip(mine, plain, whole)):
+        if cd == torch.float32 and sd == torch.float32:
+            atol = 2e-5 * (1.0 if i == 0 else max(1.0, p.float().abs().max().item()))
+        else:
+            atol = _bf16_tol(p)
+        torch.testing.assert_close(m.float(), p.float(), atol=atol, rtol=0)
+        assert torch.equal(m, w[sl]), i
+    shifted = port_attn._fwd_kernel(q[sl], k[sl], v[sl], *args)  # row0 0: other masks
+    assert not torch.equal(shifted, mine[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [89, 400])
 def test_cuda_attention_mma_fwd_is_deterministic(t):
     """Two runs of the tensor-core forward on the same inputs are bitwise
     equal (no atomics; every sum in a fixed order)."""

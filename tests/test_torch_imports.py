@@ -58,6 +58,8 @@ def test_port_and_chip_smoke_import_without_jax_or_pydantic():
             "wav2vec2forbrain_tpu_torch.train.logger", "wav2vec2forbrain_tpu_torch.models.pretrained",
             "wav2vec2forbrain_tpu_torch.util.seq", "wav2vec2forbrain_tpu_torch.sweep",
             "wav2vec2forbrain_tpu_torch.decode.lm_decode", "wav2vec2forbrain_tpu_torch.train.buckets",
+            "wav2vec2forbrain_tpu_torch.parallel.distributed", "wav2vec2forbrain_tpu_torch.parallel.mesh",
+            "wav2vec2forbrain_tpu_torch.parallel.zero",
             "wav2vec2forbrain_tpu_torch.train.evaluator", "wav2vec2forbrain_tpu_torch.train.msgpack_codec",
             "wav2vec2forbrain_tpu_torch.models.convert", "wav2vec2forbrain_tpu_torch.models.hf_snapshot",
             "wav2vec2forbrain_tpu_torch.convert"} <= set(modules)

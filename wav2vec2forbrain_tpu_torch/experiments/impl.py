@@ -42,9 +42,18 @@ What the port does differently, or not at all:
 - Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
   --precompile_buckets, --multi_step_chunk, --host_prefetch,
   --length_bucket_order.
-- Refused with NotImplementedError: more than one device
-  (--mesh_data_parallel / --mesh_model_parallel above 1,
-  --optimizer_state_sharding=zero1).
+- Data parallelism runs one process a rank under torchrun (`python -m
+  torch.distributed.run --nproc_per_node=N -m wav2vec2forbrain_tpu_torch.run
+  ...`; parallel/): the process group is joined before anything else (NCCL
+  on the card, each rank on cuda:$LOCAL_RANK; gloo on the CPU),
+  --mesh_data_parallel 0 takes every rank and any other value must be the
+  world size, rank 0's results-dir timestamp, params and BN state are
+  broadcast, and rank 0 alone writes files (config.json, metrics.jsonl,
+  history.json, the model, the predictions) and runs the LM decode.
+  --optimizer_state_sharding=zero1 splits the Adam moments over the ranks
+  (parallel/zero.py); in one process it changes nothing.
+- Refused with NotImplementedError: tensor parallelism
+  (--mesh_model_parallel above 1).
 """
 
 import json
@@ -71,6 +80,9 @@ from wav2vec2forbrain_tpu_torch.models import pretrained
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.ops.select import f32_products, set_kernel_policy
+from wav2vec2forbrain_tpu_torch.parallel import distributed
+from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
+from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1
 from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_checkpoint, load_into, save_checkpoint, save_subtree
 from wav2vec2forbrain_tpu_torch.train.evaluator import EvaluatorWithLMDecoder
@@ -79,11 +91,11 @@ from wav2vec2forbrain_tpu_torch.train.logger import make_logger
 from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, step_lr, two_module_warmup_schedules
 from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_eval_step, build_train_step
 from wav2vec2forbrain_tpu_torch.train.train_loop import WIRE_DTYPES, Trainer
+from wav2vec2forbrain_tpu_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch",
                  "length_bucket_order")
-MULTI_GPU_NOT_PORTED = "multi-GPU training is not ported yet: ROADMAP.md, Queue 1, Multi-GPU"
 USE_PALLAS_NOTE = (
     "--use_pallas=false: the port's CUDA kernels are its implementation; "
     "use --pallas_kernels=none to run the plain versions"
@@ -116,11 +128,12 @@ class B2TGruW2VExperimentBase:
     ENCODER_FAMILY = "wav2vec2"
 
     def __init__(self, config: dict, yamlConfig: YamlConfigModel, device="cuda"):
+        self.device = distributed.maybe_initialize_distributed(resolve_device(device))
         self.base_config = validate(self.ARGS_MODEL, config)
         self.yaml_config = yamlConfig
         self.raw_config = config
-        self.device = resolve_device(device)
-        self._refuse_unported()
+        # the data axis over the ranks (None in one process); a model axis raises
+        self.shard = make_mesh(self.base_config.mesh_data_parallel, self.base_config.mesh_model_parallel)
         f32_products()
 
         cfg = self.base_config
@@ -136,16 +149,20 @@ class B2TGruW2VExperimentBase:
         subdir = [cfg.results_subdir_name] if cfg.results_subdir_name is not None else []
         self.results_dir = os.path.join(
             yamlConfig.cache_dir, "experiment_results", self.get_name(), *subdir,
-            f"{datetime.now():%Y-%m-%d_%H#%M#%S}",
+            distributed.broadcast_object(f"{datetime.now():%Y-%m-%d_%H#%M#%S}"),
         )
-        os.makedirs(self.results_dir, exist_ok=True)
-        with open(os.path.join(self.results_dir, "config.json"), "w") as f:
-            config_copy = dict(config)
-            config_copy["repro_cmd"] = "python " + " ".join(sys.argv)
-            json.dump(config_copy, f, indent=5)
+        self.coordinator = distributed.is_coordinator()  # the rank that writes files
+        if self.coordinator:
+            os.makedirs(self.results_dir, exist_ok=True)
+            with open(os.path.join(self.results_dir, "config.json"), "w") as f:
+                config_copy = dict(config)
+                config_copy["repro_cmd"] = "python " + " ".join(sys.argv)
+                json.dump(config_copy, f, indent=5)
 
         self._log_ignored_flags()
         self._build_model()
+        if distributed.world_size() > 1:  # every rank starts from rank 0's weights
+            distributed.broadcast_tensors(tree_leaves(self.params) + tree_leaves(self.model_state))
         self._build_optimizer_and_steps()
 
         self.checkpoint_history = None
@@ -178,15 +195,6 @@ class B2TGruW2VExperimentBase:
         return self.tokenizer.get_vocab_list()
 
     # --- construction pieces ------------------------------------------------
-
-    def _refuse_unported(self):
-        cfg = self.base_config
-        if cfg.mesh_data_parallel > 1 or cfg.mesh_model_parallel > 1 or cfg.optimizer_state_sharding == "zero1":
-            raise NotImplementedError(
-                f"{MULTI_GPU_NOT_PORTED} (--mesh_data_parallel={cfg.mesh_data_parallel}, "
-                f"--mesh_model_parallel={cfg.mesh_model_parallel}, "
-                f"--optimizer_state_sharding={cfg.optimizer_state_sharding})"
-            )
 
     def _log_ignored_flags(self):
         cfg = self.base_config
@@ -312,10 +320,11 @@ class B2TGruW2VExperimentBase:
             eps=cfg.optimizer_epsilon,
             mu_dtype=torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else None,
             nu_dtype=torch.bfloat16 if cfg.adam_nu_dtype == "bfloat16" else None,
+            zero=Zero1(self.shard) if cfg.optimizer_state_sharding == "zero1" and self.shard is not None else None,
         )
         self.opt_state = self.optimizer.init(self.params)
-        self.train_step = build_train_step(self.spec, self.labels, self.optimizer, self._step_cfg())
-        self.eval_step = build_eval_step(self.spec)
+        self.train_step = build_train_step(self.spec, self.labels, self.optimizer, self._step_cfg(), self.shard)
+        self.eval_step = build_eval_step(self.spec, self.shard)
         self.lr_schedules = self._make_lr_schedules()
 
     def _make_lr_schedules(self) -> LRSchedules:
@@ -361,7 +370,7 @@ class B2TGruW2VExperimentBase:
         return EvaluatorWithLMDecoder(
             self.tokenizer,
             mode,
-            lm_decoder=self._make_lm_decoder() if mode == "test" else None,
+            lm_decoder=self._make_lm_decoder() if mode == "test" and self.coordinator else None,
             track_non_test_predictions=track_non_test_predictions,
             lm_decode_test_predictions=self.base_config.lm_decode_test_predictions,
             crop_lens=self.base_config.greedy_decode_crop_lens,
@@ -375,6 +384,8 @@ class B2TGruW2VExperimentBase:
     # --- checkpointing ------------------------------------------------------
 
     def store_trained_model(self):
+        if not self.coordinator:
+            return
         save_checkpoint(os.path.join(self.results_dir, "model.pt"), self.params, self.model_state)
         if getattr(self.base_config, "store_brain_encoder", False):
             save_subtree(os.path.join(self.results_dir, "brain_encoder.pt"), self.params["brain"])
@@ -391,6 +402,7 @@ class B2TGruW2VExperimentBase:
             wandb_project=self.yaml_config.wandb_project_name,
             wandb_entity=self.yaml_config.wandb_entity,
             experiment_name=cfg.experiment_name,
+            enabled=self.coordinator,
         )
         trainer = Trainer(self)
         if not self.can_plot:
@@ -403,13 +415,14 @@ class B2TGruW2VExperimentBase:
                 self.model_state = trainer.model_state
                 if cfg.store_final_model:
                     self.store_trained_model()
-                with open(os.path.join(self.results_dir, "history.json"), "w") as f:
-                    json.dump(history.to_dict(), f, indent=5)
-                self.plot_results(history)
+                if self.coordinator:
+                    with open(os.path.join(self.results_dir, "history.json"), "w") as f:
+                        json.dump(history.to_dict(), f, indent=5)
+                    self.plot_results(history)
             else:
                 test_results = self.run_real_world_test(trainer)
                 self.logger.log(trainer._get_wandb_metrics(test_results, "test"))
-            if cfg.log_results_as_artifact:
+            if cfg.log_results_as_artifact and self.coordinator:
                 self._log_results_artifact()
             print(f"Done. Saved results to {self.results_dir}")
         finally:
@@ -439,8 +452,9 @@ class B2TGruW2VExperimentBase:
 
     def _predict_and_store(self, trainer, mode: Literal["train", "test"]):
         prediction = self._predict(trainer, mode)
-        with open(os.path.join(self.results_dir, f"{mode}_predictions.json"), "w") as f:
-            json.dump(prediction.to_dict(), f, indent=5)
+        if self.coordinator:
+            with open(os.path.join(self.results_dir, f"{mode}_predictions.json"), "w") as f:
+                json.dump(prediction.to_dict(), f, indent=5)
         return prediction
 
     def _predict(self, trainer, mode: Literal["train", "test"]):
@@ -453,15 +467,16 @@ class B2TGruW2VExperimentBase:
         evaluator = self.create_evaluator("test" if mode == "test" else "train", True)
         n = len(dataloader)
         pending = None
-        plots = self.can_plot
+        plots = self.can_plot and self.coordinator
+        rows = trainer._rows  # every rank's rows, gathered under data parallelism
 
         def process(outs, host_batch, true_b, i):
             loss, logits, logit_lens, pred_ids, _metrics = outs
             preds = {
                 "loss": float(loss),
-                "pred_ids": pred_ids[:true_b].cpu().numpy(),
-                "logits": logits[:true_b].cpu().numpy(),
-                "logit_lens": logit_lens[:true_b].cpu().numpy(),
+                "pred_ids": rows(pred_ids)[:true_b].cpu().numpy(),
+                "logits": rows(logits)[:true_b].cpu().numpy(),
+                "logit_lens": rows(logit_lens)[:true_b].cpu().numpy(),
             }
             evaluator.track_batch(preds, host_batch)
             if plots and i < self.base_config.visualize_predictions_n_batches:
@@ -471,8 +486,8 @@ class B2TGruW2VExperimentBase:
             print(f"Running predictions on {mode}. Batch {i + 1}/{n} done\r", end="")
 
         for i, host_batch in enumerate(dataloader):
-            batch, true_b = trainer._put(host_batch, mode)
-            outs = trainer.eval_step(trainer.params, trainer.model_state, batch)
+            batch, true_b, mask_total = trainer._place(host_batch, mode)
+            outs = trainer.eval_step(trainer.params, trainer.model_state, batch, mask_total)
             if pending is not None:
                 process(*pending)
             pending = (outs, host_batch, true_b, i)

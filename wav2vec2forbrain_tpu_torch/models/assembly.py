@@ -51,6 +51,7 @@ from wav2vec2forbrain_tpu_torch.models.wav2vec2 import (
 from wav2vec2forbrain_tpu_torch.ops.ctc import ctc_loss
 from wav2vec2forbrain_tpu_torch.ops.preproc import apply_preproc_fused
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.tree import tree_map
 
 
@@ -258,12 +259,20 @@ def forward_with_loss(
     train: bool = False,
     sample_mask: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
+    mask_total: Optional[float] = None,
+    group=None,
 ) -> dict:
     """{logits, logit_lens, loss (None without targets), state, metrics}
     (+ hidden_states with return_hidden). With an aux head the loss is the
     combined ctc + w * (aux | aux^2) and metrics carries ctc_loss,
     intermediate_loss (intermediate_loss_squared) and combined_loss, the JAX
-    package's names; without one, metrics is {}."""
+    package's names; without one, metrics is {}.
+
+    Data parallelism: the rows are part of a global batch split over
+    `group`, whose "mean" denominator is mask_total. Each CTC loss is this
+    part's share, summed over the ranks (parallel/distributed.py::
+    loss_across) before they are combined, so the loss and the metrics are
+    the global batch's on every rank."""
     aux_on = spec.aux_head_vocab_size is not None
     fwd = forward(
         params, state, spec, x, day_idxs, input_lens, rng, train,
@@ -274,15 +283,18 @@ def forward_with_loss(
     loss = None
     metrics = {}
     if targets is not None:
-        loss = ctc_loss(
+        def across(part):
+            return part if group is None else distributed.loss_across(part, group)
+
+        loss = across(ctc_loss(
             logits, logit_lens, targets, target_lens, spec.ctc_loss_reduction,
-            sample_mask=sample_mask,
-        )
+            sample_mask=sample_mask, mask_total=mask_total,
+        ))
         if aux_on:
-            aux_loss = ctc_loss(
+            aux_loss = across(ctc_loss(
                 extras["aux_logits"], logit_lens, targets, target_lens,
-                spec.ctc_loss_reduction, sample_mask=sample_mask,
-            )
+                spec.ctc_loss_reduction, sample_mask=sample_mask, mask_total=mask_total,
+            ))
             metrics["ctc_loss"] = loss
             metrics["intermediate_loss"] = aux_loss
             aux_term = aux_loss**2 if spec.additional_loss_squared else aux_loss

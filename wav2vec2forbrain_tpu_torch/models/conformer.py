@@ -15,7 +15,8 @@ Train mode, as the JAX package: hash dropout at the seven sites of a layer
 (each FFN half's activation and output, the attention probabilities inside
 the attention op, the attention output, the conv module's output) and on
 the encoder input, seeded in that order from the forward's encoder
-SeedStream (models/seeds.py); BatchNorm on batch statistics; LayerDrop.
+SeedStream (models/seeds.py); BatchNorm on batch statistics (the global
+batch's under data parallelism: the stream's group); LayerDrop.
 
 Every LayerNorm (five per layer and the encoder's last) goes through
 models/wav2vec2.py::_layer_norm_routed, as in the JAX package: the
@@ -35,6 +36,7 @@ from wav2vec2forbrain_tpu_torch.models.wav2vec2 import _init_layer_norm, _layer_
 from wav2vec2forbrain_tpu_torch.ops.attention import attention
 from wav2vec2forbrain_tpu_torch.ops.conv_glu import depthwise_conv_same, glu_dwconv
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+from wav2vec2forbrain_tpu_torch.parallel import distributed
 
 
 @dataclass
@@ -202,21 +204,35 @@ def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, comput
     k = apply_linear(p["linear_k"], qk_states, cd, out_dtype=sd)
     v = apply_linear(p["linear_v"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
-    ctx = attention(q, k, v, heads, cd, rate, stream.seed() if rate > 0.0 else 0)
+    seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
+    ctx = attention(q, k, v, heads, cd, rate, seed, row0=row0)
     return apply_linear(p["linear_out"], ctx, cd, out_dtype=sd)
 
 
-def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig, train: bool = False):
+def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig, train: bool = False,
+                group=None):
     """BatchNorm over channels of (B, T, C), torch semantics: train mode
     normalises with the biased batch variance over (B, T), pad frames
     included, and moves the running stats by the momentum with the unbiased
     variance; eval mode uses the running stats. Normalises in f32, emits in
-    x's dtype. Returns (y, new_state)."""
+    x's dtype. Returns (y, new_state).
+
+    With a data-parallel `group` (the ranks holding the rest of the batch)
+    the statistics are the global batch's, as the JAX package's are under a
+    sharded batch: the sums over (B, T) are summed over the ranks, mean
+    first, then the squared deviations from it, and their gradients are
+    summed back (parallel/distributed.py::sum_across); n counts every
+    rank's frames."""
     if train:
         x32 = x.float()
-        mean = x32.mean(dim=(0, 1))
-        var = x32.var(dim=(0, 1), unbiased=False)
         n = x.shape[0] * x.shape[1]
+        if group is None:
+            mean = x32.mean(dim=(0, 1))
+            var = x32.var(dim=(0, 1), unbiased=False)
+        else:
+            n *= distributed.group_size(group)
+            mean = distributed.sum_across(x32.sum(dim=(0, 1)), group) / n
+            var = distributed.sum_across(torch.square(x32 - mean).sum(dim=(0, 1)), group) / n
         unbiased = var * n / max(n - 1, 1)
         m = cfg.batch_norm_momentum
         new_state = {
@@ -244,7 +260,8 @@ def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtyp
         a, gate = y.float().chunk(2, dim=-1)
         y = (a * torch.sigmoid(gate)).to(sd)
         y = depthwise_conv_same(y.to(cd), w_dw.to(cd)).to(cd).to(sd)
-    y, new_bn = _batch_norm(p["batch_norm"], state["batch_norm"], y, cfg, train)
+    group = stream.group if train else None
+    y, new_bn = _batch_norm(p["batch_norm"], state["batch_norm"], y, cfg, train, group)
     y = ACT2FN[cfg.hidden_act](y)
     y = matmul_f32(y.to(cd), p["pointwise_conv2"]["kernel"].to(cd)).to(sd)
     return dropout_site(stream, y, cfg.conformer_conv_dropout, train), {"batch_norm": new_bn}

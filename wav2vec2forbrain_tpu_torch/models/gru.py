@@ -163,5 +163,5 @@ def apply_gru(
         if train and dropout > 0.0 and layer < num_layers - 1:
             if stream is None:
                 raise ValueError("apply_gru: train-mode dropout needs a seed stream (models/seeds.py)")
-            out = hash_dropout(out, stream.seed(), dropout)
+            out = hash_dropout(out, stream.seed(), dropout, stream.row0)
     return out

@@ -19,6 +19,16 @@ instead, or replays a sequence that a test supplies:
 Seeds and LayerDrop uniforms come from CPU generators: drawing them never
 waits on the card.
 
+Under data parallelism every rank seeds the same generators, so the ranks
+draw the same seeds, LayerDrop decisions and noise: a layer dropped on one
+rank is dropped on all. A stream also says where its forward's rows sit in
+the global batch: `row0`, the global index of local row 0, on which every
+dropout mask is keyed (ops/hash_dropout.py, the attention kernels), and
+`group`, the process group whose ranks hold the other rows, over which
+train-mode BatchNorm takes its batch statistics (models/conformer.py).
+One process: row0 0, group None. The augmentation noise is drawn at the
+global batch's shape and sliced to the rank's rows (`StepRng.normal`).
+
 The dropout sites of one encoder layer, in the order the JAX layer draws
 their seeds (each config field names a site's rate; a site whose rate is 0
 draws nothing), are CONFORMER_LAYER_SITES and W2V_LAYER_SITES;
@@ -68,6 +78,8 @@ class SeedStream:
         self._gen = generator
         self._seeds = None if seeds is None else [int(s) for s in seeds]
         self._layerdrop = None if layerdrop is None else [list(map(bool, m)) for m in layerdrop]
+        self.row0 = 0  # global batch index of the forward's local row 0
+        self.group = None  # data-parallel process group of the other rows (None: one process)
         self.n_seeds = 0  # seeds handed out so far
         self.layerdrop_drawn: List[List[bool]] = []  # every LayerDrop mask handed out
 
@@ -109,6 +121,12 @@ class ForwardRng(NamedTuple):
     enc: SeedStream
     head: SeedStream
 
+    def place(self, row0: int, group) -> "ForwardRng":
+        """Set where the forward's rows sit in the global batch (every stream)."""
+        for s in self:
+            s.row0, s.group = row0, group
+        return self
+
 
 def _sub_generator(parent: torch.Generator) -> torch.Generator:
     return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=parent)))
@@ -134,16 +152,21 @@ class StepRng:
         self._replay = None if replay is None else list(replay)
         self.forwards: List[ForwardRng] = []  # every ForwardRng handed out, in order
 
-    def next_forward(self) -> ForwardRng:
+    def next_forward(self, row0: int = 0, group=None) -> ForwardRng:
+        """The next step's streams, placed at rows [row0, ...) of a global
+        batch split over `group` (models/seeds.py's header)."""
         if self._replay is not None:
             if not self._replay:
                 raise RuntimeError("StepRng replay ran out of steps")
             fr = self._replay.pop(0)
         else:
             fr = forward_rng(self._host)
+        fr.place(row0, group)
         self.forwards.append(fr)
         return fr
 
-    def normal(self, shape, device) -> torch.Tensor:
-        """f32 N(0, 1) noise of `shape` on the device generator."""
-        return torch.randn(shape, generator=self._device, device=device, dtype=torch.float32)
+    def normal(self, shape, device, rows: Optional[slice] = None) -> torch.Tensor:
+        """f32 N(0, 1) noise of `shape` on the device generator; with rows,
+        shape is the global batch's and the noise those rows of it."""
+        x = torch.randn(shape, generator=self._device, device=device, dtype=torch.float32)
+        return x if rows is None else x[rows]

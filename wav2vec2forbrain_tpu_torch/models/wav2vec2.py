@@ -138,10 +138,11 @@ def _layer_norm_routed(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
-    """One dropout site: a hash mask keyed on the stream's next seed."""
+    """One dropout site: a hash mask keyed on the stream's next seed, at the
+    stream's global rows."""
     if not train or rate <= 0.0:
         return x
-    return hash_dropout(x, stream.seed(), rate)
+    return hash_dropout(x, stream.seed(), rate, stream.row0)
 
 
 def pos_conv_embed(p: dict, x: torch.Tensor, cfg: Wav2Vec2EncoderConfig) -> torch.Tensor:
@@ -168,7 +169,8 @@ def self_attention(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None,
     k = apply_linear(p["k_proj"], x, cd, out_dtype=sd)
     v = apply_linear(p["v_proj"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
-    ctx = mha(q, k, v, heads, cd, rate, stream.seed() if rate > 0.0 else 0, scale=1.0)
+    seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
+    ctx = mha(q, k, v, heads, cd, rate, seed, scale=1.0, row0=row0)
     return apply_linear(p["out_proj"], ctx, cd, out_dtype=sd)
 
 

@@ -7,7 +7,10 @@ written out here rather than left to F.ctc_loss's "mean":
 - feasibility: a sample whose logit_len < target_len + #repeats has no
   alignment and contributes 0 (but still counts in the mean's denominator);
 - "mean": per-sample loss / max(target_len, 1), averaged over the batch, or
-  over sample_mask's weight when a mask is given.
+  over sample_mask's weight when a mask is given. Under data parallelism a
+  rank holds part of the batch and divides its part's sum by the global
+  batch's weight (`mask_total`, which the host knows): the ranks' results
+  sum to the global batch's mean.
 
 F.ctc_loss runs with zero_infinity=True: its own backward of an infeasible
 sample computes exp(... + nll - ...) with nll = inf, which is NaN, and a
@@ -29,8 +32,12 @@ def ctc_loss(
     reduction: str = "mean",
     blank_id: int = 0,
     sample_mask: torch.Tensor = None,
+    mask_total: float = None,
 ) -> torch.Tensor:
-    """logits (B, T, K) raw; targets (B, U) padded with any value beyond target_lens."""
+    """logits (B, T, K) raw; targets (B, U) padded with any value beyond
+    target_lens; mask_total: the "mean" denominator of the global batch
+    (its sample_mask sum, or its row count), where these rows are a part
+    of it."""
     log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # (T, B, K)
     per_sample = F.ctc_loss(
         log_probs,
@@ -51,6 +58,8 @@ def ctc_loss(
         per_sample = per_sample * sample_mask
     if reduction == "mean":
         scaled = per_sample / torch.clamp(target_lens, min=1).to(per_sample.dtype)
+        if mask_total is not None:
+            return scaled.sum() / max(float(mask_total), 1.0)
         if sample_mask is not None:
             return scaled.sum() / torch.clamp(sample_mask.sum(), min=1.0)
         return scaled.mean()

@@ -83,7 +83,11 @@ def make_logger(
     wandb_project: Optional[str] = None,
     wandb_entity: Optional[str] = None,
     experiment_name: str = "experiment",
+    enabled: bool = True,
 ) -> MultiLogger:
+    """enabled=False (a data-parallel rank other than 0) logs nothing."""
+    if not enabled:
+        return MultiLogger()
     loggers = [JsonlLogger(results_dir, run_config)]
     if use_wandb:
         try:

@@ -18,6 +18,10 @@
   package: the weight decay is added to the gradient, p -= lr * (g + wd * p);
   it keeps no moments (its state's mu / nu are None).
 - clip_by_global_norm: torch clip_grad_norm_ over the whole tree.
+- ZeRO-1 (--optimizer_state_sharding=zero1, parallel/zero.py): with a
+  `Zero1`, init keeps this rank's piece of each split moment leaf, and
+  step updates this rank's piece of each split param (the whole of the
+  others) and then all-gathers the pieces.
 
 The update is a loop over the leaves in PyTorch ops, in place on the
 params: no finished optimizer kernel (the JAX package runs it as XLA).
@@ -113,8 +117,9 @@ class Optimizer:
     """make_optimizer's result: init(params) -> state; step(params, grads,
     state, brain_lr, w2v_lr) -> new state, with params updated in place."""
 
-    def __init__(self, labels, weight_decay=0.0, eps=1e-8, mu_dtype=None, nu_dtype=None, kind="adam"):
+    def __init__(self, labels, weight_decay=0.0, eps=1e-8, mu_dtype=None, nu_dtype=None, kind="adam", zero=None):
         self.kind = kind
+        self.zero = zero  # parallel/zero.py::Zero1, or None (moments whole on every rank)
         self.labels = labels
         self.weight_decay = weight_decay
         self.eps = eps
@@ -128,6 +133,8 @@ class Optimizer:
         def zeros(p, label, dtype):
             if label == "frozen":
                 return None
+            if self.zero is not None:
+                p = self.zero.local(p)
             return torch.zeros_like(p, dtype=dtype or p.dtype)
 
         mu = tree_map(lambda p, l: zeros(p, l, self.mu_dtype), params, self.labels)
@@ -158,9 +165,14 @@ class Optimizer:
         bc1 = float(1.0 - torch.tensor(B1) ** float(count))
         bc2 = float(1.0 - torch.tensor(B2) ** float(count))
 
+        zero = self.zero
+
         def leaf(p, g, label, m, v):
             if label == "frozen":
                 return
+            if zero is not None:  # this rank's piece (the whole leaf where it is not split)
+                p = zero.local(p)
+                g = None if g is None else zero.local(g)
             g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
             if self.weight_decay != 0.0:
                 g = g + self.weight_decay * p
@@ -171,6 +183,8 @@ class Optimizer:
             v.copy_(v32)
 
         tree_map(leaf, params, grads, self.labels, state.mu, state.nu)
+        if zero is not None:
+            zero.gather_params(params, self.labels)
         return AdamState(count, state.mu, state.nu)
 
     def _moments(self, g, m, v):
@@ -185,9 +199,9 @@ class Optimizer:
 
 
 def make_optimizer(labels, optimizer: str = "adam", weight_decay: float = 0.0, eps: float = 1e-8,
-                   mu_dtype=None, nu_dtype=None) -> Optimizer:
+                   mu_dtype=None, nu_dtype=None, zero=None) -> Optimizer:
     """The two trained groups share one rule ("adam" or "sgd"); frozen
-    leaves get no update."""
+    leaves get no update. zero: a parallel/zero.py::Zero1 (ZeRO-1), or None."""
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"Optimizer {optimizer} not implemented")
-    return Optimizer(labels, weight_decay, eps, mu_dtype, nu_dtype, kind=optimizer)
+    return Optimizer(labels, weight_decay, eps, mu_dtype, nu_dtype, kind=optimizer, zero=zero)

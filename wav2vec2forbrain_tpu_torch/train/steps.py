@@ -15,6 +15,20 @@ The train step (JAX `build_step_fns.train_step`):
 - the Adam step (train/optim.py) at the host's per-group LRs.
 Unlike the JAX step, which returns new arrays, the port updates the params
 and the optimizer moments in place and returns the same objects.
+
+Data parallelism (`shard`, parallel/mesh.py::DataShard): the batch is this
+rank's rows of the global batch, whose "mean" denominator the caller gives
+as `mask_total`. The step then computes what the JAX step computes on the
+whole batch over a ('data', 'model') = (dp, 1) mesh: the noise drawn at the
+global shape and sliced, the dropout masks at the global rows and the
+BatchNorm statistics over every rank's rows (the streams' row0 and group,
+models/seeds.py), the loss and its metrics summed over the ranks
+(models/assembly.py::forward_with_loss), and the gradients SUM-all-reduced
+in flat buckets before the norm and the clipping see them. That
+all-reduce is also what the JAX package's kernel partitioning
+(parallel/kernel_partition.py) adds: every kernel runs on the rank's local
+rows, and the batch-summed weight gradients (the GRU's dW, preproc's per-day
+dW, conv_glu's dK) are summed over the ranks with the rest.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -23,6 +37,7 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, forward_with_loss
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.train.optim import Optimizer, clip_by_global_norm, global_norm
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
 
@@ -45,12 +60,14 @@ class TrainStepOut(NamedTuple):
     metrics: Any = {}
 
 
-def build_eval_step(spec: ModelSpec):
-    """eval_step(params, state, batch) -> (loss, logits, logit_lens,
-    pred_ids, metrics); batch is a data.batch.B2tBatch of tensors on the
-    params' device."""
+def build_eval_step(spec: ModelSpec, shard=None):
+    """eval_step(params, state, batch, mask_total=None) -> (loss, logits,
+    logit_lens, pred_ids, metrics); batch is a data.batch.B2tBatch of
+    tensors on the params' device. With a shard: the loss and the metrics
+    are the global batch's, the rest this rank's rows'."""
+    group = None if shard is None else shard.group
 
-    def eval_step(params, state, batch):
+    def eval_step(params, state, batch, mask_total=None):
         with torch.inference_mode():
             out = forward_with_loss(
                 params,
@@ -63,6 +80,8 @@ def build_eval_step(spec: ModelSpec):
                 batch.target_lens,
                 train=False,
                 sample_mask=batch.sample_mask,
+                mask_total=mask_total,
+                group=group,
             )
             loss = out["loss"]
             if loss is None:
@@ -73,21 +92,31 @@ def build_eval_step(spec: ModelSpec):
     return eval_step
 
 
-def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig):
-    """grad_fn(params, model_state, batch, rng) -> (out, grads, norm): the
-    train step up to the optimizer. out is forward_with_loss's dict; grads a
-    tree like params (None at frozen leaves, and at leaves the forward did
-    not reach); norm the global gradient norm (over the full tree when
-    clipping is on), before clipping; grads are clipped when clipping is on."""
+def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig, shard=None):
+    """grad_fn(params, model_state, batch, rng, mask_total=None) -> (out,
+    grads, norm): the train step up to the optimizer. out is
+    forward_with_loss's dict; grads a tree like params (None at frozen
+    leaves, and at leaves the forward did not reach), summed over the ranks
+    with a shard; norm the global gradient norm (over the full tree when
+    clipping is on), before clipping; grads are clipped when clipping is
+    on. With a shard, mask_total (the global batch's sample_mask sum, or its
+    row count) is required."""
     clip = step_cfg.gradient_clipping
 
-    def grad_fn(params, model_state, batch, rng: StepRng):
-        fwd_rng = rng.next_forward()
+    def grad_fn(params, model_state, batch, rng: StepRng, mask_total=None):
+        global_b = batch.input.shape[0]
+        rows = group = None
+        if shard is not None:
+            if mask_total is None:
+                raise ValueError("a data-parallel step needs the global batch's mask_total")
+            global_b *= shard.size
+            rows, group = shard.rows(global_b), shard.group
+        fwd_rng = rng.next_forward(0 if rows is None else rows.start, group)
         x = batch.input.float()
         if step_cfg.white_noise_sd > 0:
-            x = x + rng.normal(x.shape, x.device) * step_cfg.white_noise_sd
+            x = x + rng.normal((global_b, *x.shape[1:]), x.device, rows) * step_cfg.white_noise_sd
         if step_cfg.constant_offset_sd > 0:
-            x = x + rng.normal((x.shape[0], 1, x.shape[2]), x.device) * step_cfg.constant_offset_sd
+            x = x + rng.normal((global_b, 1, x.shape[2]), x.device, rows) * step_cfg.constant_offset_sd
 
         def need(p, label):
             p.requires_grad_(label != "frozen" or clip is not None)
@@ -96,10 +125,12 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig):
         out = forward_with_loss(
             params, model_state, spec, x, batch.day_idxs, batch.input_lens,
             batch.target, batch.target_lens, rng=fwd_rng, train=True,
-            sample_mask=batch.sample_mask,
+            sample_mask=batch.sample_mask, mask_total=mask_total, group=group,
         )
         leaves = [p for p in tree_leaves(params) if p.requires_grad]
         found = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
+        if shard is not None:  # the same leaves on every rank: LayerDrop's decisions are shared
+            distributed.all_reduce_tensors([g for g in found if g is not None], group)
         by_id = {id(p): g for p, g in zip(leaves, found)}
         grads = tree_map(lambda p: by_id.get(id(p)), params)
         if clip is not None:
@@ -112,14 +143,18 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig):
     return grad_fn
 
 
-def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: StepConfig):
+def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: StepConfig, shard=None):
     """train_step(params, opt_state, model_state, batch, rng, brain_lr,
-    w2v_lr) -> TrainStepOut (JAX: build_step_fns' train_step). labels is
-    the param_labels tree the optimizer was made with; rng a StepRng."""
-    grad_fn = build_grad_fn(spec, labels, step_cfg)
+    w2v_lr, mask_total=None) -> TrainStepOut (JAX: build_step_fns'
+    train_step). labels is the param_labels tree the optimizer was made
+    with; rng a StepRng; shard and mask_total as build_grad_fn's (the
+    optimizer carries ZeRO-1, train/optim.py). pred_ids and logit_lens are
+    this rank's rows'."""
+    grad_fn = build_grad_fn(spec, labels, step_cfg, shard)
 
-    def train_step(params, opt_state, model_state, batch, rng: StepRng, brain_lr, w2v_lr) -> TrainStepOut:
-        out, grads, _ = grad_fn(params, model_state, batch, rng)
+    def train_step(params, opt_state, model_state, batch, rng: StepRng, brain_lr, w2v_lr,
+                   mask_total=None) -> TrainStepOut:
+        out, grads, _ = grad_fn(params, model_state, batch, rng, mask_total)
         new_opt_state = optimizer.step(params, grads, opt_state, brain_lr, w2v_lr)
         metrics = {k: v.detach() for k, v in out["metrics"].items()}
         return TrainStepOut(

@@ -22,14 +22,24 @@ batch's bucket, `t_buckets`) and applies the --h2d_dtype host cast. Where
 the test evaluator decodes with an LM, each test batch's logits come to
 the host with its ids.
 
+Data parallelism (torchrun, parallel/): every rank loads the same global
+batch; `_place` pads its rows to --batch_size rounded up to the data axis
+(as the JAX Trainer._put), picks the width from the whole batch (the
+BatchNorm statistics count pad frames, so the ranks must agree), and keeps
+the rank's rows. The steps return the global loss and metrics; the ranks'
+predicted ids (and logits, where they are needed) are gathered, so every
+rank tracks the same history and takes the same early-stopping and
+best-model decisions. Rank 0 alone writes files (the best model, the train
+state, whose ZeRO-1 moments are gathered first so the file keeps the whole
+layout), each write followed by a barrier; every rank reads back.
+
 Left out, being XLA- or TPU-only: the K-step chunked epochs, the bucket
-precompile, the host prefetch thread and the multi-host fetches.
+precompile and the host prefetch thread.
 """
 
 import json
 import os
 import time
-import uuid
 from typing import Any, Iterable, Literal, NamedTuple
 
 import numpy as np
@@ -38,6 +48,8 @@ import torch
 from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch, to_device
 from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from wav2vec2forbrain_tpu_torch.parallel import distributed
+from wav2vec2forbrain_tpu_torch.parallel.mesh import padded_rows
 from wav2vec2forbrain_tpu_torch.train.buckets import width_for
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_tree, to_cpu
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
@@ -124,6 +136,9 @@ def pad_width(batch: B2tBatch, t: int, u: int, time_axis: int = 0, pad_id: int =
 
 
 class Trainer:
+    shard = None  # parallel/mesh.py::DataShard under data parallelism
+    zero = None  # parallel/zero.py::Zero1 under ZeRO-1
+
     def __init__(self, experiment):
         self.experiment = experiment
         self.config = experiment.base_config
@@ -147,13 +162,22 @@ class Trainer:
         self.dataloader_test = experiment.dataloader_test
 
         self.step_timer = StepTimer()
+        self.shard = experiment.shard
+        self.zero = experiment.optimizer.zero
 
     # --- helpers ------------------------------------------------------------
 
     def _put(self, batch: B2tBatch, split: str) -> tuple:
         """(padded device batch, true row count) for a host batch of `split`."""
+        return self._place(batch, split)[:2]
+
+    def _place(self, batch: B2tBatch, split: str) -> tuple:
+        """(device batch, true row count, mask_total): the host batch padded
+        and widened; under data parallelism its rows of this rank, and the
+        global batch's "mean" denominator (None in one process)."""
         true_b = batch.input.shape[0]
-        batch = pad_rows(batch, max(self.config.batch_size, true_b))
+        dp = 1 if self.shard is None else self.shard.size
+        batch = pad_rows(batch, padded_rows(self.config.batch_size, true_b, dp))
         width = self.experiment.batch_widths.get(split)
         if width is not None:
             t, u = width
@@ -162,9 +186,19 @@ class Trainer:
                 t = width_for(buckets, int(batch.input_lens.max()))
             batch = pad_width(batch, t, u, time_axis=self.experiment.time_axis,
                               pad_id=self.experiment.tokenizer.pad_token_id)
+        mask_total = None
+        if self.shard is not None:
+            rows = batch.input.shape[0]
+            mask_total = float(rows if batch.sample_mask is None else batch.sample_mask.sum())
+            mine = self.shard.rows(rows)
+            batch = B2tBatch(*(None if a is None else a[mine] for a in batch))
         dev = to_device(batch._replace(input=None), self.device)
         x = torch.from_numpy(np.ascontiguousarray(batch.input)).to(WIRE_DTYPES[self.config.h2d_dtype])
-        return dev._replace(input=x.to(self.device)), true_b
+        return dev._replace(input=x.to(self.device)), true_b, mask_total
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A step output's rows of the global batch (every rank's, gathered)."""
+        return x if self.shard is None else distributed.gather_rows(x, self.shard.group)
 
     def _log_intermediate(self, i: int, n: int, evaluator):
         print(
@@ -191,16 +225,17 @@ class Trainer:
         def process(out, host_batch, true_b, i):
             preds = {
                 "loss": float(out.loss),
-                "pred_ids": out.pred_ids[:true_b].cpu().numpy(),
-                "logit_lens": out.logit_lens[:true_b].cpu().numpy(),
+                "pred_ids": self._rows(out.pred_ids)[:true_b].cpu().numpy(),
+                "logit_lens": self._rows(out.logit_lens)[:true_b].cpu().numpy(),
             }
             if out.metrics:
                 preds["metrics"] = {k: float(v) for k, v in out.metrics.items()}
             self._track(evaluator, preds, host_batch, i, n)
 
         for i, host_batch in enumerate(data_loader):
-            batch, true_b = self._put(host_batch, split)
-            out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr, w2v_lr)
+            batch, true_b, mask_total = self._place(host_batch, split)
+            out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr, w2v_lr,
+                                  mask_total)
             self.opt_state = out.opt_state
             self.model_state = out.model_state
             self.rng.forwards.clear()  # the step's seed streams are spent
@@ -220,23 +255,24 @@ class Trainer:
     def _evaluate_epoch(self, mode: Literal["val", "test"]) -> SingleEpochHistory:
         dataloader = self.dataloader_val if mode == "val" else self.dataloader_test
         evaluator = self.experiment.create_evaluator(mode)
-        need_logits = evaluator.lm_decoder is not None
+        # every rank gathers what rank 0's LM decode needs (a collective)
+        need_logits = mode == "test" and self.config.lm_decode_test_predictions
         n = len(dataloader)
         pending = None
 
         def process(outs, host_batch, true_b, i):
             loss, logits, logit_lens, pred_ids, metrics = outs
-            preds = {"loss": float(loss), "pred_ids": pred_ids[:true_b].cpu().numpy()}
+            preds = {"loss": float(loss), "pred_ids": self._rows(pred_ids)[:true_b].cpu().numpy()}
             if metrics:
                 preds["metrics"] = {k: float(v) for k, v in metrics.items()}
-            preds["logit_lens"] = logit_lens[:true_b].cpu().numpy()
+            preds["logit_lens"] = self._rows(logit_lens)[:true_b].cpu().numpy()
             if need_logits:
-                preds["logits"] = logits[:true_b].cpu().numpy()
+                preds["logits"] = self._rows(logits)[:true_b].cpu().numpy()
             self._track(evaluator, preds, host_batch, i, n)
 
         for i, host_batch in enumerate(dataloader):
-            batch, true_b = self._put(host_batch, mode)
-            outs = self.eval_step(self.params, self.model_state, batch)
+            batch, true_b, mask_total = self._place(host_batch, mode)
+            outs = self.eval_step(self.params, self.model_state, batch, mask_total)
             if pending is not None:
                 process(*pending)
             pending = (outs, host_batch, true_b, i)
@@ -259,13 +295,21 @@ class Trainer:
 
     def _save_train_state(self, epoch: int, history: list):
         """params, BN state, optimizer state, the step RNG's generators and
-        the loaders' shuffle streams: a resumed run continues exactly."""
+        the loaders' shuffle streams: a resumed run continues exactly. The
+        moments are written whole (ZeRO-1's pieces gathered by every rank),
+        so the file resumes at any data-parallel width."""
         path = self._train_state_path()
         opt = self.opt_state
+        mu, nu = opt.mu, opt.nu
+        if self.zero is not None and mu is not None:
+            mu, nu = self.zero.full_moments(mu, self.params), self.zero.full_moments(nu, self.params)
+        if not distributed.is_coordinator():
+            distributed.barrier("train state written")
+            return
         bundle = {
             "params": to_cpu(self.params),
             "state": to_cpu(self.model_state),
-            "opt": {"count": int(opt.count), "mu": to_cpu(opt.mu), "nu": to_cpu(opt.nu)},
+            "opt": {"count": int(opt.count), "mu": to_cpu(mu), "nu": to_cpu(nu)},
             "rng": {"host": self.rng._host.get_state(), "device": self.rng._device.get_state()},
             "loaders": {
                 split: loader.rng_state()
@@ -277,6 +321,7 @@ class Trainer:
         save_tree(path, bundle)
         with open(os.path.join(os.path.dirname(path), "history.json"), "w") as f:
             json.dump(TrainHistory(history, SingleEpochHistory()).to_dict(), f)
+        distributed.barrier("train state written")
 
     def restore_train_state(self, path: str):
         """Returns (next_epoch, history)."""
@@ -287,8 +332,11 @@ class Trainer:
         copy_into(self.model_state, bundle["state"])
         opt = bundle["opt"]
         if self.opt_state.mu is not None:
-            copy_into(self.opt_state.mu, opt["mu"])
-            copy_into(self.opt_state.nu, opt["nu"])
+            mu, nu = opt["mu"], opt["nu"]
+            if self.zero is not None:  # the file's whole moments -> this rank's pieces
+                mu, nu = self.zero.shard_moments(mu), self.zero.shard_moments(nu)
+            copy_into(self.opt_state.mu, mu)
+            copy_into(self.opt_state.nu, nu)
         self.opt_state = AdamState(int(opt["count"]), self.opt_state.mu, self.opt_state.nu)
         self.rng._host.set_state(bundle["rng"]["host"])
         self.rng._device.set_state(bundle["rng"]["device"])
@@ -302,7 +350,9 @@ class Trainer:
         return int(bundle["epoch"]) + 1, history
 
     def _save_model(self, path: str):
-        save_checkpoint(path, self.params, self.model_state)
+        if distributed.is_coordinator():
+            save_checkpoint(path, self.params, self.model_state)
+        distributed.barrier("model written")
 
     def _load_model(self, path: str):
         load_into(path, self.params, self.model_state)
@@ -318,9 +368,11 @@ class Trainer:
         )
         best_metric = float("inf" if self.config.minimize_best_model_metric else "-inf")
         best_model_path = os.path.join(
-            self.yaml_config.cache_dir, "model_checkpoints", str(uuid.uuid4()), "best_model.pt"
+            self.yaml_config.cache_dir, "model_checkpoints", distributed.shared_uuid(), "best_model.pt"
         )
-        os.makedirs(os.path.dirname(best_model_path), exist_ok=True)
+        coordinator = distributed.is_coordinator()
+        if coordinator:
+            os.makedirs(os.path.dirname(best_model_path), exist_ok=True)
         saved_best = False
 
         def get_relevant_metric(epoch_hist: SingleEpochHistory):
@@ -353,7 +405,8 @@ class Trainer:
             every = self.config.checkpoint_every_n_epochs
             if every is not None and (epoch + 1) % every == 0:
                 self._save_train_state(epoch, history)
-                print(f"Saved train state at {self._train_state_path()}")
+                if coordinator:
+                    print(f"Saved train state at {self._train_state_path()}")
 
             if self.config.return_best_model:
                 curr = get_relevant_metric(val_losses)
@@ -382,9 +435,11 @@ class Trainer:
 
         if self.config.return_best_model and saved_best:
             self._load_model(best_model_path)
-            os.remove(best_model_path)
+            distributed.barrier("best model read")
+            if coordinator:
+                os.remove(best_model_path)
             print("Loaded model with best validation loss of this experiment from disk")
-        if os.path.isdir(os.path.dirname(best_model_path)):
+        if coordinator and os.path.isdir(os.path.dirname(best_model_path)):
             os.rmdir(os.path.dirname(best_model_path))
 
         if self.config.train_on_val_once:
