@@ -27,7 +27,10 @@ Phases, each of which exits nonzero on failure:
      at bf16 compute, split-TF32 products at f32 compute), and at T'=169
      (about 700 frames) and T'=400, B=8 (about 1,600 frames: the forwards
      stream their key tiles there), at bf16 compute with dropout 0.1 and at
-     f32 compute with dropout 0 and 0.1; GLU -> depthwise conv at B=32
+     f32 compute with dropout 0 and 0.1, and the forward at the audio
+     stream's shape (phase 12): B=8, T'=299 (6 s of 16 kHz speech after
+     the conv front end), the w2v heads (12 x 64, q pre-scaled, scale 1),
+     rate 0, an f32 stream, at f32 and bf16 compute; GLU -> depthwise conv at B=32
      T=89 and at B=8 with T=169 and 400 (several of the backward's time
      chunks); the LayerNorm at both encoders'
      shapes with an f32 and a bf16 stream (the vector kernel at C 768 and
@@ -113,7 +116,9 @@ Phases, each of which exits nonzero on failure:
      from SEED: the port's init plus seeded noise), in the checkpoints'
      own key layout (written out here as the converter's inverse):
      facebook/wav2vec2-base-960h as pytorch_model.bin (pos-conv weight_g /
-     weight_v, and audio front-end keys the converter drops) and
+     weight_v, and the whole audio front end, which the converter drops:
+     7 convs of 512 without bias, the group norm, the projection to 768;
+     seeded values, `snapshot_frontend`) and
      facebook/wav2vec2-conformer-rope-large-960h-ft as model.safetensors
      (`write_safetensors`). a. The first point of
      sweeps/b2p2t_gru+w2v_frozen_w2v.yaml through the sweep runner in
@@ -154,11 +159,31 @@ Phases, each of which exits nonzero on failure:
      --optimizer_state_sharding=zero1. Fails unless it returned 0, wrote
      its results once (one results dir, one run_config in metrics.jsonl)
      and its test loss is bitwise phase 7's training run's.
+ 12. the analysis (analysis/latent_analysis.py), at full width and f32
+     compute (the CLI's), in phase 7's scratch dir. a. The w2v-base
+     experiment at phase 8's flags from phase 8's best model:
+     embed_brain_representations and embed_brain over the test split
+     (rows 1, 5, 7 f32 and 11 launched). b. The same for phase 7's
+     conformer model, brain stream only (rows 1, 3, 7 f32, 9 and 11).
+     c. The audio stream: 8 seeded PCM16 clips of 2-6 s at 16 kHz read
+     back by load_wav_batches, the front end read from phase 10's w2v-base
+     snapshot (hf_snapshot.read_state_dict -> feature_encoder_from_torch,
+     bitwise `snapshot_frontend`), then embed_audio_representations
+     through the w2v experiment's encoder (T' 299 for 6 s; rows 7 f32 and
+     11). d. a, b and c again under the `none` policy (no launch). Fails
+     unless each path launched exactly its kernels, pre is embed_brain's
+     within ANALYSIS_PRE_TOL and post is not pre, every output is finite
+     and of its shape, the post hidden states of each stream under `auto`
+     are `none`'s within AUTO_VS_NONE_REL of their largest |x|, and
+     representation_statistics of a + c is finite with each
+     pca_explained summing to at most 1. Prints each step's seconds, and
+     from a second `auto` call of each stream brain samples embedded a
+     second and audio seconds embedded a wall second; the phase's seconds.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the two CLI training
-runs, the LM decode run, the sweep, phase 10's runs a and b and both ranks
-of phase 11a, by path in `launches_by_path`;
+runs, the LM decode run, the sweep, phase 10's runs a and b, both ranks
+of phase 11a and phase 12's three `auto` paths, by path in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -247,6 +272,7 @@ PATH_KERNELS = {
     "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm"),
     "w2v": ("preproc", "gru_dir", "attention", "layernorm"),
     "w2v_sweep": ("preproc", "gru", "attention", "layernorm"),  # biGRU H 256: the fused entry
+    "w2v_audio": ("attention", "layernorm"),  # phase 12's audio stream: front end (no kernel), w2v encoder
 }
 # phase 7's third run (the paper's decode) and phase 9 (the sweep runner)
 LM_FLAGS = ["--only_test=true", "--lm_decode_test_predictions=true", "--length_buckets=exact"]
@@ -259,11 +285,12 @@ SNAPSHOTS = {"facebook/wav2vec2-base-960h": "pytorch_model.bin",
              "facebook/wav2vec2-conformer-rope-large-960h-ft": "model.safetensors"}
 SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off its init value
 # each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
-# (phase 11a's two ranks: "conformer_dp")
+# (phase 11a's two ranks: "conformer_dp"; phase 12's paths: "*_analysis")
 CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
              "w2v_cli": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
              "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False),
-             "conformer_dp": ("conformer", True)}
+             "conformer_dp": ("conformer", True), "w2v_analysis": ("w2v", False),
+             "conformer_analysis": ("conformer", False), "audio_analysis": ("w2v_audio", False)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -282,6 +309,13 @@ DP_GRAD_REL = 1e-4
 DP_BN_REL = 1e-5
 DP_ROWS = 16  # rows a rank: phase 4's batch of 32 over 2 ranks
 DP_TIMEOUT = 420  # seconds for phase 11a's ranks
+# phase 12: the audio clips (the first 6 s long: T' 299), the front end's seed in the snapshot, pre against
+# embed_brain (the same kernels on the same inputs, f32), post `auto` against `none` (PERF.md §2's f32 rule)
+AUDIO_CLIPS = 8
+AUDIO_RATE = 16000
+FRONTEND_SEED = SEED + 20
+ANALYSIS_PRE_TOL = 1e-5
+AUTO_VS_NONE_REL = 1e-3
 FAMILY_NAMES = {
     "conformer": "b2p2t_gru+w2v_conformer: conformer-rope-large (24 x d1024, 16 heads, FFN 4096, k31), biGRU 2 x 256",
     "w2v": "b2p2t_gru+w2v: wav2vec2-base-960h (12 x d768 post-LN, 12 heads, FFN 3072), biGRU 3 x 1024",
@@ -577,12 +611,13 @@ def kernel_phases(dev, results):
         kernel_split(label, lambda: preproc._bwd_kernel(x, w, b, days, taps, gp, 32, 4),
                      {"preproc_bwd_gather": 1, "preproc_bwd_dz_dy": 1, "preproc_bwd_dw_dx": 1})
 
-    def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None, row0=0):
+    def attention_rows(gen, batch, heads, scale, q_scale, t=89, rows=None, row0=0, backward=True):
         """attention at T'=t, heads of 64, eval (rate 0) and train (rate 0.1,
         seed 77); q is multiplied by q_scale in the stream dtype first (the
         wav2vec2 encoder's pre-scaling); rows: the (stream, compute dtype,
         rate) triples to run; row0: the global batch index of row 0 (a
-        data-parallel rank's, which keys the dropout mask). The library call: F.scaled_dot_product_attention
+        data-parallel rank's, which keys the dropout mask); backward=False: the
+        forward rows only (an eval path's). The library call: F.scaled_dot_product_attention
         at rate 0 (forward, and its backward), in the stream dtype (at f32 its
         memory-efficient kernel, split TF32 on the tensor cores)."""
         width = 64 * heads
@@ -610,6 +645,8 @@ def kernel_phases(dev, results):
                             lambda: attention.mha_dense_bth(q, k, v, heads, scale, rate, cd, 77, row0),
                             f32_tol("attention") if cd == f32 else bf16_tol, results,
                             (q, k, v), [(2 * qkt, product_rate(cd))], sdpa_fwd)
+                    if not backward:
+                        continue
                     compare("attention_bwd", label,
                             lambda: attention._bwd_kernel(q, k, v, ga, heads, scale, rate, cd, 77, row0),
                             lambda: attention.mha_bwd_plain(q, k, v, ga, heads, scale, rate, cd, 77, row0),
@@ -795,7 +832,12 @@ def kernel_phases(dev, results):
     long_rows = [(f32, bf16, 0.1), (f32, f32, 0.0), (f32, f32, 0.1)]
     attention_rows(torch.Generator(device=dev).manual_seed(SEED + 2), 32, 16, 0.125, 1.0, t=169, rows=long_rows)
     attention_rows(torch.Generator(device=dev).manual_seed(SEED + 3), 8, 16, 0.125, 1.0, t=400, rows=long_rows)
-    # 8. attention at f32 compute with logits 8x larger, against the f64 result
+    # 8. the audio stream's attention forward (phase 12): B=8 clips of up to 6 s, T'=299 after the conv front
+    # end, the w2v heads (q pre-scaled by 1/8, scale 1), eval (rate 0), an f32 stream at f32 compute (the
+    # CLI's) and at bf16 compute
+    attention_rows(torch.Generator(device=dev).manual_seed(SEED + 5), 8, 12, 1.0, 0.125, t=299,
+                   rows=[(f32, f32, 0.0), (f32, bf16, 0.0)], backward=False)
+    # 9. attention at f32 compute with logits 8x larger, against the f64 result
     attention_precision_rows(torch.Generator(device=dev).manual_seed(SEED + 4), 64, 12)
 
 
@@ -1083,10 +1125,10 @@ def _cli_run(argv):
     return exp, time.perf_counter() - t
 
 
-def cli_phase(device_name, power, family, test_losses):
+def cli_phase(device_name, power, family, test_losses, models):
     """Phases 7 and 8; returns {path: launches} of the CLI training run (and
     of the conformer's LM decode run); test_losses[family] = the training
-    run's test loss."""
+    run's test loss, models[family] = its best model's model.pt."""
     import math
 
     import torch
@@ -1114,6 +1156,7 @@ def cli_phase(device_name, power, family, test_losses):
     losses = [e[s]["average"]["loss"] for e in hist["epochs"] for s in ("train", "val")]
     test_loss = hist["test"]["average"]["loss"]
     test_losses[family] = test_loss
+    models[family] = os.path.join(results, "model.pt")
     if len(hist["epochs"]) != 2 or not all(math.isfinite(x) for x in losses + [test_loss]):
         fail(f"{family} CLI: {len(hist['epochs'])} epochs, losses {losses}, test {test_loss}")
     sps = [r["train_samples_per_sec"] for r in rows if "train_samples_per_sec" in r]
@@ -1344,12 +1387,38 @@ def snapshot_tree(checkpoint, seed):
     return family, tree_map(noise, tree), state
 
 
+def frontend_config(family):
+    """The checkpoint's audio front end: w2v-base's (group norm after conv 0,
+    no conv bias, 768) or conformer-rope-large's (a LayerNorm after every
+    conv, conv bias, 1024); 7 convs of 512 either way."""
+    from wav2vec2forbrain_tpu_torch.models.audio_frontend import FeatureEncoderConfig
+
+    conformer = family == "conformer"
+    return FeatureEncoderConfig(conv_bias=conformer, feat_extract_norm="layer" if conformer else "group",
+                                hidden_size=1024 if conformer else 768)
+
+
+def snapshot_frontend(family):
+    """The audio front end a snapshot holds, in the port's layout: the port's
+    init from FRONTEND_SEED plus seeded noise on every leaf, CPU tensors.
+    The same values every call (phase 12 checks the snapshot's against it)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models.audio_frontend import init_feature_encoder_params
+    from wav2vec2forbrain_tpu_torch.tree import tree_map
+
+    g = torch.Generator().manual_seed(FRONTEND_SEED)
+    tree = init_feature_encoder_params(g, frontend_config(family), "cpu")
+    return tree_map(lambda t: t + SNAPSHOT_NOISE * torch.randn(t.shape, generator=g), tree)
+
+
 def hf_state_dict(family, tree, state):
     """The checkpoint files' own key layout for a tree in the port's layout
     (models/convert.py's inverse, written out independently): torch (out,
     in) linears, the pos-conv as weight_g / weight_v, conv weights (out,
     in / groups, k), BN running statistics, and keys the converter drops:
-    the audio front end, masked_spec_embed, the rotary inv_freq and the BN
+    the audio front end (`snapshot_frontend`, feature_extractor.* and
+    feature_projection.*), masked_spec_embed, the rotary inv_freq and the BN
     counters. CPU tensors, each with a storage of its own."""
     import torch
 
@@ -1396,9 +1465,17 @@ def hf_state_dict(family, tree, state):
     linear("lm_head", tree["lm_head"])
     h = tree["lm_head"]["kernel"].shape[0]
     sd[f"{base}.masked_spec_embed"] = torch.rand(h)
-    sd[f"{base}.feature_extractor.conv_layers.0.conv.weight"] = torch.rand(512, 1, 10)
-    sd[f"{base}.feature_projection.projection.weight"] = torch.rand(h, 512)
-    sd[f"{base}.feature_projection.projection.bias"] = torch.rand(h)
+    fe = snapshot_frontend(family)
+    for i, layer in enumerate(fe["conv_layers"]):
+        p = f"{base}.feature_extractor.conv_layers.{i}"
+        sd[f"{p}.conv.weight"] = layer["conv"]["kernel"].permute(2, 1, 0)  # (k, in, out) -> (out, in, k)
+        if "bias" in layer["conv"]:
+            sd[f"{p}.conv.bias"] = layer["conv"]["bias"]
+        for norm in ("group_norm", "layer_norm"):  # HF names both conv_layers.{i}.layer_norm
+            if norm in layer:
+                ln(f"{p}.layer_norm", layer[norm])
+    ln(f"{base}.feature_projection.layer_norm", fe["projection"]["layer_norm"])
+    linear(f"{base}.feature_projection.projection", fe["projection"]["projection"])
     if family == "conformer":
         sd[f"{enc}.embed_positions.inv_freq"] = 1.0 / 10000 ** (torch.arange(0, 64, 2).float() / 64)
     return {k: v.detach().contiguous().to("cpu") for k, v in sd.items()}
@@ -1887,10 +1964,170 @@ def dp_cli_phase(work, device_name, power, ref):
         fail("phase 11b: the torchrun CLI run is not phase 7's run")
 
 
+def write_clips(audio_dir):
+    """AUDIO_CLIPS seeded mono PCM16 clips at AUDIO_RATE in audio_dir, the
+    first 6 s long, the others 2-6 s: seven harmonics of a 90-220 Hz voice
+    under a 3-6 Hz syllable envelope, plus noise. Returns (paths, seconds)."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 30)
+    paths, seconds = [], []
+    for i in range(AUDIO_CLIPS):
+        n = 6 * AUDIO_RATE if i == 0 else int(rng.uniform(2.0, 6.0) * AUDIO_RATE)
+        t = np.arange(n) / AUDIO_RATE
+        f0 = rng.uniform(90.0, 220.0)
+        voice = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 8))
+        syllables = np.clip(np.sin(2 * np.pi * rng.uniform(3.0, 6.0) * t), 0.0, None)
+        x = 0.15 * syllables * voice + 0.01 * rng.standard_normal(n)
+        path = os.path.join(audio_dir, f"{i}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(AUDIO_RATE)
+            w.writeframes(np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16).tobytes())
+        paths.append(path)
+        seconds.append(n / AUDIO_RATE)
+    return paths, seconds
+
+
+def analysis_phase(work, models, device_name, power):
+    """Phase 12; returns {path: launches} of its three `auto` runs: the w2v
+    and conformer brain streams (embed_brain_representations, then
+    embed_brain) and the audio stream."""
+    import numpy as np
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.analysis import latent_analysis as la
+    from wav2vec2forbrain_tpu_torch.args.argparsing import get_experiment_from_args
+    from wav2vec2forbrain_tpu_torch.models.audio_frontend import feature_encoder_from_torch
+    from wav2vec2forbrain_tpu_torch.models.hf_snapshot import read_state_dict
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(step, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[step] = time.perf_counter() - t
+        return out
+
+    exps = {}
+    for family in ("w2v", "conformer"):
+        flags = CLI_FLAGS[family] + ["--w2v_skip_loading_weights=true", f"--seed={SEED}",
+                                     f"--from_checkpoint={models[family]}", f"--results_subdir_name={family}_analysis"]
+        exps[family] = timed(f"build {family}", lambda: get_experiment_from_args(flags))
+        if exps[family].spec.compute_dtype != torch.float32 or exps[family].device.type != "cuda":
+            fail(f"analysis: the {family} experiment is at {exps[family].spec.compute_dtype} on {exps[family].device}")
+    w2v = exps["w2v"]
+    n_brain = {family: len(exp.dataloader_test.dataset) for family, exp in exps.items()}
+
+    audio_dir = os.path.join(work, "audio")
+    os.makedirs(audio_dir)
+    paths, clip_seconds = timed("write clips", lambda: write_clips(audio_dir))
+    batches = timed("read clips", lambda: list(la.load_wav_batches(paths, batch_size=AUDIO_CLIPS)))
+    n_samples = int(max(clip_seconds) * AUDIO_RATE)
+    if [b.shape for b in batches] != [(AUDIO_CLIPS, n_samples)] or batches[0].dtype != np.float32:
+        fail(f"analysis: audio batches {[(b.shape, b.dtype) for b in batches]}")
+    checkpoint = next(iter(SNAPSHOTS))  # facebook/wav2vec2-base-960h, phase 10's snapshot
+    sd = timed("read snapshot", lambda: read_state_dict(checkpoint, os.path.join(work, "cache")))
+    frontend = feature_encoder_from_torch(sd, "wav2vec2.feature_extractor", "wav2vec2.feature_projection")
+    del sd
+    written = dict(tree_leaves_with_path(snapshot_frontend("w2v")))
+    read = dict(tree_leaves_with_path(frontend))
+    if set(read) != set(written) or not all(torch.equal(read[p], written[p]) for p in read):
+        fail("analysis: the front end read from the snapshot is not the one phase 10 wrote")
+    fe_cfg = frontend_config("w2v")
+    print(f"  front end: {checkpoint} snapshot in {os.path.join(work, 'cache')}, {len(read)} leaves, bitwise "
+          f"the written ones; {AUDIO_CLIPS} clips of {[round(x, 2) for x in clip_seconds]} s at {AUDIO_RATE} Hz")
+
+    def embed_audio():
+        return la.embed_audio_representations(batches, frontend, fe_cfg, w2v.params["w2v"]["encoder"],
+                                              w2v.spec.w2v_cfg, device=w2v.device)
+
+    out, launches = {}, {}
+    for policy in ("auto", "none"):
+        select.set_kernel_policy(policy)
+        for family in ("w2v", "conformer"):
+            path = f"{family}_analysis"
+            kernels.reset_launches()
+            reps = timed(f"{policy} {family} embed_brain_representations",
+                         lambda: la.embed_brain_representations(exps[family]))
+            pre = timed(f"{policy} {family} embed_brain", lambda: la.embed_brain(exps[family]))
+            launches[(policy, path)] = dict(kernels.LAUNCHES)
+            out[(policy, path)] = reps
+            width = exps[family].spec.latent_size
+            err = float(np.abs(reps["pre"] - pre).max())
+            ok = (reps["pre"].shape == reps["post"].shape == pre.shape and pre.shape[1] == width
+                  and reps["pre_agg"].shape == reps["post_agg"].shape == (n_brain[family], width)
+                  and all(np.isfinite(x).all() for x in (*reps.values(), pre)))
+            print(f"  {policy} {family}: pre {reps['pre'].shape}, pre vs embed_brain max_abs {err:.3e} "
+                  f"(tol {ANALYSIS_PRE_TOL:.0e}), post vs pre max_abs {np.abs(reps['post'] - reps['pre']).max():.3e}; "
+                  f"launches {json.dumps(launches[(policy, path)])}")
+            if not ok or not err <= ANALYSIS_PRE_TOL or np.allclose(reps["post"], reps["pre"], atol=1e-3):
+                fail(f"analysis {policy} {family}: shapes, finiteness, pre vs embed_brain {err} or post == pre")
+        kernels.reset_launches()
+        audio = timed(f"{policy} audio embed_audio_representations", embed_audio)
+        launches[(policy, "audio_analysis")] = dict(kernels.LAUNCHES)
+        out[(policy, "audio_analysis")] = audio
+        frames = n_samples
+        for k, stride in zip(fe_cfg.conv_kernel, fe_cfg.conv_stride):
+            frames = (frames - k) // stride + 1
+        shapes = {k: v.shape for k, v in audio.items()}
+        want = {"pre": (AUDIO_CLIPS * frames, 768), "post": (AUDIO_CLIPS * frames, 768),
+                "pre_agg": (AUDIO_CLIPS, 768), "post_agg": (AUDIO_CLIPS, 768)}
+        print(f"  {policy} audio: T' {frames}, {shapes}; launches {json.dumps(launches[(policy, 'audio_analysis')])}")
+        if shapes != want or not all(np.isfinite(x).all() for x in audio.values()):
+            fail(f"analysis {policy} audio: shapes {shapes} (want {want}) or non-finite values")
+    select.set_kernel_policy("auto")
+
+    for path, family in (("w2v_analysis", "w2v"), ("conformer_analysis", "conformer"),
+                         ("audio_analysis", "w2v_audio")):
+        _check_launches(launches[("auto", path)], family, train=False)
+        if any(launches[("none", path)].values()):
+            fail(f"analysis {path} under none launched {launches[('none', path)]}")
+        post, ref = out[("auto", path)]["post"], out[("none", path)]["post"]
+        diff, bound = float(np.abs(post - ref).max()), AUTO_VS_NONE_REL * float(np.abs(ref).max())
+        print(f"  {path}: post auto vs none max_abs {diff:.3e} (bound {bound:.3e} = {AUTO_VS_NONE_REL:.0e} x max |x|)")
+        if not diff <= bound:
+            fail(f"analysis {path}: post hidden states auto vs none differ by {diff} > {bound}")
+
+    stats = la.representation_statistics(out[("auto", "w2v_analysis")], out[("auto", "audio_analysis")])
+    for space, st in stats.items():
+        values = [st["centroid_cosine"], *st["pca_explained"], *st["brain"].values(), *st["audio"].values()]
+        finite = all(np.isfinite(values)) and np.isfinite(st["brain_pca"]).all() and np.isfinite(st["audio_pca"]).all()
+        print(f"  statistics {space}: centroid cosine {st['centroid_cosine']:.4f}, pca_explained "
+              f"{[round(x, 4) for x in st['pca_explained']]}, norms brain {st['brain']} audio {st['audio']}")
+        if not finite or not sum(st["pca_explained"]) <= 1.0:
+            fail(f"analysis statistics {space}: not finite or pca_explained {st['pca_explained']} sums over 1")
+
+    # the rates from a second call of each stream (the first calls above paid the libraries' set-up)
+    for family in ("w2v", "conformer"):
+        timed(f"auto {family} embed_brain_representations, warm", lambda: la.embed_brain_representations(exps[family]))
+    timed("auto audio embed_audio_representations, warm", embed_audio)
+    for step, s in seconds.items():
+        print(f"  {step}: {s:.3f} s")
+    for family in ("w2v", "conformer"):
+        s = seconds[f"auto {family} embed_brain_representations, warm"]
+        print(f"  {family} brain stream (auto, warm): {n_brain[family]} samples in {s:.3f} s = "
+              f"{n_brain[family] / s:.1f} samples/s")
+    s = seconds["auto audio embed_audio_representations, warm"]
+    print(f"  audio stream (auto, warm): {sum(clip_seconds):.2f} s of audio in {s:.3f} s = "
+          f"{sum(clip_seconds) / s:.1f} audio seconds a wall second; phase 12 took "
+          f"{time.perf_counter() - t_phase:.2f} s on {device_name} ({power})")
+    del exps, w2v
+    torch.cuda.empty_cache()
+    return {path: launches[("auto", path)] for path in ("w2v_analysis", "conformer_analysis", "audio_analysis")}
+
+
 def cli_phases(device_name, power):
-    """Phases 7-10 in a scratch dir under build/ (git-ignored), removed after;
-    {path: launches} of the CLI training runs, the LM decode run, the sweep
-    and phase 10's runs."""
+    """Phases 7-12 in a scratch dir under build/ (git-ignored), removed after;
+    {path: launches} of the CLI training runs, the LM decode run, the sweep,
+    phase 10's runs, phase 11a's ranks and phase 12's `auto` paths."""
     import shutil
 
     from scipy.io import loadmat
@@ -1918,10 +2155,10 @@ def cli_phases(device_name, power):
         print(f"  synthetic T12 splits, a 3-gram ARPA of their {len(sentences)} train sentences and config.yaml "
               f"written in {time.perf_counter() - t:.2f} s")
         os.chdir(work)  # the CLI reads ./config.yaml
-        out, test_losses = {}, {}
+        out, test_losses, models = {}, {}, {}
         for i, family in enumerate(("conformer", "w2v")):
             print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
-            out.update(cli_phase(device_name, power, family, test_losses))
+            out.update(cli_phase(device_name, power, family, test_losses, models))
         print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
         out["w2v_sweep"] = sweep_phase(work, device_name, power)
         print("[10] weights in: pretrained snapshots in the hub cache, the frozen sweep's first point, the "
@@ -1931,6 +2168,9 @@ def cli_phases(device_name, power):
               "replicated and ZeRO-1; b. the CLI under torchrun (NCCL, one rank, ZeRO-1)")
         out["conformer_dp"] = dp_step_phase(device_name, power)
         dp_cli_phase(work, device_name, power, test_losses["conformer"])
+        print("[12] analysis: the brain streams of phases 8 and 7's models and an audio stream through the "
+              "snapshot's front end and the w2v-base encoder, auto and none")
+        out.update(analysis_phase(work, models, device_name, power))
         return out
     finally:
         os.chdir(cwd)

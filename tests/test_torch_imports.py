@@ -3,10 +3,12 @@ package's, and the refusal of chip_smoke.py and of the port's CLI
 (run.py) to run without a CUDA card unless asked for the CPU.
 
 The GPU machine has no jax, pydantic, yaml, flax, optax, msgpack,
-transformers, safetensors or huggingface_hub, so neither the port nor
-chip_smoke.py may import them, not even indirectly; nor do they
-import the JAX package itself, or the repository's sweep.py (the port's
-sweep runner reads the sweep YAMLs itself)."""
+transformers, safetensors, huggingface_hub, soundfile, pydub, elevenlabs
+or matplotlib, so neither the port nor chip_smoke.py may import them when
+a module is imported, not even indirectly (the analysis and the plots
+import matplotlib, pydub and elevenlabs inside the functions that use
+them); nor do they import the JAX package itself, or the repository's
+sweep.py (the port's sweep runner reads the sweep YAMLs itself)."""
 
 import os
 import pkgutil
@@ -24,7 +26,7 @@ from wav2vec2forbrain_tpu_torch.data.tokenizer import W2V_CTC_VOCAB, Wav2Vec2CTC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "pydantic", "optax", "flax", "transformers", "yaml", "sweep", "msgpack", "safetensors",
-           "huggingface_hub")
+           "huggingface_hub", "soundfile", "pydub", "elevenlabs", "matplotlib")
 
 
 def _port_modules():
@@ -62,7 +64,10 @@ def test_port_and_chip_smoke_import_without_jax_or_pydantic():
             "wav2vec2forbrain_tpu_torch.parallel.zero",
             "wav2vec2forbrain_tpu_torch.train.evaluator", "wav2vec2forbrain_tpu_torch.train.msgpack_codec",
             "wav2vec2forbrain_tpu_torch.models.convert", "wav2vec2forbrain_tpu_torch.models.hf_snapshot",
-            "wav2vec2forbrain_tpu_torch.convert"} <= set(modules)
+            "wav2vec2forbrain_tpu_torch.convert", "wav2vec2forbrain_tpu_torch.models.audio_frontend",
+            "wav2vec2forbrain_tpu_torch.analysis", "wav2vec2forbrain_tpu_torch.analysis.latent_analysis",
+            "wav2vec2forbrain_tpu_torch.analysis.results_analysis",
+            "wav2vec2forbrain_tpu_torch.analysis.raw_data_analysis"} <= set(modules)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}

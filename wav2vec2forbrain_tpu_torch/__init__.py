@@ -40,10 +40,22 @@ package's msgpack checkpoints (`train/msgpack_codec.py`,
 brain_encoder.pt; the converter CLI is `python -m
 wav2vec2forbrain_tpu_torch.convert`.
 
-Not ported: analysis, multi-GPU.
+Data parallelism (`parallel/`): one process a card under torchrun
+(NCCL), BatchNorm over the global batch, dropout masks of the global rows,
+optional ZeRO-1 (`--optimizer_state_sharding=zero1`).
+
+The analysis (`analysis/`): the paper's brain-vs-audio latent comparison
+(`analysis/latent_analysis.py`, the audio conv front end in
+`models/audio_frontend.py`; both streams through the model on the card),
+the sweep statistics (`analysis/results_analysis.py`) and the raw-data
+EDA (`python -m wav2vec2forbrain_tpu_torch.analysis.raw_data_analysis`).
+
+Not ported: tensor parallelism (`--mesh_model_parallel` above 1 raises),
+and crossing a JAX train state (`train_state/`) into a port resume.
 
 This package never imports jax, optax, flax, msgpack, transformers,
-huggingface_hub, safetensors, pydantic or yaml.
+huggingface_hub, safetensors, pydantic, yaml, soundfile or pydub, and
+imports matplotlib only inside the functions that plot.
 """
 
 __version__ = "0.1.0"

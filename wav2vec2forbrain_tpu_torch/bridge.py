@@ -17,6 +17,9 @@ mu and nu over its own leaves) <-> the port's train/optim.py AdamState (one
 count, and mu / nu trees over all trained leaves). The optax containers are
 walked by duck typing, so this module imports neither jax nor optax.
 
+The audio front end of the latent analysis crosses the same way
+(`frontend_from_jax` / `frontend_to_jax`).
+
 No jax import: the JAX side is passed as pytrees of numpy arrays
 (`jax.tree_util.tree_map(np.asarray, tree)`).
 """
@@ -71,6 +74,18 @@ def params_from_jax(params: dict, state: dict, device="cuda") -> Tuple[dict, dic
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return tree_map(to_tensor, params), {"encoder": tree_map(to_tensor, state["encoder"])}
+
+
+def frontend_from_jax(tree: dict, device="cuda") -> dict:
+    """A JAX audio front-end tree (models/audio_frontend.py's, as numpy) ->
+    the port's, tensors on `device` (the card unless the caller asks for
+    another); the same structure and layouts, bit for bit."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+
+
+def frontend_to_jax(tree: dict) -> dict:
+    """Inverse of frontend_from_jax: numpy arrays in the JAX layout."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def params_to_jax(params: dict, state: dict, stacked: bool = False) -> Tuple[dict, dict]:
