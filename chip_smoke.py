@@ -34,7 +34,12 @@ Phases, each of which exits nonzero on failure:
      T=89 and at B=8 with T=169 and 400 (several of the backward's time
      chunks); the LayerNorm at both encoders'
      shapes with an f32 and a bf16 stream (the vector kernel at C 768 and
-     1024). Each row: max-abs error beside its tolerance; the kernel's
+     1024); the CTC loss and its gradient (csrc/ctc.cu, no TPU kernel) at
+     B=64, T' 89, 169 and 230, 32 classes (ragged lengths, a sample
+     without an alignment, an empty target), also bitwise against itself
+     over CTC_CALLS calls and against F.ctc_loss at f64 (within
+     F32_CLASS_FACTOR x the plain version's distance). Each row: max-abs
+     error beside its tolerance; the kernel's
      device time with the queue kept full (`device_ms`: calls queued behind
      a spin kernel run back to back, so the host's launch overhead drops
      out; where queueing outlasts the longest spin, the row is marked
@@ -101,7 +106,10 @@ Phases, each of which exits nonzero on failure:
   8. wav2vec2-base CLI: phase 7 for --experiment_type=b2p2t_gru+w2v at the
      fft sweep point (sweeps/b2p2t_gru+w2v_full_fine_tuning.yaml: biGRU 3 x
      1024, batch 64, its LRs, dropout, smoothing and noise), without the
-     third run.
+     third run; the training run is made twice from the one seed, and fails
+     unless the two history.json files, the final params, BN state, Adam
+     count and moments and the launch counts are equal, bitwise; prints
+     both walls.
   9. the sweep runner: `wav2vec2forbrain_tpu_torch.sweep` runs
      sweeps/b2p2t_gru+w2v_training_from_scratch.yaml with --max_runs 2
      --extra --epochs=1 --length_buckets=4 on phase 7's splits, each point
@@ -179,11 +187,28 @@ Phases, each of which exits nonzero on failure:
      pca_explained summing to at most 1. Prints each step's seconds, and
      from a second `auto` call of each stream brain samples embedded a
      second and audio seconds embedded a wall second; the phase's seconds.
+ 13. the train-state crossing, in phase 7's scratch dir. a. `python -m
+     wav2vec2forbrain_tpu_torch.convert train-state` (a subprocess) turns
+     phase 8's train_state/ into the JAX package's state.msgpack; the w2v
+     experiment at phase 8's flags with --epochs=3 and
+     --resume_train_state=<its dir> restores it (Trainer.restore_train_state)
+     and runs. Fails unless the restored params, BN state, Adam moments and
+     count, epoch and history are the state.pt's bitwise, the resumed run
+     has 3 epochs (the first two the state's), finite epoch 3 losses and
+     exactly the w2v training kernels launched; prints the msgpack's bytes,
+     the seconds to convert (a fresh interpreter included), to read and to
+     restore, and the resumed run's wall. b. One w2v CLI epoch at
+     --batch_size=4 --device_data_cache=on --length_buckets=4
+     --length_bucket_order=grouped (an epoch the JAX package runs in K-step
+     chunks on a card): fails unless its train batches ran in the loader's
+     order stably sorted by bucket width (read from the collate calls) and
+     exactly the w2v training kernels launched; prints the order.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
-kernel; launches summed over the two training runs, the two CLI training
+kernel; launches summed over the two training runs, the three CLI training
 runs, the LM decode run, the sweep, phase 10's runs a and b, both ranks
-of phase 11a and phase 12's three `auto` paths, by path in `launches_by_path`;
+of phase 11a, phase 12's three `auto` paths and phase 13's two runs, by
+path in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -264,15 +289,20 @@ REPLACES = {
     "conv_glu_bwd": _PALLAS + "pallas_conv_glu.py:169",
     "layernorm": _PALLAS + "pallas_layernorm.py:100",
     "layernorm_bwd": _PALLAS + "pallas_layernorm.py:115",
+    "ctc": "none: no TPU kernel (the JAX package runs optax.ctc_loss, wav2vec2forbrain_tpu/ops/ctc.py:43)",
 }
 SOURCES = {name: "wav2vec2forbrain_tpu_torch/csrc/{}.cu".format(name.split("_bwd")[0].replace("gru_dir", "gru"))
            for name in REPLACES}
-# the kernels each main path must launch (backward kernels only in training)
+# the kernels each main path must launch (backward kernels only in training; "ctc" wherever a loss is taken,
+# serving too: one launch computes the loss and, in training, its gradient)
 PATH_KERNELS = {
-    "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm"),
-    "w2v": ("preproc", "gru_dir", "attention", "layernorm"),
-    "w2v_sweep": ("preproc", "gru", "attention", "layernorm"),  # biGRU H 256: the fused entry
-    "w2v_audio": ("attention", "layernorm"),  # phase 12's audio stream: front end (no kernel), w2v encoder
+    "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm", "ctc"),
+    "w2v": ("preproc", "gru_dir", "attention", "layernorm", "ctc"),
+    "w2v_sweep": ("preproc", "gru", "attention", "layernorm", "ctc"),  # biGRU H 256: the fused entry
+    # phase 12's streams, no loss: the brain encoders' and the audio stream's (front end, no kernel; w2v encoder)
+    "conformer_brain": ("preproc", "gru", "attention", "conv_glu", "layernorm"),
+    "w2v_brain": ("preproc", "gru_dir", "attention", "layernorm"),
+    "w2v_audio": ("attention", "layernorm"),
 }
 # phase 7's third run (the paper's decode) and phase 9 (the sweep runner)
 LM_FLAGS = ["--only_test=true", "--lm_decode_test_predictions=true", "--length_buckets=exact"]
@@ -286,11 +316,13 @@ SNAPSHOTS = {"facebook/wav2vec2-base-960h": "pytorch_model.bin",
 SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off its init value
 # each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
 # (phase 11a's two ranks: "conformer_dp"; phase 12's paths: "*_analysis")
+# (phase 8's second run: "w2v_cli_repeat"; phase 13's: "w2v_resumed", "w2v_grouped")
 CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
-             "w2v_cli": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
+             "w2v_cli": ("w2v", True), "w2v_cli_repeat": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
              "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False),
-             "conformer_dp": ("conformer", True), "w2v_analysis": ("w2v", False),
-             "conformer_analysis": ("conformer", False), "audio_analysis": ("w2v_audio", False)}
+             "conformer_dp": ("conformer", True), "w2v_analysis": ("w2v_brain", False),
+             "conformer_analysis": ("conformer_brain", False), "audio_analysis": ("w2v_audio", False),
+             "w2v_resumed": ("w2v", True), "w2v_grouped": ("w2v", True)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -301,6 +333,14 @@ ROW_LABELS = {
     "layernorm": "B64 T89 C768 float32",
 }
 ROW_LABELS.update({f"{k}_bwd": v for k, v in list(ROW_LABELS.items())})
+ROW_LABELS["ctc"] = "B64 T'169 K32"  # phase 8's batch at its longest trials (700 frames)
+# phase 2's CTC rows: the NLL relative to its largest value (f32 sums of T' log-sum-exps taken in another
+# order); the gradient, a difference of probabilities (|g| <= 1), absolute: both f32 versions put sums of
+# magnitude |nll| (hundreds) in the exponent of each term, and each sits ~1e-4 off the f64 result at T' 169,
+# so the kernel is also held to F32_CLASS_FACTOR x the plain version's own distance from F.ctc_loss at f64
+CTC_NLL_REL = 1e-5
+CTC_GRAD_ABS = 1e-3
+CTC_CALLS = 20
 # phase 11a: the two ranks' step against one process's, f32 sums taken in another order (the GRU, preproc and
 # LN kernels at 16 rows, the BN statistics as sums over the ranks): the loss, each gradient leaf against its own
 # largest magnitude (at least 1), the BN running stats against max(1, |ref|)
@@ -562,7 +602,7 @@ def kernel_phases(dev, results):
 
     from wav2vec2forbrain_tpu_torch.models.gru import bigru_inputs, init_gru_params
     from wav2vec2forbrain_tpu_torch.models.preprocessing import gaussian_kernel
-    from wav2vec2forbrain_tpu_torch.ops import attention, conv_glu, gru, layernorm, preproc
+    from wav2vec2forbrain_tpu_torch.ops import attention, conv_glu, ctc, gru, layernorm, preproc
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -712,6 +752,47 @@ def kernel_phases(dev, results):
                          f"{F32_CLASS_FACTOR} x the plain f32 version's {p64}")
             del exact, kern, plain, sdpa
 
+    def ctc_tol(ref):
+        return CTC_NLL_REL * max(1.0, ref.abs().max().item()) if ref.dim() == 1 else CTC_GRAD_ABS
+
+    def ctc_rows(gen, batch=64, vocab=32):
+        """The CTC loss and its gradient at T' 89, 169 and 230: ragged logit lengths, targets of up to T' / 3
+        tokens, sample 1 without an alignment, sample 2 an empty target."""
+        for t in (89, 169, 230):
+            lp = F.log_softmax(torch.randn((batch, t, vocab), generator=gen, device=dev), dim=-1)
+            in_lens = torch.randint(t // 2, t + 1, (batch,), generator=gen, device=dev)
+            tgt_lens = torch.randint(1, t // 3 + 1, (batch,), generator=gen, device=dev)
+            targets = torch.randint(1, vocab, (batch, t // 3), generator=gen, device=dev).int()
+            in_lens[0], in_lens[1], tgt_lens[1], tgt_lens[2] = t, 1, 2, 0
+            in_lens, tgt_lens = in_lens.int(), tgt_lens.int()
+
+            def plain(x=lp):
+                x = x.detach().requires_grad_()
+                nll = ctc.ctc_nll_plain(x, targets, in_lens, tgt_lens)
+                return nll.detach(), torch.autograd.grad(nll, x, torch.ones_like(nll))[0]
+
+            def kern():
+                return ctc._ctc_kernel(lp, targets, in_lens, tgt_lens, 0, True)
+
+            # the work this data needs: the alpha and beta recursions over each sample's T_b x (2 L_b + 1)
+            # states (3 exp, a log and ~8 flops each), the gradient's sums (an exp and ~4 flops a state) and
+            # its (t, class) terms (two exp and ~3 flops), all f32
+            states = int((in_lens.long() * (2 * tgt_lens.long() + 1)).sum())
+            flops = states * (2 * 12 + 5) + int(in_lens.sum()) * vocab * 5
+            label = f"B{batch} T'{t} K{vocab}"
+            compare("ctc", label, kern, plain, ctc_tol, results, (lp, targets, in_lens, tgt_lens),
+                    [(flops, "float32")], plain)
+            first = kern()
+            same = all(torch.equal(a, b) for _ in range(CTC_CALLS - 1) for a, b in zip(kern(), first))
+            g64 = plain(lp.double())[1]
+            k64 = (first[1].double() - g64).abs().max().item()
+            p64 = (plain()[1].double() - g64).abs().max().item()
+            print(f"  {'':13s} {label:42s} {CTC_CALLS} calls bitwise equal: {same}; gradient vs f64: kernel "
+                  f"{k64:.3e} plain {p64:.3e} (bound {F32_CLASS_FACTOR} x plain)")
+            if not same or not k64 <= F32_CLASS_FACTOR * p64:
+                fail(f"ctc {label}: the kernel is not reproducible ({same}) or off the f64 gradient ({k64} vs "
+                     f"plain {p64})")
+
     # 1. preproc: B=32 with the conformer's smoothing (sigma 0.3); the w2v shape's rows are in 6
     preproc_rows(g, 32, 0.3, others=True)
 
@@ -839,6 +920,9 @@ def kernel_phases(dev, results):
                    rows=[(f32, f32, 0.0), (f32, bf16, 0.0)], backward=False)
     # 9. attention at f32 compute with logits 8x larger, against the f64 result
     attention_precision_rows(torch.Generator(device=dev).manual_seed(SEED + 4), 64, 12)
+    # 10. the CTC loss and its gradient (csrc/ctc.cu; no TPU kernel) at the w2v-base CLI's batch, B=64:
+    # F.ctc_loss forward and backward is the plain version and the library call
+    ctc_rows(torch.Generator(device=dev).manual_seed(SEED + 6))
 
 
 def _spec_and_batch(family):
@@ -1168,6 +1252,28 @@ def cli_phase(device_name, power, family, test_losses, models):
           f"WER {hist['test']['average']['metrics'].get('word_error_rate')}")
     print(f"  kernel launches in the CLI training run: {json.dumps(launches)}")
     _check_launches(launches, family, train=True)
+    out = {f"{family}_cli": launches}
+    if family == "w2v":  # the same run again: bitwise the first
+        kernels.reset_launches()
+        again, wall_again = _cli_run(argv + [f"--results_subdir_name={family}_train_repeat"])
+        out[f"{family}_cli_repeat"] = dict(kernels.LAUNCHES)
+        with open(os.path.join(again.results_dir, "history.json")) as f:
+            same_history = json.load(f) == hist
+
+        def trees(e):
+            return (tree_leaves(e.params) + tree_leaves(e.model_state) + tree_leaves(e.opt_state.mu)
+                    + tree_leaves(e.opt_state.nu))
+
+        same = (same_history and exp.opt_state.count == again.opt_state.count
+                and all(torch.equal(a, b) for a, b in zip(trees(exp), trees(again))))
+        print(f"  the training run again from seed {SEED}: {wall_again:.2f} s wall (the first {wall:.2f} s); "
+              f"history.json equal {same_history}; final params, BN state, Adam count and moments bitwise "
+              f"equal {same}")
+        if not same or out[f"{family}_cli_repeat"] != launches:
+            fail(f"{family} CLI: two trainings from one seed differ (history {same_history}, leaves {same}, "
+                 f"launches {out[f'{family}_cli_repeat']} vs {launches})")
+        del again
+        torch.cuda.empty_cache()
 
     kernels.reset_launches()
     only, wall_test = _cli_run(argv + [f"--results_subdir_name={family}_only_test", "--only_test=true",
@@ -1188,7 +1294,6 @@ def cli_phase(device_name, power, family, test_losses, models):
     select.set_kernel_policy("auto")
     del only
     torch.cuda.empty_cache()
-    out = {f"{family}_cli": launches}
     if family == "conformer":
         out["conformer_lm"] = lm_run(argv, os.path.join(results, "model.pt"), device_name, power)
     del exp
@@ -2085,7 +2190,7 @@ def analysis_phase(work, models, device_name, power):
             fail(f"analysis {policy} audio: shapes {shapes} (want {want}) or non-finite values")
     select.set_kernel_policy("auto")
 
-    for path, family in (("w2v_analysis", "w2v"), ("conformer_analysis", "conformer"),
+    for path, family in (("w2v_analysis", "w2v_brain"), ("conformer_analysis", "conformer_brain"),
                          ("audio_analysis", "w2v_audio")):
         _check_launches(launches[("auto", path)], family, train=False)
         if any(launches[("none", path)].values()):
@@ -2122,6 +2227,129 @@ def analysis_phase(work, models, device_name, power):
     del exps, w2v
     torch.cuda.empty_cache()
     return {path: launches[("auto", path)] for path in ("w2v_analysis", "conformer_analysis", "audio_analysis")}
+
+
+def _grouped_run(argv, device_name, power):
+    """Phase 13b: one w2v CLI epoch whose train batches the JAX package would chunk and group by width.
+    Returns its launches."""
+    from wav2vec2forbrain_tpu_torch.args.argparsing import get_experiment_from_args
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+    from wav2vec2forbrain_tpu_torch.train.buckets import width_for
+
+    exp = get_experiment_from_args(argv)
+    loader, buckets = exp.dataloader_train, exp.t_buckets.get("train")
+    if exp.resolve_multi_step_chunk() < 2 or not buckets:
+        fail(f"phase 13b: the epoch is not one the JAX package chunks (K {exp.resolve_multi_step_chunk()}, "
+             f"buckets {buckets})")
+    lengths = exp.sample_lengths["train"]
+    state = loader.rng_state()
+    loader_order = [max(lengths[i] for i in idxs) for idxs in loader.iter_index_batches()]
+    loader.set_rng_state(state)
+    ran = []  # the longest trial of each train batch the epoch collates, in the order it runs them
+    collate = loader.collate_fn
+    loader.collate_fn = lambda samples: ran.append(max(s.input.shape[exp.time_axis] for s in samples)) or collate(samples)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    exp.run()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    widths = [width_for(buckets, n) for n in ran]
+    stable = sorted(range(len(loader_order)), key=lambda i: width_for(buckets, loader_order[i]))
+    ok = widths == sorted(widths) and ran == [loader_order[i] for i in stable] and len(set(widths)) >= 2
+    print(f"  {' '.join(argv[-4:])}: {wall:.2f} s wall on {device_name} ({power}); {len(ran)} train batches at widths "
+          f"{widths} (buckets {buckets}; the loader's order {[width_for(buckets, n) for n in loader_order]}), "
+          f"sorted stably: {ok}")
+    print(f"  kernel launches in the grouped run: {json.dumps(launches)}")
+    _check_launches(launches, "w2v", train=True)
+    if not ok:
+        fail("phase 13b: the train batches did not run stably sorted by width")
+    return launches
+
+
+def crossing_phase(work, results, device_name, power):
+    """Phase 13; returns {"w2v_resumed": launches, "w2v_grouped": launches}. results: phase 8's first
+    training run's results dir."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.args.argparsing import get_experiment_from_args
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+    from wav2vec2forbrain_tpu_torch.train.checkpoint import load_tree
+    from wav2vec2forbrain_tpu_torch.train.jax_train_state import read_jax_train_state
+    from wav2vec2forbrain_tpu_torch.train.train_loop import Trainer
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path
+
+    src, jax_dir = os.path.join(results, "train_state"), os.path.join(work, "jax_train_state")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "wav2vec2forbrain_tpu_torch.convert", "train-state", src, jax_dir]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-3000:])
+        fail(f"phase 13: the converter exited with {proc.returncode}")
+    path = os.path.join(jax_dir, "state.msgpack")
+    saved = load_tree(os.path.join(src, "state.pt"))
+    argv = CLI_FLAGS["w2v"] + ["--w2v_skip_loading_weights=true", "--epochs=3", f"--seed={SEED}",
+                               f"--resume_train_state={jax_dir}", "--results_subdir_name=w2v_resumed"]
+    print(f"  python -m wav2vec2forbrain_tpu_torch.convert train-state <phase 8>/train_state {jax_dir}: "
+          f"{os.path.getsize(path) / 1e9:.3f} GB msgpack (state.pt {os.path.getsize(os.path.join(src, 'state.pt')) / 1e9:.3f} "
+          f"GB) in {convert_s:.2f} s (a fresh interpreter included)")
+    exp = get_experiment_from_args(argv)
+    t = time.perf_counter()
+    read_jax_train_state(path, exp.base_config.unfreeze_strategy, exp.base_config.optimizer)
+    read_s = time.perf_counter() - t
+    trainer = Trainer(exp)
+    t = time.perf_counter()
+    epoch, history = trainer.restore_train_state(jax_dir)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+
+    def bitwise(port_tree, ref_tree):
+        a, b = dict(tree_leaves_with_path(port_tree)), dict(tree_leaves_with_path(ref_tree))
+        return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k]) for k in a)
+
+    with open(os.path.join(src, "history.json")) as f:
+        saved_history = json.load(f)["epochs"]
+    checks = {
+        "params": bitwise(trainer.params, saved["params"]),
+        "BN state": bitwise(trainer.model_state, saved["state"]),
+        "mu": bitwise(trainer.opt_state.mu, saved["opt"]["mu"]),
+        "nu": bitwise(trainer.opt_state.nu, saved["opt"]["nu"]),
+        "count": trainer.opt_state.count == saved["opt"]["count"],
+        "epoch": epoch == saved["epoch"] + 1,
+        "history": [e.to_dict() for e in history] == saved_history,
+    }
+    print(f"  read {read_s:.2f} s; restored on the card in {restore_s:.2f} s (epoch {epoch}, Adam count "
+          f"{trainer.opt_state.count}); bitwise the state.pt's: {json.dumps(checks)}")
+    if not all(checks.values()):
+        fail(f"phase 13: the converted state did not restore bitwise: {checks}")
+    del trainer
+    kernels.reset_launches()
+    t = time.perf_counter()
+    exp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(exp.results_dir, "history.json")) as f:
+        hist = json.load(f)
+    losses = [hist["epochs"][-1][s]["average"]["loss"] for s in ("train", "val")]
+    print(f"  --resume_train_state=<the msgpack's dir> --epochs=3: {wall:.2f} s wall on {device_name} ({power}); "
+          f"{len(hist['epochs'])} epochs in history.json, epoch 3 losses (train, val) {losses}, test loss "
+          f"{hist['test']['average']['loss']!r}")
+    print(f"  kernel launches in the resumed run: {json.dumps(launches)}")
+    _check_launches(launches, "w2v", train=True)
+    if len(hist["epochs"]) != 3 or not all(math.isfinite(x) for x in losses) or hist["epochs"][:2] != saved_history:
+        fail(f"phase 13: the resumed run's history ({len(hist['epochs'])} epochs, losses {losses})")
+    del exp
+    torch.cuda.empty_cache()
+    grouped = CLI_FLAGS["w2v"] + ["--w2v_skip_loading_weights=true", "--epochs=1", f"--seed={SEED}",
+                                  "--results_subdir_name=w2v_grouped", "--batch_size=4", "--device_data_cache=on",
+                                  "--length_buckets=4", "--length_bucket_order=grouped"]
+    return {"w2v_resumed": launches, "w2v_grouped": _grouped_run(grouped, device_name, power)}
 
 
 def cli_phases(device_name, power):
@@ -2171,6 +2399,9 @@ def cli_phases(device_name, power):
         print("[12] analysis: the brain streams of phases 8 and 7's models and an audio stream through the "
               "snapshot's front end and the w2v-base encoder, auto and none")
         out.update(analysis_phase(work, models, device_name, power))
+        print("[13] the train-state crossing: phase 8's train_state/ converted to the JAX package's state.msgpack "
+              "and resumed on the card; a w2v CLI epoch with its train batches grouped by width")
+        out.update(crossing_phase(work, os.path.dirname(models["w2v"]), device_name, power))
         return out
     finally:
         os.chdir(cwd)

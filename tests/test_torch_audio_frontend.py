@@ -25,6 +25,7 @@ import torch
 from wav2vec2forbrain_tpu_torch import bridge
 from wav2vec2forbrain_tpu_torch.models import audio_frontend as port_fe
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(2)
 TOL = 1e-5

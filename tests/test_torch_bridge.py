@@ -17,6 +17,7 @@ from wav2vec2forbrain_tpu_torch.bridge import opt_state_from_jax, params_from_ja
 from wav2vec2forbrain_tpu_torch.models import assembly as port_assembly
 from wav2vec2forbrain_tpu_torch.models.conformer import ConformerEncoderConfig
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -21,6 +21,7 @@ from wav2vec2forbrain_tpu.ops import select as jax_select
 from wav2vec2forbrain_tpu_torch.models import conformer as port_conf
 from wav2vec2forbrain_tpu_torch.models.seeds import SeedStream
 from wav2vec2forbrain_tpu_torch.tree import tree_map
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 INT32_MAX = np.iinfo(np.int32).max

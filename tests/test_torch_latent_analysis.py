@@ -38,6 +38,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from torch_jax_prng import jax_rbg  # noqa: E402,F401
+
 from test_torch_trainer import config, env, yaml_fields  # noqa: E402,F401
 
 import wav2vec2forbrain_tpu.experiments.impl as jax_impl  # noqa: E402
@@ -60,10 +62,10 @@ FE = dict(conv_dim=(16, 16), conv_stride=(5, 2), conv_kernel=(10, 3), hidden_siz
 def pairs(env):
     """(family, learnable h0) -> (the JAX experiment, the port's experiment
     from its bridged initial weights, on the CPU), each made once. A JAX
-    experiment switches JAX's default PRNG (util/tpu_setup.py::configure_jax):
-    it is put back after the module, so later files in the process draw as
-    they would alone."""
-    prng_impl = jax.config.jax_default_prng_impl
+    experiment switches JAX's default PRNG to "rbg" for the process
+    (util/tpu_setup.py::configure_jax): torch_jax_prng.jax_rbg runs the
+    module under "rbg" whatever ran before, and puts the default back after
+    it, so later files draw as they would alone."""
     made = {}
 
     def pair(family, learnable_h0=False):
@@ -81,8 +83,7 @@ def pairs(env):
             made[key] = (jexp, pexp)
         return made[key]
 
-    yield pair
-    jax.config.update("jax_default_prng_impl", prng_impl)
+    return pair
 
 
 def _close(got, want, tol=TOL):

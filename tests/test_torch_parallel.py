@@ -60,6 +60,7 @@ from wav2vec2forbrain_tpu_torch.ops import attention as port_attn
 from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout, hash_keep_mask, hash_uniform
 from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
 from wav2vec2forbrain_tpu_torch.parallel.zero import zero1_dim
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(2)
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))

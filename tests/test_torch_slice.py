@@ -26,6 +26,7 @@ from wav2vec2forbrain_tpu_torch.models import assembly as port_assembly
 from wav2vec2forbrain_tpu_torch.models.conformer import ConformerEncoderConfig
 from wav2vec2forbrain_tpu_torch.predict import predict
 from wav2vec2forbrain_tpu_torch.train.steps import build_eval_step
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 SENTENCES = ["HI", "A CAT", "GO", "NO", "YES", "OK"]

@@ -45,6 +45,7 @@ from wav2vec2forbrain_tpu_torch.models.seeds import ForwardRng, SeedStream, Step
 from wav2vec2forbrain_tpu_torch.train import optim as port_optim
 from wav2vec2forbrain_tpu_torch.train import steps as port_steps
 from wav2vec2forbrain_tpu_torch.tree import tree_map
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 BRAIN_LR, W2V_LR, EPS = 1e-3, 1e-4, 1e-4

@@ -28,6 +28,7 @@ from wav2vec2forbrain_tpu_torch.models import assembly as port_assembly
 from wav2vec2forbrain_tpu_torch.models import wav2vec2 as port_w2v
 from wav2vec2forbrain_tpu_torch.models.seeds import W2V_LAYER_SITES, SeedStream
 from wav2vec2forbrain_tpu_torch.tree import tree_map
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 INT32_MAX = np.iinfo(np.int32).max
@@ -106,14 +107,8 @@ def test_config_presets_match_jax(preset):
 def _jax_tiny(scan_layers: bool):
     spec = jax_assembly.ModelSpec(gru_hidden_size=128, latent_size=96, encoder_family="wav2vec2",
                                   w2v_cfg=jax_w2v.Wav2Vec2EncoderConfig.tiny_test(), scan_layers=scan_layers)
-    # JAX's own default PRNG, whatever ran before in this process: a JAX experiment built by an earlier test
-    # file switches the default to "rbg" (util/tpu_setup.py::configure_jax), and these draws would change
-    prng_impl = jax.config.jax_default_prng_impl
-    jax.config.update("jax_default_prng_impl", "threefry2x32")
-    try:
-        params, state = jax_assembly.init_model_params(jax.random.PRNGKey(0), spec)
-    finally:
-        jax.config.update("jax_default_prng_impl", prng_impl)
+    # drawn under JAX's own default PRNG, whatever ran before in this process (torch_jax_prng.jax_threefry)
+    params, state = jax_assembly.init_model_params(jax.random.PRNGKey(0), spec)
     return jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, state)
 
 

@@ -31,6 +31,7 @@ from wav2vec2forbrain_tpu_torch.models import assembly as port_assembly
 from wav2vec2forbrain_tpu_torch.models.wav2vec2 import Wav2Vec2EncoderConfig
 from wav2vec2forbrain_tpu_torch.predict import predict
 from wav2vec2forbrain_tpu_torch.train.steps import build_eval_step
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 SPEC = dict(gru_hidden_size=128, gru_num_layers=3, latent_size=96, gaussian_smooth_width=1.5,

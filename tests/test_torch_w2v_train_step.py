@@ -36,6 +36,7 @@ from wav2vec2forbrain_tpu_torch.models.seeds import W2V_LAYER_SITES, ForwardRng,
 from wav2vec2forbrain_tpu_torch.train import optim as port_optim
 from wav2vec2forbrain_tpu_torch.train import steps as port_steps
 from wav2vec2forbrain_tpu_torch.tree import tree_map
+from torch_jax_prng import jax_threefry  # noqa: F401
 
 torch.set_num_threads(1)
 BRAIN_LR, W2V_LR, EPS, WEIGHT_DECAY = 1e-3, 1e-4, 1e-4, 1e-4

@@ -40,13 +40,14 @@ def _unstack(stacked: dict) -> list:
     return [tree_map(lambda a, i=i: a[i], stacked) for i in range(first.shape[0])]
 
 
-def _stack(layers: list) -> dict:
-    def go(items):
-        if isinstance(items[0], dict):
-            return {k: go([it[k] for it in items]) for k in items[0]}
-        return np.stack(items)
-
-    return go(layers)
+def _stack(items: list):
+    """[{leaf: (...)}] * L -> {leaf: (L, ...)}: numpy arrays or tensors; a
+    None leaf (a moment tree's frozen leaf) stays None."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    if items[0] is None:
+        return None
+    return torch.stack(items) if isinstance(items[0], torch.Tensor) else np.stack(items)
 
 
 def unstack_encoder(params: dict, state: dict) -> Tuple[dict, dict]:
@@ -60,6 +61,19 @@ def unstack_encoder(params: dict, state: dict) -> Tuple[dict, dict]:
         enc["layers"] = _unstack(enc.pop("layers_stacked"))
     if "layers_stacked" in enc_state:
         enc_state["layers"] = _unstack(enc_state.pop("layers_stacked"))
+    return dict(params, w2v=dict(params["w2v"], encoder=enc)), dict(state, encoder=enc_state)
+
+
+def stack_encoder(params: dict, state: dict) -> Tuple[dict, dict]:
+    """Inverse of unstack_encoder: the encoder's per-layer list (and the
+    conformer's BatchNorm state list) as `layers_stacked`, the JAX
+    package's --scan_layers layout. Also for a moment tree like the params
+    (with state {})."""
+    enc, enc_state = dict(params["w2v"]["encoder"]), dict(state.get("encoder", {}))
+    if "layers" in enc:
+        enc["layers_stacked"] = _stack(enc.pop("layers"))
+    if "layers" in enc_state:
+        enc_state["layers_stacked"] = _stack(enc_state.pop("layers"))
     return dict(params, w2v=dict(params["w2v"], encoder=enc)), dict(state, encoder=enc_state)
 
 
@@ -93,13 +107,7 @@ def params_to_jax(params: dict, state: dict, stacked: bool = False) -> Tuple[dic
     stacked=True emits the scan-stacked conformer layout."""
     np_params = tree_map(lambda t: t.detach().cpu().numpy(), params)
     np_state = tree_map(lambda t: t.detach().cpu().numpy(), state)
-    if stacked:
-        enc = np_params["w2v"]["encoder"]
-        enc["layers_stacked"] = _stack(enc.pop("layers"))
-        enc_state = np_state["encoder"]
-        if "layers" in enc_state:  # the conformer's BatchNorm state
-            enc_state["layers_stacked"] = _stack(enc_state.pop("layers"))
-    return np_params, np_state
+    return stack_encoder(np_params, np_state) if stacked else (np_params, np_state)
 
 
 # --- optimizer state and labels ---------------------------------------------------

@@ -14,22 +14,36 @@
     python -m wav2vec2forbrain_tpu_torch.convert to-msgpack model.pt model.msgpack
     python -m wav2vec2forbrain_tpu_torch.convert to-pt model.msgpack model.pt
 
+    # a port run's train_state/ (state.pt) -> the JAX package's layout
+    # (state.msgpack and history.json in OUT_DIR), for its --resume_train_state;
+    # --scan_layers: the encoder scan-stacked, for a JAX run at --scan_layers
+    python -m wav2vec2forbrain_tpu_torch.convert train-state <results>/train_state OUT_DIR [--scan_layers]
+
 An output that ends in .msgpack is written in the JAX package's format
 (flax msgpack, which its --from_checkpoint / --brain_encoder_path read),
 any other as the port's torch file (train/checkpoint.py). A .msgpack input
-with a scan-stacked encoder comes out per layer. The converter moves
-weights only: it runs no model, so it needs no card and sets no numerics
-flags.
+with a scan-stacked encoder comes out per layer. train-state reads the
+experiment type, --unfreeze_strategy, --optimizer and --seed from the run's
+config.json beside train_state/ (train/jax_train_state.py). The converter
+moves weights only: it runs no model, so it needs no card and sets no
+numerics flags. The other direction needs no converter: the port's
+--resume_train_state takes a state.msgpack.
 """
 
 import argparse
+import json
+import os
+import shutil
 import sys
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.args.flags import validate
+from wav2vec2forbrain_tpu_torch.experiments.registry import experiments
 from wav2vec2forbrain_tpu_torch.models.convert import brain_encoder_from_torch, full_model_from_torch, state_dict_from
 from wav2vec2forbrain_tpu_torch.models.pretrained import load_pretrained_encoder
-from wav2vec2forbrain_tpu_torch.train.checkpoint import load_bundle, save_bundle, save_checkpoint, save_subtree
+from wav2vec2forbrain_tpu_torch.train.checkpoint import load_bundle, load_tree, save_bundle, save_checkpoint, save_subtree
+from wav2vec2forbrain_tpu_torch.train.jax_train_state import write_jax_train_state
 
 
 def _reference_state_dict(path: str):
@@ -56,6 +70,23 @@ def convert_format(src: str, out: str) -> None:
     save_bundle(out, load_bundle(src))
 
 
+def convert_train_state(src: str, out_dir: str, scan_layers: bool = False) -> str:
+    """A port train_state/ directory -> OUT_DIR/state.msgpack (and its
+    history.json); returns the .msgpack's path."""
+    src = os.path.abspath(src)
+    with open(os.path.join(os.path.dirname(src), "config.json")) as f:
+        raw = json.load(f)
+    cfg = validate(experiments[raw["experiment_type"]].get_args_model(), raw)
+    bundle = load_tree(os.path.join(src, "state.pt"))
+    out = os.path.join(out_dir, "state.msgpack")
+    write_jax_train_state(out, bundle["params"], bundle["state"], bundle["opt"], bundle["epoch"], cfg.seed,
+                          cfg.unfreeze_strategy, cfg.optimizer, stacked=scan_layers)
+    history = os.path.join(src, "history.json")
+    if os.path.exists(history) and os.path.abspath(out_dir) != src:
+        shutil.copyfile(history, os.path.join(out_dir, "history.json"))
+    return out
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m wav2vec2forbrain_tpu_torch.convert",
                                      description=__doc__.split("\n\n")[0])
@@ -68,10 +99,15 @@ def main(argv=None) -> None:
     model.add_argument("--layers", type=int, default=24)
     sub.add_parser("to-msgpack", help="a port .pt checkpoint -> the JAX package's .msgpack")
     sub.add_parser("to-pt", help="a JAX package .msgpack checkpoint -> the port's .pt")
+    state = sub.add_parser("train-state", help="a port train_state/ -> the JAX package's state.msgpack in OUT")
+    state.add_argument("--scan_layers", action="store_true", help="write the encoder scan-stacked")
     for p in sub.choices.values():
         p.add_argument("src")
         p.add_argument("out")
     args = parser.parse_args(argv)
+    if args.mode == "train-state":
+        print(f"wrote {convert_train_state(args.src, args.out, args.scan_layers)}")
+        return
     if args.mode == "hf":
         convert_hf(args.src, args.out, args.cache_dir)
     elif args.mode == "brain":

@@ -36,12 +36,20 @@ What the port does differently, or not at all:
   elsewhere (the JAX rule on an accelerator and on the CPU). Under "on",
   --length_buckets runs each batch at its bucket's width (`t_buckets`,
   train/buckets.py); under "off" buckets change nothing, as in JAX.
+- --multi_step_chunk keeps no K-step chunks (an XLA dispatch saving), but
+  it decides, with the JAX rule (`resolve_multi_step_chunk`: "auto" is 32
+  on the card, 0 on the CPU), which epochs the JAX package would chunk: K
+  >= 2 and batches at the split's widths (--device_data_cache on). Such an
+  epoch visits its batches in the chunks' order (train/buckets.py::
+  chunk_order): val and test epochs stably sorted by width (unless the LM
+  decode needs their logits), train epochs so under
+  --length_bucket_order=grouped only.
 - --only_test runs each test batch at the width the Trainer gives the
   split (the JAX package runs it at the collate's): its loss is the
   training run's test loss. The two agree under --device_data_cache=off.
 - Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
-  --precompile_buckets, --multi_step_chunk, --host_prefetch,
-  --length_bucket_order.
+  --precompile_buckets, --host_prefetch; --multi_step_chunk as a speed
+  knob (above).
 - Data parallelism runs one process a rank under torchrun (`python -m
   torch.distributed.run --nproc_per_node=N -m wav2vec2forbrain_tpu_torch.run
   ...`; parallel/): the process group is joined before anything else (NCCL
@@ -94,8 +102,7 @@ from wav2vec2forbrain_tpu_torch.train.train_loop import WIRE_DTYPES, Trainer
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch",
-                 "length_bucket_order")
+IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch")
 USE_PALLAS_NOTE = (
     "--use_pallas=false: the port's CUDA kernels are its implementation; "
     "use --pallas_kernels=none to run the plain versions"
@@ -144,7 +151,7 @@ class B2TGruW2VExperimentBase:
         self.dataloader_train = self._create_dataloader("train")
         self.dataloader_val = self._create_dataloader("val")
         self.dataloader_test = self._create_dataloader("test")
-        self.batch_widths, self.t_buckets = self._resolve_batch_widths()
+        self.batch_widths, self.t_buckets, self.sample_lengths = self._resolve_batch_widths()
 
         subdir = [cfg.results_subdir_name] if cfg.results_subdir_name is not None else []
         self.results_dir = os.path.join(
@@ -232,14 +239,15 @@ class B2TGruW2VExperimentBase:
                           batch_sampler=sampler, seed=cfg.seed, length_key=length_key)
 
     def _resolve_batch_widths(self):
-        """({split: (T, U)}, {split: T widths}): the dataset-wide widths of
-        the splits whose batches run at them (--device_data_cache), and
-        their --length_buckets widths; ({}, {}) where batches run at the
-        collate's width."""
+        """({split: (T, U)}, {split: T widths}, {split: sample lengths}): the
+        dataset-wide widths of the splits whose batches run at them
+        (--device_data_cache), their --length_buckets widths and each
+        sample's frames; ({}, {}, {}) where batches run at the collate's
+        width."""
         cfg = self.base_config
         mode = cfg.device_data_cache
         if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
-            return {}, {}
+            return {}, {}, {}
         loaders = {"train": self.dataloader_train, "val": self.dataloader_val, "test": self.dataloader_test}
         plans = {
             split: dataset_width(loader.dataset, self.tokenizer, cfg.pad_to_multiple, cfg.target_pad_to_multiple,
@@ -251,17 +259,29 @@ class B2TGruW2VExperimentBase:
         if mode == "auto" and total > cfg.device_data_cache_max_bytes:
             print(f"device_data_cache: {total / 1e6:.0f} MB exceeds the "
                   f"{cfg.device_data_cache_max_bytes / 1e6:.0f} MB budget; batches at the collate's width")
-            return {}, {}
+            return {}, {}, {}
         widths = {split: p[:2] for split, p in plans.items()}
         print(f"device_data_cache: batches at the dataset-wide (T, U): {widths}")
         t_buckets = {}
+        lengths = {split: p[3] for split, p in plans.items()}
         if cfg.length_buckets != "off":
-            lengths = {split: p[3] for split, p in plans.items()}
             t_buckets = plan_buckets(lengths, {split: w[0] for split, w in widths.items()}, cfg.length_buckets,
                                      cfg.pad_to_multiple)
             if t_buckets:
                 print(f"device_data_cache: length buckets (frames) {sorted({w for b in t_buckets.values() for w in b})}")
-        return widths, t_buckets
+        return widths, t_buckets, lengths
+
+    def resolve_multi_step_chunk(self) -> int:
+        """The JAX package's chunk size K (its experiments/impl.py::
+        resolve_multi_step_chunk, 0 = off): "auto" is 32 on the card and 0
+        on the CPU. The port runs no chunks; K >= 2 only orders the batches
+        of the epochs the JAX package would chunk (Trainer._epoch_batches)."""
+        v = self.base_config.multi_step_chunk
+        if v == "off":
+            return 0
+        if v == "auto":
+            return 32 if self.device.type == "cuda" else 0
+        return max(0, int(v))
 
     def _encoder_config(self):
         cfg = self.base_config

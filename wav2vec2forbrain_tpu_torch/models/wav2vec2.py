@@ -19,6 +19,7 @@ _layer_norm_routed: the layernorm kernel (ops/layernorm.py) when the policy
 routes "layernorm" there, else the plain version.
 """
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -145,13 +146,58 @@ def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, tra
     return hash_dropout(x, stream.seed(), rate, stream.row0)
 
 
+# The pos-conv's cuDNN backward (dx and dW) picks a non-deterministic
+# algorithm unless cuDNN's deterministic flag is set, and then two w2v-base
+# trainings from one seed drift apart. _DeterministicConv1d sets the flag
+# around both of its passes, for this convolution alone: autograd runs the
+# backward later, outside any block around the forward. Off, the pos-conv is
+# a plain F.conv1d (profile_train --pos-conv default measures the cost).
+DETERMINISTIC_POS_CONV = True
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+class _DeterministicConv1d(torch.autograd.Function):
+    """F.conv1d(x, w, padding=padding, groups=groups) with cuDNN's
+    deterministic algorithms in the forward and the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.groups = padding, groups
+        with _cudnn_deterministic():
+            return F.conv1d(x, w, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with _cudnn_deterministic():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1], [ctx.padding], [1], False, [0], ctx.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+            )
+        return gx, gw, None, None
+
+
 def pos_conv_embed(p: dict, x: torch.Tensor, cfg: Wav2Vec2EncoderConfig) -> torch.Tensor:
     """Grouped weight-normed conv positional embedding. x: (B, T, H)."""
     v = p["weight_v"]  # (out, in/groups, k)
     norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
     w = p["weight_g"] * v / torch.clamp(norm, min=1e-12)
     k = cfg.num_conv_pos_embeddings
-    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), padding=k // 2, groups=cfg.num_conv_pos_embedding_groups)
+    xt, groups = x.transpose(1, 2), cfg.num_conv_pos_embedding_groups
+    if DETERMINISTIC_POS_CONV:
+        y = _DeterministicConv1d.apply(xt, w.to(x.dtype), k // 2, groups)
+    else:
+        y = F.conv1d(xt, w.to(x.dtype), padding=k // 2, groups=groups)
     # the f32 bias add promotes a bf16 conv output: cast back to the stream dtype
     y = (y.transpose(1, 2) + p["bias"]).to(x.dtype)
     if k % 2 == 0:  # SamePadLayer: trim the extra right output

@@ -18,10 +18,73 @@ NaN times the zero that the feasibility mask sends back is still NaN. With
 zero_infinity the gradient of such a sample is exactly 0, as in the JAX
 package (optax's finite log-semiring behind a `where`); the loss value does
 not change, since the mask zeroes the same samples.
+
+The per-sample NLL (`ctc_nll`): on CUDA tensors the kernel csrc/ctc.cu,
+one launch that computes the NLL and, where autograd needs it, the
+gradient, each sum in a fixed order: F.ctc_loss's CUDA backward sums with
+atomics at w2v-base's batch (B 64, T' >= 169) and is not reproducible
+there. `ctc_nll_plain` (F.ctc_loss) is its plain version, on the CPU and
+under the `none` policy; the kernel is held to it on the card.
 """
 
 import torch
 import torch.nn.functional as F
+
+from wav2vec2forbrain_tpu_torch.ops import kernels
+from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+
+
+def ctc_nll_plain(log_probs, targets, in_lens, tgt_lens, blank: int = 0) -> torch.Tensor:
+    """Per-sample NLL of log_probs (B, T, K) (log_softmax's output), 0 where
+    no alignment exists; autograd gives F.ctc_loss's gradient."""
+    return F.ctc_loss(log_probs.transpose(0, 1), targets.long(), in_lens.long(), tgt_lens.long(), blank=blank,
+                      reduction="none", zero_infinity=True)
+
+
+def _ctc_kernel(log_probs, targets, in_lens, tgt_lens, blank: int, need_grad: bool):
+    """(nll (B,), the gradient (B, T, K) of each sample's nll with respect
+    to log_probs or None): one launch of csrc/ctc.cu."""
+    if log_probs.dim() != 3 or log_probs.dtype != torch.float32:
+        raise ValueError(f"ctc_nll: log_probs must be (B, T, K) float32, got {tuple(log_probs.shape)} "
+                         f"{log_probs.dtype}")
+    lp = log_probs.contiguous()
+    targets = targets.to(torch.int32).contiguous()
+    in_lens, tgt_lens = in_lens.to(torch.int32).contiguous(), tgt_lens.to(torch.int32).contiguous()
+    kernels.require_cuda("ctc_nll", lp, targets, in_lens, tgt_lens)
+    b, t, k = lp.shape
+    u = targets.shape[1]
+    alpha = torch.empty((b, t, 2 * u + 1), dtype=torch.float32, device=lp.device)
+    nll = torch.empty((b,), dtype=torch.float32, device=lp.device)
+    grad = torch.empty_like(lp) if need_grad else None
+    lib = kernels.lib()
+    with torch.cuda.device(lp.device):
+        code = lib.w2vb_ctc(lp.data_ptr(), targets.data_ptr(), in_lens.data_ptr(), tgt_lens.data_ptr(),
+                            alpha.data_ptr(), nll.data_ptr(), None if grad is None else grad.data_ptr(),
+                            b, t, k, u, int(blank), kernels.stream_of(lp))
+    kernels.check("ctc", code)
+    kernels.LAUNCHES["ctc"] += 1
+    return nll, grad
+
+
+class _CtcNll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_probs, targets, in_lens, tgt_lens, blank):
+        nll, grad = _ctc_kernel(log_probs, targets, in_lens, tgt_lens, blank, ctx.needs_input_grad[0])
+        ctx.save_for_backward(grad)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return grad * g[:, None, None], None, None, None, None
+
+
+def ctc_nll(log_probs, targets, in_lens, tgt_lens, blank: int = 0) -> torch.Tensor:
+    """Same contract as ctc_nll_plain. On CUDA tensors the kernel runs (or
+    raises); on CPU tensors its plain version."""
+    if log_probs.is_cuda:
+        return _CtcNll.apply(log_probs, targets, in_lens, tgt_lens, int(blank))
+    return ctc_nll_plain(log_probs, targets, in_lens, tgt_lens, blank)
 
 
 def ctc_loss(
@@ -38,16 +101,9 @@ def ctc_loss(
     target_lens; mask_total: the "mean" denominator of the global batch
     (its sample_mask sum, or its row count), where these rows are a part
     of it."""
-    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # (T, B, K)
-    per_sample = F.ctc_loss(
-        log_probs,
-        targets.long(),
-        logit_lens.long(),
-        target_lens.long(),
-        blank=blank_id,
-        reduction="none",
-        zero_infinity=True,
-    )
+    log_probs = F.log_softmax(logits.float(), dim=-1)  # (B, T, K)
+    nll = ctc_nll if kernel_enabled("ctc") else ctc_nll_plain
+    per_sample = nll(log_probs, targets, logit_lens, target_lens, blank_id)
     u = targets.shape[1]
     valid_pos = torch.arange(1, u, device=targets.device)[None, :] < target_lens[:, None]
     repeats = ((targets[:, 1:] == targets[:, :-1]) & valid_pos).sum(dim=1)

@@ -40,6 +40,8 @@ LAUNCHES = {
     # the GRU recurrence through its per-direction entry (ops/gru.py::gru_recurrence_dir)
     "gru_dir": 0, "gru_dir_bwd": 0,
     "layernorm": 0, "layernorm_bwd": 0,
+    # the CTC loss and its gradient, one launch (ops/ctc.py::ctc_nll; no TPU kernel: optax's CTC in JAX)
+    "ctc": 0,
 }
 
 _vp = ctypes.c_void_p
@@ -76,6 +78,8 @@ _SIGNATURES = {
     "w2vb_layernorm_bwd": [_vp] * 6 + [_i] * 5 + [_f, _vp],
     # io_bf16, B, T, C -> the backward's T chunks per batch element
     "w2vb_layernorm_bwd_chunks": [_i] * 4,
+    # lp, targets, in_lens, tgt_lens, alpha, nll, grad (or null), B, T, K, U, blank, stream
+    "w2vb_ctc": [_vp] * 7 + [_i] * 5 + [_vp],
 }
 
 _lib = None

@@ -5,6 +5,10 @@ Same kernel names and the same policy values as the JAX package:
   - "all" / "none": force every kernel on / off
   - comma list, e.g. "attention,gru": exactly these kernels
 
+"ctc" is the port's own (csrc/ctc.cu, a fixed-order CTC loss and gradient
+that makes w2v-base training reproducible on the card); the JAX package
+has no such kernel (it runs optax's CTC), so its policies do not name it.
+
 None of the JAX package's `auto` verdicts carry over: they were measured on a
 TPU (the JAX `auto` keeps "layernorm" on XLA after a TPU A/B). The port's
 `auto` turns on every ported kernel (PORTED), and stays so until an H100
@@ -21,8 +25,8 @@ experiment, `predict.predict` and the chip scripts call it.
 
 import torch
 
-KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout")
-PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm")
+KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout", "ctc")
+PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm", "ctc")
 
 _policy = "auto"
 

@@ -1,7 +1,7 @@
 """Device-time breakdown of a full-width train step on one CUDA card.
 
     python -m wav2vec2forbrain_tpu_torch.profile_train [--family conformer|w2v] [--policy auto|none|...]
-        [--compute-dtype bfloat16|float32]
+        [--compute-dtype bfloat16|float32] [--pos-conv deterministic|default]
 
 --family conformer (default): `b2p2t_gru+w2v_conformer` at full width
 (conformer-rope-large: 24 layers, d=1024, 16 heads, FFN 4096, k=31; biGRU
@@ -19,7 +19,10 @@ without the profiler and then STEPS more under torch.profiler. Prints the
 card's name and power limit, the ops with the most device time, the
 device-busy share of the profiled wall window (summed kernel time / wall
 time; one stream, so kernels do not overlap) and of the unprofiled one, and
-wall ms per step of both. Needs a CUDA card; it has no CPU path.
+wall ms per step of both. --pos-conv default runs w2v-base's pos-conv as a
+plain F.conv1d, without cuDNN's deterministic flag
+(models/wav2vec2.py::DETERMINISTIC_POS_CONV): the cost of bitwise
+reproducible w2v-base training. Needs a CUDA card; it has no CPU path.
 """
 
 import argparse
@@ -31,6 +34,7 @@ import torch
 
 from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
+from wav2vec2forbrain_tpu_torch.models import wav2vec2
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.models.wav2vec2 import Wav2Vec2EncoderConfig
 from wav2vec2forbrain_tpu_torch.ops import select
@@ -98,7 +102,10 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default="auto", help="kernel policy (ops/select.py)")
     ap.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
                     help="the model's compute dtype (the activation stream stays float32)")
+    ap.add_argument("--pos-conv", default="deterministic", choices=("deterministic", "default"),
+                    help="w2v-base's pos-conv with cuDNN's deterministic flag, or a plain F.conv1d")
     args = ap.parse_args(argv)
+    wav2vec2.DETERMINISTIC_POS_CONV = args.pos_conv == "deterministic"
     top = 30
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
@@ -130,7 +137,8 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages() if _on_device(e) and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     total_us = sum(_device_us(e) for e in events)
-    print(f"family {args.family}, policy {args.policy}, compute {args.compute_dtype}, batch {tr.batch_size}: "
+    print(f"family {args.family}, policy {args.policy}, compute {args.compute_dtype}, pos-conv {args.pos_conv}, "
+          f"batch {tr.batch_size}: "
           f"{STEPS} train steps in {wall * 1e3:.2f} ms wall "
           f"({wall * 1e3 / STEPS:.2f} ms/step), device busy {total_us / 1e3:.2f} ms "
           f"= {100 * total_us / 1e6 / wall:.1f}% of wall; peak memory "

@@ -17,6 +17,9 @@ width of a grid that covers its longest sample instead:
 The grid is shared across splits; each split's list is clipped to its own
 dataset-wide width and always ends with it. Lengths are in input frames
 (before the unfold).
+
+`chunk_order` is the order in which the JAX package's K-step chunked
+epochs visit a split's batches (its train_loop.py::_chunk_work_plan).
 """
 
 from typing import Dict, List, Optional, Sequence, Union
@@ -70,3 +73,14 @@ def plan_buckets(lengths: Dict[str, Sequence[int]], t_full: Dict[str, int], leng
     if not grid:
         return {}
     return {split: split_buckets(grid, t_full[split]) for split in lengths}
+
+
+def chunk_order(widths: Sequence[int], grouped: bool) -> List[int]:
+    """The batch order of a chunked JAX epoch, from each batch's width in
+    the loader's order: stably sorted by width where `grouped` (so each
+    width is one run of chunks), else the loader's order. Chunks keep the
+    order of the batches they hold, and a run's padded tail is skipped."""
+    order = list(range(len(widths)))
+    if grouped:
+        order.sort(key=lambda i: widths[i])
+    return order

@@ -9,7 +9,8 @@
   metric kept under cache_dir/model_checkpoints/<uuid>/ and reloaded,
   --train_on_val_once, the test evaluation, and periodic full train-state
   checkpoints (--checkpoint_every_n_epochs) that --resume_train_state
-  continues exactly.
+  continues exactly; --resume_train_state also takes the JAX package's
+  train_state/state.msgpack (train/jax_train_state.py).
 
 Both are lag-1 pipelined: step i+1 is enqueued on the device before step
 i's outputs are fetched and decoded on the host. `Trainer._put` pads a
@@ -33,7 +34,15 @@ best-model decisions. Rank 0 alone writes files (the best model, the train
 state, whose ZeRO-1 moments are gathered first so the file keeps the whole
 layout), each write followed by a barrier; every rank reads back.
 
-Left out, being XLA- or TPU-only: the K-step chunked epochs, the bucket
+An epoch the JAX package runs in K-step chunks (K =
+experiment.resolve_multi_step_chunk() >= 2, batches at the split's widths)
+visits its batches in the chunks' order (`_epoch_batches`,
+train/buckets.py::chunk_order): sorted by width for val and test (unless
+the LM decode needs the logits) and for train epochs under
+--length_bucket_order=grouped. Each batch and each step is the same;
+only the order of the optimizer steps and of the per-batch history moves.
+
+Left out, being XLA- or TPU-only: the K-step chunks themselves, the bucket
 precompile and the host prefetch thread.
 """
 
@@ -50,14 +59,29 @@ from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.parallel.mesh import padded_rows
-from wav2vec2forbrain_tpu_torch.train.buckets import width_for
+from wav2vec2forbrain_tpu_torch.train.buckets import chunk_order, width_for
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_tree, to_cpu
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
 from wav2vec2forbrain_tpu_torch.train.history import EpochLosses, SingleEpochHistory, TrainHistory
+from wav2vec2forbrain_tpu_torch.train.jax_train_state import read_jax_train_state
 from wav2vec2forbrain_tpu_torch.train.optim import AdamState
 from wav2vec2forbrain_tpu_torch.util.profiling import StepTimer
 
 WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def train_state_file(path: str) -> str:
+    """The train-state file a --resume_train_state path names: the path
+    itself, or the one of state.pt and state.msgpack its directory holds."""
+    if not os.path.isdir(path):
+        return path
+    found = [os.path.join(path, name) for name in ("state.pt", "state.msgpack")
+             if os.path.exists(os.path.join(path, name))]
+    if len(found) > 1:
+        raise ValueError(f"{path} holds both {found[0]} and {found[1]}: name the file to resume")
+    if not found:
+        raise FileNotFoundError(f"{path} holds neither state.pt nor state.msgpack")
+    return found[0]
 
 
 class TrainBatchesOut(NamedTuple):
@@ -164,6 +188,7 @@ class Trainer:
         self.step_timer = StepTimer()
         self.shard = experiment.shard
         self.zero = experiment.optimizer.zero
+        self.chunk_k = experiment.resolve_multi_step_chunk()
 
     # --- helpers ------------------------------------------------------------
 
@@ -195,6 +220,20 @@ class Trainer:
         dev = to_device(batch._replace(input=None), self.device)
         x = torch.from_numpy(np.ascontiguousarray(batch.input)).to(WIRE_DTYPES[self.config.h2d_dtype])
         return dev._replace(input=x.to(self.device)), true_b, mask_total
+
+    def _epoch_batches(self, loader, split: str, grouped: bool):
+        """The epoch's host batches: in the loader's order, or, where the
+        JAX package would chunk this epoch, in the chunks' order (the same
+        batches from the same shuffle stream; sorted by width where
+        `grouped`)."""
+        widths = self.experiment.batch_widths.get(split)
+        if self.chunk_k < 2 or widths is None:
+            return loader
+        index_batches = list(loader.iter_index_batches())
+        buckets = self.experiment.t_buckets.get(split)
+        lengths = self.experiment.sample_lengths[split]
+        t = [width_for(buckets, max(lengths[i] for i in idxs)) if buckets else widths[0] for idxs in index_batches]
+        return (loader.collate_fn([loader.dataset[i] for i in index_batches[j]]) for j in chunk_order(t, grouped))
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """A step output's rows of the global batch (every rank's, gathered)."""
@@ -232,7 +271,8 @@ class Trainer:
                 preds["metrics"] = {k: float(v) for k, v in out.metrics.items()}
             self._track(evaluator, preds, host_batch, i, n)
 
-        for i, host_batch in enumerate(data_loader):
+        grouped = self.config.length_bucket_order == "grouped"
+        for i, host_batch in enumerate(self._epoch_batches(data_loader, split, grouped)):
             batch, true_b, mask_total = self._place(host_batch, split)
             out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr, w2v_lr,
                                   mask_total)
@@ -270,7 +310,7 @@ class Trainer:
                 preds["logits"] = self._rows(logits)[:true_b].cpu().numpy()
             self._track(evaluator, preds, host_batch, i, n)
 
-        for i, host_batch in enumerate(dataloader):
+        for i, host_batch in enumerate(self._epoch_batches(dataloader, mode, not need_logits)):
             batch, true_b, mask_total = self._place(host_batch, mode)
             outs = self.eval_step(self.params, self.model_state, batch, mask_total)
             if pending is not None:
@@ -324,10 +364,24 @@ class Trainer:
         distributed.barrier("train state written")
 
     def restore_train_state(self, path: str):
-        """Returns (next_epoch, history)."""
-        if os.path.isdir(path):
-            path = os.path.join(path, "state.pt")
-        bundle = load_tree(path)
+        """Returns (next_epoch, history). `path`: a train_state/ directory
+        holding state.pt or state.msgpack (not both), or either file.
+
+        The port's state.pt continues exactly: its step RNG generators and
+        the loaders' shuffle streams come back too. The JAX package's
+        state.msgpack (train/jax_train_state.py) brings the params, BN
+        state, Adam moments and count and the epoch, each bitwise; its step
+        key is dropped, and the step RNG and the loaders' shuffle streams
+        run as a fresh run's from --seed (this runs before any epoch), as
+        in the JAX package's own resume, whose loaders start afresh. Both
+        read history.json beside the file."""
+        path = train_state_file(path)
+        if path.endswith(".msgpack"):
+            bundle = read_jax_train_state(path, self.config.unfreeze_strategy, self.config.optimizer)
+            print(f"Resuming the JAX package's train state {path}: its step key is not carried over; the step "
+                  f"RNG and the loaders' shuffle streams start from --seed={self.config.seed} as a fresh run's")
+        else:
+            bundle = load_tree(path)
         copy_into(self.params, bundle["params"])
         copy_into(self.model_state, bundle["state"])
         opt = bundle["opt"]
@@ -338,11 +392,12 @@ class Trainer:
             copy_into(self.opt_state.mu, mu)
             copy_into(self.opt_state.nu, nu)
         self.opt_state = AdamState(int(opt["count"]), self.opt_state.mu, self.opt_state.nu)
-        self.rng._host.set_state(bundle["rng"]["host"])
-        self.rng._device.set_state(bundle["rng"]["device"])
-        for split, loader in (("train", self.dataloader_train), ("val", self.dataloader_val),
-                              ("test", self.dataloader_test)):
-            loader.set_rng_state(bundle["loaders"][split])
+        if "rng" in bundle:
+            self.rng._host.set_state(bundle["rng"]["host"])
+            self.rng._device.set_state(bundle["rng"]["device"])
+            for split, loader in (("train", self.dataloader_train), ("val", self.dataloader_val),
+                                  ("test", self.dataloader_test)):
+                loader.set_rng_state(bundle["loaders"][split])
         history = []
         hist_path = os.path.join(os.path.dirname(path), "history.json")
         if os.path.exists(hist_path):
