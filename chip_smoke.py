@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (wav2vec2forbrain_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root; needs one card
+    python3 chip_smoke.py --phases 1,2,14   # only the listed phases (and those they read from)
 
 Phases, each of which exits nonzero on failure:
   0. device: CUDA with compute capability 9.0, else exit nonzero; prints the
@@ -20,7 +21,9 @@ Phases, each of which exits nonzero on failure:
      per-direction entry (one launch per step), at H=512 and 1024 with B=64
      for the sweep and at a ragged H=600 (the per-direction backward also
      timed without its f32 dW product); every GRU forward row's time per
-     step printed; attention at T'=89, B=32, 16 heads, scale
+     step printed; attention at T'=89, B=32, 16 heads (and a rank's rows of
+     it at row0 16, and its heads 8-15 at head0 8, B=16, each also bitwise
+     the whole call's heads), scale
      1/8 (conformer) and B=64, 12 heads, q pre-scaled by 1/8 and scale 1
      (wav2vec2-base), with dropout 0 and 0.1 against the dense version with
      the same seed (forward and backward on the tensor cores: bf16 products
@@ -203,12 +206,40 @@ Phases, each of which exits nonzero on failure:
      chunks on a card): fails unless its train batches ran in the loader's
      order stably sorted by bucket width (read from the collate calls) and
      exactly the w2v training kernels launched; prints the order.
+ 14. tensor parallelism (--mesh_model_parallel=2: parallel/tensor.py's
+     Megatron split of the encoder's attention and FFN matmuls), the ranks on
+     the one card (this script re-run with --tp-rank / --tp-cli-rank, joined
+     by gloo over localhost with CUDA tensors, as phase 11a's). a. (dp, mp)
+     (1, 2): two ranks, each an eval forward and one conformer-rope-large
+     train step at full width and f32 compute (phase 11a's batch of 32 x 384
+     frames, dropout and LayerDrop on, the sweeps' noise) on its 8 of the 16
+     heads and 2048 of the 4096 FFN columns; rank 0 then takes the same in
+     one process. b. (2, 2): four ranks, one w2v-base step at the fft point
+     (biGRU 3 x 1024, batch 64: 32 rows a data index, 6 of 12 heads) under
+     ZeRO-1. Fails unless each rank's loss is the one-process loss
+     (TP_LOSS_REL), every gradient leaf gathered over the model group and
+     the BN running stats are its own elementwise within TP_GRAD_ATOL +
+     TP_GRAD_RTOL x |ref|, the params after Adam within
+     TRAIN_F32_PARAM_STEPS x their group's LR, the gathered eval logits
+     within AUTO_VS_NONE_F32_BOUND, every rank holds the same gathered
+     params, each launched exactly its family's training kernels with its
+     attention calls at its own (row0, head0), and under ZeRO-1 every moment
+     leaf split over both axes holds a quarter of the whole. c. The
+     conformer CLI at --mesh_model_parallel=2 on two ranks (run.main in each,
+     the gloo group joined first), one epoch on phase 7's splits, against one
+     process of the same flags: the test loss within TP_CLI_TEST_LOSS_REL
+     (JAX's own bound for its (2, 2) run), model.pt the whole tree, each rank
+     at its own head0. Prints each rank's step seconds, its model-group
+     all-reduce seconds (gloo through the host: no NCCL figure) and peak
+     memory.
+--phases 1,2,14 runs only those phases (1 always; PHASE_NEEDS adds the
+phases a listed one reads); its kernels line has no times without phase 2.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the three CLI training
 runs, the LM decode run, the sweep, phase 10's runs a and b, both ranks
-of phase 11a, phase 12's three `auto` paths and phase 13's two runs, by
-path in `launches_by_path`;
+of phase 11a, phase 12's three `auto` paths, phase 13's two runs and
+phase 14's ranks, by path in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -304,6 +335,8 @@ PATH_KERNELS = {
     "w2v_brain": ("preproc", "gru_dir", "attention", "layernorm"),
     "w2v_audio": ("attention", "layernorm"),
 }
+# phase 14c: one conformer CLI epoch on phase 7's splits at the CLI's f32 compute
+TP_CLI_FLAGS = CLI_FLAGS["conformer"] + ["--w2v_skip_loading_weights=true", "--epochs=1", f"--seed={SEED}"]
 # phase 7's third run (the paper's decode) and phase 9 (the sweep runner)
 LM_FLAGS = ["--only_test=true", "--lm_decode_test_predictions=true", "--length_buckets=exact"]
 SWEEP_YAML = os.path.join("sweeps", "b2p2t_gru+w2v_training_from_scratch.yaml")
@@ -316,13 +349,15 @@ SNAPSHOTS = {"facebook/wav2vec2-base-960h": "pytorch_model.bin",
 SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off its init value
 # each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
 # (phase 11a's two ranks: "conformer_dp"; phase 12's paths: "*_analysis")
-# (phase 8's second run: "w2v_cli_repeat"; phase 13's: "w2v_resumed", "w2v_grouped")
+# (phase 8's second run: "w2v_cli_repeat"; phase 13's: "w2v_resumed", "w2v_grouped"; phase 14's ranks:
+# "conformer_tp", "w2v_tp", "conformer_tp_cli")
 CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
              "w2v_cli": ("w2v", True), "w2v_cli_repeat": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
              "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False),
              "conformer_dp": ("conformer", True), "w2v_analysis": ("w2v_brain", False),
              "conformer_analysis": ("conformer_brain", False), "audio_analysis": ("w2v_audio", False),
-             "w2v_resumed": ("w2v", True), "w2v_grouped": ("w2v", True)}
+             "w2v_resumed": ("w2v", True), "w2v_grouped": ("w2v", True),
+             "conformer_tp": ("conformer", True), "w2v_tp": ("w2v", True), "conformer_tp_cli": ("conformer", True)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -349,6 +384,29 @@ DP_GRAD_REL = 1e-4
 DP_BN_REL = 1e-5
 DP_ROWS = 16  # rows a rank: phase 4's batch of 32 over 2 ranks
 DP_TIMEOUT = 420  # seconds for phase 11a's ranks
+# phase 14: tensor parallelism over a model axis of 2, the ranks on the one card (gloo). a: (dp, mp) (1, 2), the
+# conformer; b: (2, 2), w2v-base under ZeRO-1. Against one process: the loss (f32 sums in another order), every
+# gathered gradient leaf and the BN stats elementwise within atol + rtol x |ref| (tests/test_torch_parallel.py's),
+# the params after Adam within TRAIN_F32_PARAM_STEPS x the LR of their group, the eval logits within
+# AUTO_VS_NONE_F32_BOUND; c: the CLI's test loss within JAX's own bound for its (2, 2) run
+TP_MODEL = 2
+TP_CASES = {"a": dict(family="conformer", world=2, zero1=False), "b": dict(family="w2v", world=4, zero1=True)}
+TP_ROWS = {"conformer": 32, "w2v": 64}  # profile_train.FAMILIES' batch sizes
+FAMILY_HEADS = {"conformer": 16, "w2v": 12}
+TP_LOSS_REL = 1e-5
+# Adam's eps in phase 14a / b (tests/test_torch_train_step.py's): at the default 1e-8 an element whose gradient is
+# near 0 takes an update of either sign from an order-level difference; at 1e-4 such a difference d moves a param
+# by at most lr * d / eps
+TP_ADAM_EPS = 1e-4
+TP_GRAD_ATOL = TP_GRAD_RTOL = 1e-4
+TP_CLI_TEST_LOSS_REL = 2e-4
+TP_TIMEOUT = 480  # seconds for a phase 14 group of ranks
+TP_MIN_SPLIT_TWICE = 72  # phase 14b: w2v-base's q, k, v, out, FFN up and down kernels, 12 layers (their mu)
+LAST_PHASE = 14
+# --phases: the earlier phases whose results a phase reads (11b phase 7's test loss; 12 phase 7 and 8's models
+# and phase 10's snapshot; 13 phase 8's train state)
+PHASE_NEEDS = {11: {7}, 12: {7, 8, 10}, 13: {8}}
+TP_HEADS_BATCH = 16  # phase 2's rows at head0: a batch of 16
 # phase 12: the audio clips (the first 6 s long: T' 299), the front end's seed in the snapshot, pre against
 # embed_brain (the same kernels on the same inputs, f32), post `auto` against `none` (PERF.md §2's f32 rule)
 AUDIO_CLIPS = 8
@@ -694,6 +752,39 @@ def kernel_phases(dev, results):
                             (q, k, v, ga), [(5 * qkt, product_rate(cd))], sdpa_bwd)
             del sdpa_out
 
+    def attention_head0_rows(gen, batch, total, mp, t=89):
+        """attention at model index mp - 1 of a model axis of mp: its total /
+        mp heads of 64 at head0 = the heads before them, scale 1/8, rate 0.1
+        (seed 77), an f32 stream at f32 and bf16 compute, forward and
+        backward, each against the plain version at the same head0; and
+        bitwise the whole call's (all `total` heads, head0 0) columns of
+        those heads: the masks of a rank's heads are the layer's."""
+        heads = total // mp
+        head0 = total - heads
+        cols = slice(64 * head0, 64 * total)
+        whole = [torch.randn((batch, t, 64 * total), generator=gen, device=dev) for _ in range(4)]
+        q, k, v, ga = (x[:, :, cols].contiguous() for x in whole)
+        qkt = 2 * batch * heads * t * t * 64
+        for cd in (f32, bf16):
+            label = f"B{batch} T{t} {heads}x64 scale0.125 io float32 cd {cd_name(cd)} p0.1 head0 {head0}"
+            args = (0.125, 0.1, cd, 77, 0, head0)
+            compare("attention", label, lambda: attention._fwd_kernel(q, k, v, heads, *args),
+                    lambda: attention.mha_dense_bth(q, k, v, heads, *args),
+                    f32_tol("attention") if cd == f32 else bf16_tol, results, (q, k, v), [(2 * qkt, product_rate(cd))])
+            compare("attention_bwd", label, lambda: attention._bwd_kernel(q, k, v, ga, heads, *args),
+                    lambda: attention.mha_bwd_plain(q, k, v, ga, heads, *args),
+                    f32_rel_tol("attention_bwd") if cd == f32 else bf16_tol, results, (q, k, v, ga),
+                    [(5 * qkt, product_rate(cd))])
+            mine = [attention._fwd_kernel(q, k, v, heads, *args), *attention._bwd_kernel(q, k, v, ga, heads, *args)]
+            full = [attention._fwd_kernel(*whole[:3], total, 0.125, 0.1, cd, 77),
+                    *attention._bwd_kernel(*whole, total, 0.125, 0.1, cd, 77)]
+            same = [torch.equal(m, f[:, :, cols]) for m, f in zip(mine, full)]
+            print(f"  {'':13s} {label:42s} bitwise the {total}-head call's heads {head0}..{total - 1} "
+                  f"(o, dq, dk, dv): {same}")
+            if not all(same):
+                fail(f"attention [{label}]: a rank's heads differ from the whole call's")
+            del mine, full
+
     def attention_f64(q, k, v, ga, heads, scale, rate, seed):
         """(o, dq, dk, dv) of the attention function in f64 on f64 copies of
         its operands: the exact result that the f32 versions round."""
@@ -842,9 +933,11 @@ def kernel_phases(dev, results):
         del params, x0, x1
 
     # 3. attention: the conformer's B=32, 16 heads of 64 at scale 1/8; then rank 1's rows of it at data
-    # parallel 2 (phase 11a): B=16 at row0 16, dropout on, at f32 and bf16 compute
+    # parallel 2 (phase 11a): B=16 at row0 16, dropout on, at f32 and bf16 compute; then model index 1's
+    # heads of it at tensor parallel 2 (phase 14): 8 of 16 at head0 8, B=16
     attention_rows(g, 32, 16, 0.125, 1.0)
     attention_rows(g, DP_ROWS, 16, 0.125, 1.0, rows=[(f32, f32, 0.1), (f32, bf16, 0.1)], row0=DP_ROWS)
+    attention_head0_rows(g, TP_HEADS_BATCH, 16, 2)
 
     # 4. GLU -> depthwise conv: B=32, T=89, C=1024, k=31 (no one PyTorch call computes it); then
     # B=8 at T=169 and T=400, several of the backward's 96-frame chunks (T=400: past the whole-sequence
@@ -1848,7 +1941,7 @@ def dp_rank(rank: int, port: str, out_path: str) -> None:
     from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
     from wav2vec2forbrain_tpu_torch.models.assembly import init_model_params
     from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
-    from wav2vec2forbrain_tpu_torch.ops import attention, kernels, select
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
     from wav2vec2forbrain_tpu_torch.parallel import distributed
     from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
     from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1, zero1_dim
@@ -1871,19 +1964,8 @@ def dp_rank(rank: int, port: str, out_path: str) -> None:
     batch = to_device(B2tBatch(*(None if a is None else a[mine] for a in whole)), dev)
     kernels.lib()
 
-    # the row offsets the attention kernels are launched at, and the gradient all-reduce's seconds
-    row0s = set()
-    fwd_kernel, bwd_kernel = attention._fwd_kernel, attention._bwd_kernel
-
-    def fwd_rec(q, k, v, num_heads, scale, rate, cd, seed, row0=0):
-        row0s.add(int(row0))
-        return fwd_kernel(q, k, v, num_heads, scale, rate, cd, seed, row0)
-
-    def bwd_rec(q, k, v, g, num_heads, scale, rate, cd, seed, row0=0):
-        row0s.add(int(row0))
-        return bwd_kernel(q, k, v, g, num_heads, scale, rate, cd, seed, row0)
-
-    attention._fwd_kernel, attention._bwd_kernel = fwd_rec, bwd_rec
+    # the (row0, head0) the attention kernels are launched at, and the gradient all-reduce's seconds
+    offsets, _, undo = _tp_recorders(lambda group: False)
     reduce_s = []
     all_reduce = distributed.all_reduce_tensors
 
@@ -1906,7 +1988,7 @@ def dp_rank(rank: int, port: str, out_path: str) -> None:
         opt = make_optimizer(tr.labels, "adam", 0.0, zero=Zero1(shard) if variant == "zero1" else None)
         opt_state = opt.init(params)
         grad_fn = build_grad_fn(spec, tr.labels, STEP_CFG, shard)
-        row0s.clear()
+        offsets.clear()
         kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1919,7 +2001,7 @@ def dp_rank(rank: int, port: str, out_path: str) -> None:
                  opt_state.mu)
         res[variant] = dict(
             loss=float(out["loss"].detach()), norm=float(norm), wall_s=wall, all_reduce_s=reduce_s[-1],
-            launches=dict(kernels.LAUNCHES), row0s=sorted(row0s), params=_leaf_sums(params),
+            launches=dict(kernels.LAUNCHES), offsets=sorted(offsets), params=_leaf_sums(params),
             split=sum(zero1_dim(p, 2) is not None for _, p in moments),
             halves=sum(zero1_dim(p, 2) is not None and m[zero1_dim(p, 2)] * 2 == p[zero1_dim(p, 2)]
                        for m, p in moments),
@@ -1932,7 +2014,7 @@ def dp_rank(rank: int, port: str, out_path: str) -> None:
         del out, grads, opt_state, opt
     del tr, params, state, batch
     torch.cuda.empty_cache()
-    attention._fwd_kernel, attention._bwd_kernel = fwd_kernel, bwd_kernel
+    undo()
     distributed.all_reduce_tensors = all_reduce
     dist.barrier()  # rank 1's memory is free
     dist.destroy_process_group()
@@ -1964,7 +2046,6 @@ def dp_step_phase(device_name, power):
     """Phase 11a; returns the launches summed over both ranks and both steps."""
     import math
     import shutil
-    import socket
 
     import torch
 
@@ -1972,28 +2053,9 @@ def dp_step_phase(device_name, power):
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dp_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = str(s.getsockname()[1])
-    s.close()
-    t = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), port,
-                               os.path.join(work, f"rank{r}.json")]) for r in range(2)]
-    # as soon as one rank fails (the other then waits in a collective) or the time runs out, stop both
-    try:
-        while any(p.poll() is None for p in procs) and time.perf_counter() - t < DP_TIMEOUT:
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    wall = time.perf_counter() - t
-    codes = [p.returncode for p in procs]
-    if codes != [0, 0]:
-        fail(f"phase 11a: the ranks exited with {codes} after {wall:.1f} s (limit {DP_TIMEOUT} s)")
+    port = _port()
+    wall = _run_ranks(lambda r: ["--dp-rank", str(r), port, os.path.join(work, f"rank{r}.json")], 2, DP_TIMEOUT,
+                      "phase 11a")
     ranks = []
     for r in range(2):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -2011,12 +2073,13 @@ def dp_step_phase(device_name, power):
             print(f"  rank {r} {variant:10s}: loss {v['loss']!r} (one process {single['loss']!r}, rel {rel:.2e}, "
                   f"bound {DP_LOSS_REL:.0e}); grad norm {v['norm']:.6f} (one process {single['norm']:.6f}); "
                   f"step {v['wall_s']:.3f} s, gradient all-reduce {v['all_reduce_s']:.3f} s (gloo through the "
-                  f"host, CUDA tensors: no NCCL figure) on {device_name} ({power}); attention row0 {v['row0s']}; "
-                  f"moment leaves split {v['halves']} of {v['split']} splittable")
+                  f"host, CUDA tensors: no NCCL figure) on {device_name} ({power}); attention (row0, head0) "
+                  f"{v['offsets']}; moment leaves split {v['halves']} of {v['split']} splittable")
             if rel > DP_LOSS_REL or not math.isfinite(v["loss"]):
                 fail(f"phase 11a rank {r} {variant}: loss {v['loss']} vs one process {single['loss']}")
-            if v["row0s"] != [DP_ROWS * r]:
-                fail(f"phase 11a rank {r}: attention launched at row0 {v['row0s']}, not [{DP_ROWS * r}]")
+            if v["offsets"] != [[DP_ROWS * r, 0]]:
+                fail(f"phase 11a rank {r}: attention launched at (row0, head0) {v['offsets']}, not "
+                     f"[({DP_ROWS * r}, 0)]")
             want_half = v["split"] if variant == "zero1" else 0
             if v["halves"] != want_half or v["split"] < 100:
                 fail(f"phase 11a rank {r} {variant}: {v['halves']} of {v['split']} moment leaves halved")
@@ -2067,6 +2130,332 @@ def dp_cli_phase(work, device_name, power, ref):
           f"bitwise equal {test_loss == ref}; run_config rows in metrics.jsonl: {n_config}; on {device_name} ({power})")
     if test_loss != ref or n_config != 1:
         fail("phase 11b: the torchrun CLI run is not phase 7's run")
+
+
+def _port():
+    s = __import__("socket").socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    return port
+
+
+def _run_ranks(args_of, n, timeout, name, cwd=None):
+    """This script re-run as n ranks (argv from args_of(rank)); as soon as one
+    fails (the others then wait in a collective) or the time runs out, stop
+    them all and fail. Returns the wall seconds."""
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_of(r)], cwd=cwd) for r in range(n)]
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t < timeout:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        fail(f"{name}: the ranks exited with {codes} after {wall:.1f} s (limit {timeout} s)")
+    return wall
+
+
+def _tp_recorders(is_model_group):
+    """Record the (row0, head0) of every attention launch and time every
+    all_reduce by process group (a model group's, the others'), with the
+    card synchronized around each. Returns (attention offsets, seconds by
+    group, undo)."""
+    import torch
+    import torch.distributed as dist
+
+    from wav2vec2forbrain_tpu_torch.ops import attention
+
+    offsets, seconds = set(), {"model": 0.0, "data": 0.0}
+    fwd_kernel, bwd_kernel, all_reduce = attention._fwd_kernel, attention._bwd_kernel, dist.all_reduce
+
+    def fwd_rec(q, k, v, num_heads, scale, rate, cd, seed, row0=0, head0=0):
+        offsets.add((int(row0), int(head0)))
+        return fwd_kernel(q, k, v, num_heads, scale, rate, cd, seed, row0, head0)
+
+    def bwd_rec(q, k, v, g, num_heads, scale, rate, cd, seed, row0=0, head0=0):
+        offsets.add((int(row0), int(head0)))
+        return bwd_kernel(q, k, v, g, num_heads, scale, rate, cd, seed, row0, head0)
+
+    def timed_all_reduce(tensor, *args, group=None, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = all_reduce(tensor, *args, group=group, **kwargs)
+        torch.cuda.synchronize()
+        seconds["model" if is_model_group(group) else "data"] += time.perf_counter() - t
+        return out
+
+    def undo():
+        attention._fwd_kernel, attention._bwd_kernel, dist.all_reduce = fwd_kernel, bwd_kernel, all_reduce
+
+    attention._fwd_kernel, attention._bwd_kernel, dist.all_reduce = fwd_rec, bwd_rec, timed_all_reduce
+    return offsets, seconds, undo
+
+
+def tp_rank(case: str, rank: int, port: str, out_path: str) -> None:
+    """Phase 14a / b's rank `rank` of TP_CASES[case], on cuda:0 over gloo
+    (this script run with --tp-rank): an eval forward and one train step
+    of the family at full width and f32 compute on its data index's rows of
+    one batch, its pieces of the encoder split over the model axis; rank 0
+    then takes the same eval and step in one process on the whole batch and
+    compares. Writes its results as JSON to out_path."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch, to_device
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
+    from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
+    from wav2vec2forbrain_tpu_torch.parallel import distributed
+    from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
+    from wav2vec2forbrain_tpu_torch.parallel.tensor import gather_tree, split_dim, split_tree
+    from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1, zero1_dim
+    from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, FAMILIES, STEP_CFG, W2V_LR, build_trainer
+    from wav2vec2forbrain_tpu_torch.train.checkpoint import to_cpu
+    from wav2vec2forbrain_tpu_torch.train.optim import make_optimizer
+    from wav2vec2forbrain_tpu_torch.train.steps import build_eval_step, build_grad_fn
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path as leaves
+
+    c = TP_CASES[case]
+    family, world = c["family"], c["world"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    select.f32_products()
+    select.set_kernel_policy("auto")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    shard = make_mesh(0, TP_MODEL)
+    tp = shard.model
+    tr = build_trainer(dev, SEED, family, compute_dtype=torch.float32)
+    spec, labels, batch_size, weight_decay = tr.spec, tr.labels, tr.batch_size, FAMILIES[family][1]
+    params, state = split_tree(tr.params, tp), tr.state
+    whole_shapes = {p: tuple(t.shape) for p, t in leaves(tr.params)}
+    del tr
+    torch.cuda.empty_cache()
+    whole = make_requests(1, batch_size, 384, SEED + 1)[0]
+    batch = to_device(B2tBatch(*(None if a is None else a[shard.rows(batch_size)] for a in whole)), dev)
+    kernels.lib()
+    offsets, seconds, undo = _tp_recorders(lambda group: group is tp.group)
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eval_loss, logits = build_eval_step(spec, shard)(params, state, batch, float(batch_size))[:2]
+    logits = distributed.gather_rows(logits, shard.group)
+    opt = make_optimizer(labels, "adam", weight_decay, TP_ADAM_EPS, zero=Zero1(shard) if c["zero1"] else None)
+    opt_state = opt.init(params)
+    grad_fn = build_grad_fn(spec, labels, STEP_CFG, shard)
+    eval_head0s = sorted({h for _, h in offsets})
+    offsets.clear()  # the step's offsets: its dropout keys rows at row0 (the eval's rate 0 keys nothing)
+    seconds.update(model=0.0, data=0.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, grads, norm = grad_fn(params, state, batch, StepRng(SEED, dev), float(batch_size))
+    opt.step(params, grads, opt_state, BRAIN_LR, W2V_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    step_s = dict(seconds)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # every moment leaf: its shape against the whole param's, split over the model axis, then ZeRO-1's data axis
+    twice = quarters = 0
+    for path, m in leaves(opt_state.mu):
+        full = whole_shapes[path]
+        md = split_dim(path, len(full))
+        zd = zero1_dim(full, shard.size, md) if c["zero1"] else None
+        twice += md is not None and zd is not None
+        quarters += md is not None and zd is not None and m.numel() * TP_MODEL * shard.size == \
+            torch.Size(full).numel()
+    gathered = dict(grads=gather_tree(grads, tp), params=gather_tree(params, tp))
+    res = dict(rank=rank, loss=float(out["loss"].detach()), eval_loss=float(eval_loss), norm=float(norm),
+               wall_s=wall, model_all_reduce_s=step_s["model"], data_all_reduce_s=step_s["data"],
+               peak_gb=peak / 2**30, launches=launches, offsets=sorted(offsets), eval_head0s=eval_head0s,
+               twice=twice, quarters=quarters,
+               params=_leaf_sums(gathered["params"]))
+    keep = None
+    if rank == 0:
+        keep = dict(grads=to_cpu(gathered["grads"]), params=to_cpu(gathered["params"]), state=to_cpu(out["state"]),
+                    logits=logits.cpu())
+    undo()
+    del out, grads, opt_state, opt, params, state, batch, gathered, logits
+    torch.cuda.empty_cache()
+    dist.barrier()  # every rank's memory is free
+    dist.destroy_process_group()
+    if rank == 0:
+        # the same eval and step in one process on the whole batch
+        tr = build_trainer(dev, SEED, family, compute_dtype=torch.float32)
+        full_batch = to_device(whole, dev)
+        ref_eval_loss, ref_logits = build_eval_step(tr.spec)(tr.params, tr.state, full_batch)[:2]
+        opt = make_optimizer(tr.labels, "adam", weight_decay, TP_ADAM_EPS)
+        opt_state = opt.init(tr.params)
+        out, grads, norm = build_grad_fn(tr.spec, tr.labels, STEP_CFG)(tr.params, tr.state, full_batch,
+                                                                         StepRng(SEED, dev))
+        opt.step(tr.params, grads, opt_state, BRAIN_LR, W2V_LR)
+        res["single"] = dict(loss=float(out["loss"].detach()), eval_loss=float(ref_eval_loss), norm=float(norm))
+        res["logits_err"] = (keep["logits"].to(dev) - ref_logits).abs().max().item()
+
+        def worst(got_tree, ref_tree, bound):
+            got = dict(leaves(got_tree))
+            ref = leaves(ref_tree)
+            if set(got) != {p for p, _ in ref}:
+                raise RuntimeError(f"phase 14{case}: the gathered tree's leaves are not the one-process tree's")
+            return max(((((got[p].to(dev) - r).abs() / bound(r)).max().item(), p) for p, r in ref), default=(0.0, ""))
+
+        res["grad_worst"] = worst(keep["grads"], grads, lambda r: TP_GRAD_ATOL + TP_GRAD_RTOL * r.abs())
+        res["bn_worst"] = worst(keep["state"], out["state"], lambda r: TP_GRAD_ATOL + TP_GRAD_RTOL * r.abs())
+        lr = {"brain": BRAIN_LR, "w2v": W2V_LR}
+        label_of = dict(leaves(tr.labels))
+        got = dict(leaves(keep["params"]))
+        res["param_worst"] = max(((got[p].to(dev) - r).abs().max().item() / (TRAIN_F32_PARAM_STEPS *
+                                  lr[label_of[p]]), p) for p, r in leaves(tr.params) if label_of[p] != "frozen")
+        res["single"]["grad_leaves"] = len(leaves(grads))
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def tp_step_phase(case, device_name, power):
+    """Phase 14a or b; returns the launches summed over the ranks."""
+    import math
+    import shutil
+
+    import torch
+
+    c = TP_CASES[case]
+    world, family = c["world"], c["family"]
+    torch.cuda.empty_cache()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tp_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = _port()
+    wall = _run_ranks(lambda r: ["--tp-rank", case, str(r), port, os.path.join(work, f"rank{r}.json")], world,
+                      TP_TIMEOUT, f"phase 14{case}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    single = ranks[0]["single"]
+    heads = FAMILY_HEADS[family]
+    rows = (TP_ROWS[family] // (world // TP_MODEL))
+    launches = {}
+    for r, res in enumerate(ranks):
+        d, m = divmod(r, TP_MODEL)
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        _check_launches(res["launches"], family, train=True)
+        rel = abs(res["loss"] - single["loss"]) / abs(single["loss"])
+        want_offsets = [(d * rows, m * heads // TP_MODEL)]
+        print(f"  rank {r} (data {d}, model {m}): loss {res['loss']!r} (one process {single['loss']!r}, rel "
+              f"{rel:.2e}, bound {TP_LOSS_REL:.0e}); eval loss {res['eval_loss']!r} (one process "
+              f"{single['eval_loss']!r}); grad norm {res['norm']:.6f} (one process {single['norm']:.6f}); step "
+              f"{res['wall_s']:.3f} s, model-group all-reduces {res['model_all_reduce_s']:.3f} s, data-group "
+              f"{res['data_all_reduce_s']:.3f} s (gloo through the host, CUDA tensors; the card synchronized "
+              f"around each), peak memory {res['peak_gb']:.2f} GiB on {device_name} ({power}); attention (row0, "
+              f"head0) {res['offsets']}; moment leaves split twice {res['quarters']} of {res['twice']} a quarter")
+        if rel > TP_LOSS_REL or not math.isfinite(res["loss"]):
+            fail(f"phase 14{case} rank {r}: loss {res['loss']} vs one process {single['loss']}")
+        if [tuple(o) for o in res["offsets"]] != want_offsets or res["eval_head0s"] != [want_offsets[0][1]]:
+            fail(f"phase 14{case} rank {r}: attention launched at (row0, head0) {res['offsets']} in the step and "
+                 f"head0 {res['eval_head0s']} in the eval, not {want_offsets}")
+        if c["zero1"] and (res["quarters"] != res["twice"] or res["twice"] < TP_MIN_SPLIT_TWICE):
+            fail(f"phase 14{case} rank {r}: {res['quarters']} of {res['twice']} moment leaves split twice hold "
+                 f"a quarter")
+        if res["params"] != ranks[0]["params"]:
+            fail(f"phase 14{case}: rank {r}'s gathered params differ from rank 0's after the step")
+    g_ratio, g_path = ranks[0]["grad_worst"]
+    b_ratio, b_path = ranks[0]["bn_worst"]
+    p_ratio, p_path = ranks[0]["param_worst"]
+    print(f"  gathered gradients vs one process: worst {g_path} at {g_ratio:.3f} of its bound (atol {TP_GRAD_ATOL:.0e}"
+          f" + rtol {TP_GRAD_RTOL:.0e}), {single['grad_leaves']} leaves; BN stats worst {b_path or '-'} at "
+          f"{b_ratio:.3f}; params after Adam worst {p_path} at {p_ratio:.3f} of {TRAIN_F32_PARAM_STEPS} x its LR; "
+          f"eval logits max-abs {ranks[0]['logits_err']:.2e} (bound {AUTO_VS_NONE_F32_BOUND:.0e}); every rank "
+          f"holds the same params; phase 14{case} {wall:.2f} s on {power}")
+    if not (g_ratio <= 1.0 and b_ratio <= 1.0 and p_ratio <= 1.0 and ranks[0]["logits_err"] <= AUTO_VS_NONE_F32_BOUND):
+        fail(f"phase 14{case}: the tensor-parallel step differs from the one-process step beyond its bounds")
+    return launches
+
+
+def tp_cli_rank(rank: int, port: str, work: str, out_path: str) -> None:
+    """Phase 14c's rank `rank` of two (this script run with --tp-cli-rank):
+    joins a gloo group on cuda:0, then runs the conformer CLI in process at
+    --mesh_model_parallel=2 from `work` (its config.yaml)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=TP_MODEL)
+    os.chdir(work)
+    # at (1, 2) the model group is the one group of both ranks besides the world's
+    offsets, seconds, undo = _tp_recorders(
+        lambda group: group is not None and group is not dist.group.WORLD and dist.get_world_size(group) == TP_MODEL)
+    kernels.reset_launches()
+    exp, wall = _cli_run(TP_CLI_FLAGS + [f"--mesh_model_parallel={TP_MODEL}", "--results_subdir_name=tp_cli"])
+    undo()
+    res = dict(results=exp.results_dir, wall_s=wall, launches=dict(kernels.LAUNCHES), offsets=sorted(offsets),
+               model_all_reduce_s=seconds["model"], peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+               model=exp.shard.model.rank)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def tp_cli_phase(work, device_name, power):
+    """Phase 14c (in phase 7's scratch dir); returns the ranks' launches."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.train.checkpoint import load_tree
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves_with_path as leaves
+
+    torch.cuda.empty_cache()
+    port = _port()
+    argv = TP_CLI_FLAGS + [f"--mesh_model_parallel={TP_MODEL}"]
+    print(f"  2 ranks (gloo, cuda:0): python -m wav2vec2forbrain_tpu_torch.run {' '.join(argv)}")
+    wall = _run_ranks(lambda r: ["--tp-cli-rank", str(r), port, work, os.path.join(work, f"tp_cli{r}.json")],
+                      TP_MODEL, TP_TIMEOUT, "phase 14c")
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(work, f"tp_cli{r}.json")) as f:
+            ranks.append(json.load(f))
+    results = ranks[0]["results"]
+    if any(res["results"] != results for res in ranks):
+        fail("phase 14c: the ranks ran in different results dirs")
+    ref, ref_wall = _cli_run(TP_CLI_FLAGS + ["--results_subdir_name=tp_cli_ref"])
+    with open(os.path.join(results, "history.json")) as f:
+        test_loss = json.load(f)["test"]["average"]["loss"]
+    with open(os.path.join(ref.results_dir, "history.json")) as f:
+        ref_loss = json.load(f)["test"]["average"]["loss"]
+    shapes = {p: tuple(t.shape) for p, t in leaves(load_tree(os.path.join(results, "model.pt"))["params"])}
+    ref_shapes = {p: tuple(t.shape) for p, t in leaves(load_tree(os.path.join(ref.results_dir, "model.pt"))["params"])}
+    launches = {}
+    heads = FAMILY_HEADS["conformer"]
+    for r, res in enumerate(ranks):
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        _check_launches(res["launches"], "conformer", train=True)
+        head0s = sorted({h for _, h in res["offsets"]})
+        print(f"  rank {r} (model {res['model']}): {res['wall_s']:.2f} s wall, model-group all-reduces "
+              f"{res['model_all_reduce_s']:.2f} s, peak memory {res['peak_gb']:.2f} GiB; attention head0 {head0s}")
+        if head0s != [res["model"] * heads // TP_MODEL]:
+            fail(f"phase 14c rank {r}: attention launched at head0 {head0s}")
+    rel = abs(test_loss - ref_loss) / abs(ref_loss)
+    print(f"  test loss {test_loss!r} vs one process {ref_loss!r} ({ref_wall:.2f} s wall): rel {rel:.2e} (bound "
+          f"{TP_CLI_TEST_LOSS_REL:.0e}); model.pt whole: {shapes == ref_shapes} ({len(shapes)} leaves); phase 14c "
+          f"{wall:.2f} s for the ranks on {device_name} ({power})")
+    if not math.isfinite(test_loss) or rel > TP_CLI_TEST_LOSS_REL or shapes != ref_shapes:
+        fail("phase 14c: the tensor-parallel CLI run differs from the one-process run")
+    return launches
 
 
 def write_clips(audio_dir):
@@ -2352,10 +2741,11 @@ def crossing_phase(work, results, device_name, power):
     return {"w2v_resumed": launches, "w2v_grouped": _grouped_run(grouped, device_name, power)}
 
 
-def cli_phases(device_name, power):
-    """Phases 7-12 in a scratch dir under build/ (git-ignored), removed after;
-    {path: launches} of the CLI training runs, the LM decode run, the sweep,
-    phase 10's runs, phase 11a's ranks and phase 12's `auto` paths."""
+def cli_phases(device_name, power, phases):
+    """Phases 7-14 (those in `phases`) in a scratch dir under build/
+    (git-ignored), removed after; {path: launches} of the CLI training runs,
+    the LM decode run, the sweep, phase 10's runs, phase 11a's ranks, phase
+    12's `auto` paths, phase 13's runs and phase 14's ranks."""
     import shutil
 
     from scipy.io import loadmat
@@ -2385,30 +2775,63 @@ def cli_phases(device_name, power):
         os.chdir(work)  # the CLI reads ./config.yaml
         out, test_losses, models = {}, {}, {}
         for i, family in enumerate(("conformer", "w2v")):
-            print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
-            out.update(cli_phase(device_name, power, family, test_losses, models))
-        print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
-        out["w2v_sweep"] = sweep_phase(work, device_name, power)
-        print("[10] weights in: pretrained snapshots in the hub cache, the frozen sweep's first point, the "
-              "conformer's defaults, a JAX-format checkpoint")
-        out.update(weights_phase(work, device_name, power))
-        print("[11] data parallel: a. two ranks on the card over gloo, one conformer train step each, "
-              "replicated and ZeRO-1; b. the CLI under torchrun (NCCL, one rank, ZeRO-1)")
-        out["conformer_dp"] = dp_step_phase(device_name, power)
-        dp_cli_phase(work, device_name, power, test_losses["conformer"])
-        print("[12] analysis: the brain streams of phases 8 and 7's models and an audio stream through the "
-              "snapshot's front end and the w2v-base encoder, auto and none")
-        out.update(analysis_phase(work, models, device_name, power))
-        print("[13] the train-state crossing: phase 8's train_state/ converted to the JAX package's state.msgpack "
-              "and resumed on the card; a w2v CLI epoch with its train batches grouped by width")
-        out.update(crossing_phase(work, os.path.dirname(models["w2v"]), device_name, power))
+            if 7 + i in phases:
+                print(f"[{7 + i}] CLI: {FAMILY_NAMES[family]}")
+                out.update(cli_phase(device_name, power, family, test_losses, models))
+        if 9 in phases:
+            print("[9] the sweep runner: sweeps/b2p2t_gru+w2v_training_from_scratch.yaml, the first two points")
+            out["w2v_sweep"] = sweep_phase(work, device_name, power)
+        if 10 in phases:
+            print("[10] weights in: pretrained snapshots in the hub cache, the frozen sweep's first point, the "
+                  "conformer's defaults, a JAX-format checkpoint")
+            out.update(weights_phase(work, device_name, power))
+        if 11 in phases:
+            print("[11] data parallel: a. two ranks on the card over gloo, one conformer train step each, "
+                  "replicated and ZeRO-1; b. the CLI under torchrun (NCCL, one rank, ZeRO-1)")
+            out["conformer_dp"] = dp_step_phase(device_name, power)
+            dp_cli_phase(work, device_name, power, test_losses["conformer"])
+        if 12 in phases:
+            print("[12] analysis: the brain streams of phases 8 and 7's models and an audio stream through the "
+                  "snapshot's front end and the w2v-base encoder, auto and none")
+            out.update(analysis_phase(work, models, device_name, power))
+        if 13 in phases:
+            print("[13] the train-state crossing: phase 8's train_state/ converted to the JAX package's "
+                  "state.msgpack and resumed on the card; a w2v CLI epoch with its train batches grouped by width")
+            out.update(crossing_phase(work, os.path.dirname(models["w2v"]), device_name, power))
+        if 14 in phases:
+            print(f"[14] tensor parallel (--mesh_model_parallel={TP_MODEL}), the ranks on the card over gloo: a. "
+                  f"(1, 2), one conformer train step; b. (2, 2), one w2v-base step under ZeRO-1; c. the conformer "
+                  f"CLI at (1, 2), one epoch")
+            out["conformer_tp"] = tp_step_phase("a", device_name, power)
+            out["w2v_tp"] = tp_step_phase("b", device_name, power)
+            out["conformer_tp_cli"] = tp_cli_phase(work, device_name, power)
         return out
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
 
+def parse_phases(argv):
+    """The phases to run: every one without --phases; with --phases a,b,...
+    those (1, the build, always), and the earlier phases whose results a
+    listed phase reads (PHASE_NEEDS)."""
+    if not argv:
+        return set(range(1, LAST_PHASE + 1)), False
+    if argv[0] != "--phases" or len(argv) != 2:
+        fail(f"usage: python3 chip_smoke.py [--phases 1,2,14] (got {' '.join(argv)})")
+    try:
+        phases = {int(p) for p in argv[1].split(",") if p}
+    except ValueError:
+        fail(f"--phases takes phase numbers 1-{LAST_PHASE} separated by commas, not {argv[1]!r}")
+    if not phases <= set(range(1, LAST_PHASE + 1)):
+        fail(f"--phases: no phase {sorted(phases - set(range(1, LAST_PHASE + 1)))} (1-{LAST_PHASE})")
+    for p in sorted(phases, reverse=True):
+        phases |= PHASE_NEEDS.get(p, set())
+    return phases | {1}, True
+
+
 def main() -> None:
+    phases, partial = parse_phases(sys.argv[1:])
     try:
         import torch
     except ImportError:
@@ -2434,6 +2857,8 @@ def main() -> None:
     power = smi.stdout.strip()
     print(power)  # the card's name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    if partial:
+        print(f"--phases: running phases {sorted(phases)} only")
     select.f32_products()
 
     print("[1] build")
@@ -2444,35 +2869,41 @@ def main() -> None:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    print("[2] kernels vs plain on the card")
     results = []
-    kernel_phases(dev, results)
-    torch.cuda.synchronize()
+    if 2 in phases:
+        print("[2] kernels vs plain on the card")
+        kernel_phases(dev, results)
+        torch.cuda.synchronize()
 
     serve, train = {}, {}
     for i, family in enumerate(("conformer", "w2v")):
-        print(f"[{3 + 2 * i}] serving: {FAMILY_NAMES[family]}")
-        serve[family] = serve_phase(dev, device_name, power, family)
-        torch.cuda.synchronize()
-        print(f"[{4 + 2 * i}] training: {FAMILY_NAMES[family]}")
-        train[family] = train_phase(dev, device_name, power, family)
-        torch.cuda.synchronize()
-    cli = cli_phases(device_name, power)
+        if 3 + 2 * i in phases:
+            print(f"[{3 + 2 * i}] serving: {FAMILY_NAMES[family]}")
+            serve[family] = serve_phase(dev, device_name, power, family)
+            torch.cuda.synchronize()
+        if 4 + 2 * i in phases:
+            print(f"[{4 + 2 * i}] training: {FAMILY_NAMES[family]}")
+            train[family] = train_phase(dev, device_name, power, family)
+            torch.cuda.synchronize()
+    cli = cli_phases(device_name, power, phases) if phases & set(range(7, LAST_PHASE + 1)) else {}
 
     rows = []
     for name, label in ROW_LABELS.items():
         mine = [r for r in results if r["name"] == name]
-        at = next(r for r in mine if r["label"] == label)
+        at = next((r for r in mine if r["label"] == label), None)
+        if at is None and not partial:
+            fail(f"{name}: phase 2 timed no row at {label}")
         by_path = {f"{fam}_train": train[fam][0][name] for fam in train}
         by_path.update({path: cli[path][name] for path in cli})
         launches = sum(by_path.values())
-        if launches <= 0:
+        if launches <= 0 and not partial:
             fail(f"{name}: launched in no training run")
         for path in cli:
             family, training = CLI_PATHS[path]
             want = name.split("_bwd")[0] in PATH_KERNELS[family] and (training or not name.endswith("_bwd"))
             if (by_path[path] > 0) != want:
                 fail(f"{name}: {by_path[path]} launches in the {path} run")
+        timed = (lambda key: None) if at is None else at.get  # a partial run without phase 2: no times
         rows.append({
             "name": name,
             "route": "cuda",
@@ -2480,22 +2911,23 @@ def main() -> None:
             "replaces": REPLACES[name],
             "launches": launches,
             "launches_by_path": by_path,
-            "max_abs_err": max(r["err"] for r in mine),
-            "ms": at["ms"],
-            "profiler_ms": at["profiler_ms"],
-            "call_ms": at["call_ms"],
-            "plain_ms": at["plain_ms"],
-            "bound_ms": at["bound_ms"],
-            "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"],
-            "library_profiler_ms": at["library_profiler_ms"],
+            "max_abs_err": max((r["err"] for r in mine), default=None),
+            "ms": timed("ms"),
+            "profiler_ms": timed("profiler_ms"),
+            "call_ms": timed("call_ms"),
+            "plain_ms": timed("plain_ms"),
+            "bound_ms": timed("bound_ms"),
+            "bound_by": timed("bound_by"),
+            "library_ms": timed("library_ms"),
+            "library_profiler_ms": timed("library_profiler_ms"),
             "at": label,
         })
     for family in serve:
         _, sps, sps_none = serve[family]
+        print(f"{family}: serving samples/s auto {sps:.2f} none {sps_none:.2f} on {power}")
+    for family in train:
         _, steps_ps, train_sps = train[family]
-        print(f"{family}: serving samples/s auto {sps:.2f} none {sps_none:.2f}; "
-              f"training {steps_ps:.3f} steps/s, {train_sps:.2f} samples/s on {power}")
+        print(f"{family}: training {steps_ps:.3f} steps/s, {train_sps:.2f} samples/s on {power}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))
@@ -2504,5 +2936,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # phase 11a's ranks
         dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-rank"]:  # phase 14a / b's ranks
+        tp_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--tp-cli-rank"]:  # phase 14c's ranks
+        tp_cli_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     else:
         main()

@@ -20,7 +20,8 @@ val split's of 2 are padded to 4 rows, 2 a rank; dropout off, Adam eps
   listed, and there is none;
 - the ZeRO-1 run's train_state/state.pt holds the moments whole, and a
   one-process experiment resumes from it;
-- --mesh_model_parallel=2 is refused by either experiment.
+- a --mesh_model_parallel that does not divide the encoder's heads, or the
+  world size, is refused by either experiment (ValueError).
 The JAX runs go on in this process while the ranks run.
 """
 
@@ -216,8 +217,12 @@ def test_zero1_train_state_is_whole_and_resumes_in_one_process(env, runs, family
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_tensor_parallel_flag_still_raises(env, family):  # noqa: F811
-    """--mesh_model_parallel=2 is refused before anything is loaded."""
+    """A model axis that does not divide the tiny encoder's 4 heads (3), or
+    the world size of one process (2), is refused before anything is
+    loaded."""
     cls = impl.B2TGruAndW2VConformerExperiment if family == "conformer" else impl.B2TGruAndW2VExperiment
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        cls(config(family, mesh_model_parallel=2, results_subdir_name="tp"), YamlConfigModel(**yaml_fields(env)),
-            device="cpu")
+    for mp, match in ((3, "--mesh_model_parallel=3 must divide the encoder's 4 attention heads"),
+                      (2, "--mesh_model_parallel=2 does not divide the world size 1")):
+        with pytest.raises(ValueError, match=match):
+            cls(config(family, mesh_model_parallel=mp, results_subdir_name="tp"),
+                YamlConfigModel(**yaml_fields(env)), device="cpu")

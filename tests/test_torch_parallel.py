@@ -22,7 +22,8 @@ runs its children):
   split moment leaf;
 - the same step with the augmentation noise on, 2 ranks against one process
   of the port (loss rel 1e-5, gradients and BN stats 1e-5 + 1e-5);
-- --mesh_model_parallel=2 still raises.
+- a model axis that does not divide the world size still raises (a
+  ValueError; tensor parallelism itself is tests/test_torch_tensor_parallel.py's).
 
 The JAX side runs its plain XLA versions of the kernels (use_pallas=False),
 as its CPU tests may.
@@ -475,8 +476,11 @@ def test_two_rank_step_with_noise_equals_one_process(ranks):
 
 
 def test_tensor_parallelism_still_raises():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    """In one process (world size 1) a model axis of 2 cannot be laid out."""
+    with pytest.raises(ValueError, match="--mesh_model_parallel=2 does not divide the world size 1"):
         make_mesh(0, 2)
+    with pytest.raises(ValueError, match="--mesh_model_parallel=2 does not divide the world size 1"):
+        make_mesh(1, 2)
     with pytest.raises(ValueError, match="mesh_data_parallel=2"):
         make_mesh(2, 1)  # one process is a data axis of 1
     assert make_mesh(0, 1) is None and make_mesh(1, 1) is None

@@ -21,7 +21,10 @@
 // plain PyTorch version and the JAX package all drop the same probabilities.
 // The batch row is global, row0 + b: a data-parallel rank passes the index
 // of its first row, so its masks are its rows of the whole batch's (the JAX
-// kernel's row-id vector, which shards with q).
+// kernel's row-id vector, which shards with q). So is the head, head0 + h: a
+// tensor-parallel rank holds heads [head0, head0 + NH) of the layer's, and
+// its masks are those heads of the whole layer's (the JAX kernel's global
+// head ids under a head-partitioned call).
 //
 // What bounds it on the H100: nothing big. At the slice's shape (B=32,
 // T=89, 16 heads of 64) one layer's forward reads and writes 4 x 11.7 MB
@@ -130,7 +133,7 @@ constexpr int kRows = 4;  // query rows a warp takes at once in the SIMT forward
 template <typename T>
 __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      const T* __restrict__ v, T* __restrict__ o, int Tn, int NH,
-                                     int D, float scale, bool drop, uint32_t seed, int row0,
+                                     int D, float scale, bool drop, uint32_t seed, int row0, int head0,
                                      float keep_prob, float inv_keep) {
   extern __shared__ float sm[];
   const int ldk = D + 1;
@@ -142,7 +145,7 @@ __global__ void attention_fwd_kernel(const T* __restrict__ q, const T* __restric
   const int b = blockIdx.y;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
-  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, h);
+  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, head0 + h);
 
   for (int i = threadIdx.x; i < Tn * D; i += blockDim.x) {
     const int r = i / D;
@@ -611,7 +614,7 @@ template <typename M, typename T, int DP>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                              T* __restrict__ o, int Tn, int NH, int D, float scale, bool drop, uint32_t seed,
-                             int row0, float keep_prob, float inv_keep, bool vec, int n_res) {
+                             int row0, int head0, float keep_prob, float inv_keep, bool vec, int n_res) {
   using L = MmaTile<M, DP>;
   using E = typename M::E;
   using A = typename M::A;
@@ -623,7 +626,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
-  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, h);
+  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, head0 + h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * warp;
   const int rows[2] = {q0 + m0 + gq, q0 + m0 + gq + 8};
@@ -728,7 +731,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                 const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ stats,
                                 int Tn, int NH, int D, float scale, bool drop, uint32_t seed, int row0,
-                                float keep_prob, float inv_keep, bool vec) {
+                                int head0, float keep_prob, float inv_keep, bool vec) {
   using L = MmaTile<M, DP>;
   using E = typename M::E;
   using A = typename M::A;
@@ -741,7 +744,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
-  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, h);
+  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, head0 + h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * warp;
   const int rows[2] = {q0 + m0 + gq, q0 + m0 + gq + 8};
@@ -849,8 +852,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                   const T* __restrict__ g, const float* __restrict__ stats,
                                   T* __restrict__ dk, T* __restrict__ dv, int Tn, int NH, int D, float scale,
-                                  bool drop, uint32_t seed, int row0, float keep_prob, float inv_keep,
-                                  bool vec) {
+                                  bool drop, uint32_t seed, int row0, int head0, float keep_prob,
+                                  float inv_keep, bool vec) {
   using L = MmaTile<M, DP>;
   using E = typename M::E;
   using A = typename M::A;
@@ -864,7 +867,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int k0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
   const int HD = NH * D;
   const size_t base = (size_t)b * Tn * HD + (size_t)h * D;
-  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, h);
+  const uint32_t mix = w2vb::attn_mix(seed, row0 + b, head0 + h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * warp;
   const int keys[2] = {k0 + m0 + gq, k0 + m0 + gq + 8};
@@ -934,7 +937,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <typename M, typename T, int DP>
 int launch_bwd_mma(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv, float* stats, int B,
-                   int Tn, int NH, int D, float scale, uint32_t seed, int row0, float keep_prob,
+                   int Tn, int NH, int D, float scale, uint32_t seed, int row0, int head0, float keep_prob,
                    float inv_keep, cudaStream_t s) {
   using L = MmaTile<M, DP>;
   const bool drop = keep_prob < 1.f;
@@ -948,11 +951,11 @@ int launch_bwd_mma(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Tn + kMmaRows - 1) / kMmaRows, NH, B);
   attention_bwd_dq_mma_kernel<M, T, DP><<<grid, kWarps * 32, L::kSmem, s>>>(
-      q, k, v, g, dq, stats, Tn, NH, D, scale, drop, seed, row0, keep_prob, inv_keep, vec);
+      q, k, v, g, dq, stats, Tn, NH, D, scale, drop, seed, row0, head0, keep_prob, inv_keep, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_bwd_dkdv_mma_kernel<M, T, DP><<<grid, kWarps * 32, smem_kv, s>>>(
-      q, k, v, g, stats, dk, dv, Tn, NH, D, scale, drop, seed, row0, keep_prob, inv_keep, vec);
+      q, k, v, g, stats, dk, dv, Tn, NH, D, scale, drop, seed, row0, head0, keep_prob, inv_keep, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -964,7 +967,7 @@ constexpr size_t kResidentSmem = 72 * 1024;
 
 template <typename M, typename T, int DP>
 int launch_fwd_mma(const T* q, const T* k, const T* v, T* o, int B, int Tn, int NH, int D, float scale,
-                   uint32_t seed, int row0, float keep_prob, float inv_keep, cudaStream_t s) {
+                   uint32_t seed, int row0, int head0, float keep_prob, float inv_keep, cudaStream_t s) {
   using L = MmaTile<M, DP>;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -977,7 +980,7 @@ int launch_fwd_mma(const T* q, const T* k, const T* v, T* o, int B, int Tn, int 
   cudaError_t e = w2vb::allow_smem(attention_fwd_mma_kernel<M, T, DP>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   attention_fwd_mma_kernel<M, T, DP><<<dim3((Tn + kMmaRows - 1) / kMmaRows, NH, B), kWarps * 32, smem, s>>>(
-      q, k, v, o, Tn, NH, D, scale, keep_prob < 1.f, seed, row0, keep_prob, inv_keep, vec, n_res);
+      q, k, v, o, Tn, NH, D, scale, keep_prob < 1.f, seed, row0, head0, keep_prob, inv_keep, vec, n_res);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -987,7 +990,7 @@ int launch_fwd_mma(const T* q, const T* k, const T* v, T* o, int B, int Tn, int 
 // (heads wider than 128; the wrapper checks that they fit)
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int Tn, int NH, int D,
-               float scale, bool cd_bf16, bool simt, uint32_t seed, int row0, float keep_prob,
+               float scale, bool cd_bf16, bool simt, uint32_t seed, int row0, int head0, float keep_prob,
                float inv_keep, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -999,22 +1002,22 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int 
     cudaError_t e = w2vb::allow_smem(attention_fwd_kernel<T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attention_fwd_kernel<T><<<dim3(NH, B), kWarps * 32, smem, s>>>(qt, kt, vt, ot, Tn, NH, D, scale,
-                                                                   keep_prob < 1.f, seed, row0, keep_prob,
-                                                                   inv_keep);
+                                                                   keep_prob < 1.f, seed, row0, head0,
+                                                                   keep_prob, inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
   if (simt || D > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   if (cd_bf16) {
     if (D <= 64)
-      return launch_fwd_mma<MmaBf16, T, 64>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, keep_prob,
+      return launch_fwd_mma<MmaBf16, T, 64>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, head0, keep_prob,
                                             inv_keep, s);
-    return launch_fwd_mma<MmaBf16, T, 128>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, keep_prob,
+    return launch_fwd_mma<MmaBf16, T, 128>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, head0, keep_prob,
                                            inv_keep, s);
   }
   if (D <= 64)
-    return launch_fwd_mma<MmaTf32x3, T, 64>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, keep_prob,
+    return launch_fwd_mma<MmaTf32x3, T, 64>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, head0, keep_prob,
                                             inv_keep, s);
-  return launch_fwd_mma<MmaTf32x3, T, 128>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, keep_prob,
+  return launch_fwd_mma<MmaTf32x3, T, 128>(qt, kt, vt, ot, B, Tn, NH, D, scale, seed, row0, head0, keep_prob,
                                            inv_keep, s);
 }
 
@@ -1022,7 +1025,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int 
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
                void* dv, float* stats, int B, int Tn, int NH, int D, float scale, bool cd_bf16,
-               uint32_t seed, int row0, float keep_prob, float inv_keep, cudaStream_t s) {
+               uint32_t seed, int row0, int head0, float keep_prob, float inv_keep, cudaStream_t s) {
   if (D > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qt = static_cast<const T*>(q);
   const auto* kt = static_cast<const T*>(k);
@@ -1034,15 +1037,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
   if (cd_bf16) {
     if (D <= 64)
       return launch_bwd_mma<MmaBf16, T, 64>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
-                                            row0, keep_prob, inv_keep, s);
+                                            row0, head0, keep_prob, inv_keep, s);
     return launch_bwd_mma<MmaBf16, T, 128>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
-                                           row0, keep_prob, inv_keep, s);
+                                           row0, head0, keep_prob, inv_keep, s);
   }
   if (D <= 64)
     return launch_bwd_mma<MmaTf32x3, T, 64>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
-                                            row0, keep_prob, inv_keep, s);
+                                            row0, head0, keep_prob, inv_keep, s);
   return launch_bwd_mma<MmaTf32x3, T, 128>(qt, kt, vt, gt, dqt, dkt, dvt, stats, B, Tn, NH, D, scale, seed,
-                                           row0, keep_prob, inv_keep, s);
+                                           row0, head0, keep_prob, inv_keep, s);
 }
 
 }  // namespace
@@ -1051,18 +1054,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
 // cd_bf16: the compute dtype is bf16 (else f32: the split-TF32 kernels).
 // keep_prob < 1 turns the dropout on (keep_prob and inv_keep = 1/keep_prob
 // as f32, seed the site's int32, row0 the global batch index of row 0: a
-// data-parallel rank's first row, whose mask rows are the whole batch's). simt, at f32 compute: the SIMT kernel
-// instead, for heads wider than 128.
+// data-parallel rank's first row, whose mask rows are the whole batch's;
+// head0 the global index of head 0: a tensor-parallel rank's first head).
+// simt, at f32 compute: the SIMT kernel instead, for heads wider than 128.
 extern "C" int w2vb_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                   int io_bf16, int cd_bf16, int simt, int B, int T, int NH,
-                                  int D, float scale, int seed, int row0, float keep_prob,
+                                  int D, float scale, int seed, int row0, int head0, float keep_prob,
                                   float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t sd = static_cast<uint32_t>(seed);
   if (io_bf16)
     return launch_fwd<__nv_bfloat16>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, simt != 0, sd,
-                                     row0, keep_prob, inv_keep, s);
-  return launch_fwd<float>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, simt != 0, sd, row0,
+                                     row0, head0, keep_prob, inv_keep, s);
+  return launch_fwd<float>(q, k, v, o, B, T, NH, D, scale, cd_bf16 != 0, simt != 0, sd, row0, head0,
                            keep_prob, inv_keep, s);
 }
 
@@ -1071,12 +1075,12 @@ extern "C" int w2vb_attention_fwd(const void* q, const void* k, const void* v, v
 extern "C" int w2vb_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                   void* dq, void* dk, void* dv, float* stats, int io_bf16,
                                   int cd_bf16, int B, int T, int NH, int D, float scale, int seed,
-                                  int row0, float keep_prob, float inv_keep, void* stream) {
+                                  int row0, int head0, float keep_prob, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t sd = static_cast<uint32_t>(seed);
   if (io_bf16)
     return launch_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, stats, B, T, NH, D, scale,
-                                     cd_bf16 != 0, sd, row0, keep_prob, inv_keep, s);
+                                     cd_bf16 != 0, sd, row0, head0, keep_prob, inv_keep, s);
   return launch_bwd<float>(q, k, v, g, dq, dk, dv, stats, B, T, NH, D, scale, cd_bf16 != 0, sd,
-                           row0, keep_prob, inv_keep, s);
+                           row0, head0, keep_prob, inv_keep, s);
 }

@@ -54,14 +54,21 @@ What the port does differently, or not at all:
   torch.distributed.run --nproc_per_node=N -m wav2vec2forbrain_tpu_torch.run
   ...`; parallel/): the process group is joined before anything else (NCCL
   on the card, each rank on cuda:$LOCAL_RANK; gloo on the CPU),
-  --mesh_data_parallel 0 takes every rank and any other value must be the
-  world size, rank 0's results-dir timestamp, params and BN state are
+  --mesh_data_parallel 0 takes the world size over --mesh_model_parallel
+  and any other value must make the two the world size, rank 0's
+  results-dir timestamp, params and BN state are
   broadcast, and rank 0 alone writes files (config.json, metrics.jsonl,
   history.json, the model, the predictions) and runs the LM decode.
   --optimizer_state_sharding=zero1 splits the Adam moments over the ranks
   (parallel/zero.py); in one process it changes nothing.
-- Refused with NotImplementedError: tensor parallelism
-  (--mesh_model_parallel above 1).
+- Tensor parallelism (--mesh_model_parallel=M above 1) lays the ranks out
+  as a (data, model) grid (parallel/mesh.py: world = dp x M, rank r at data
+  index r // M and model index r % M) and splits the encoder's attention and
+  FFN matmuls over each model group, Megatron's column / row split
+  (parallel/tensor.py). Every rank builds or loads the whole tree, takes
+  rank 0's, and keeps its pieces; every file is written whole. M must
+  divide the world size and the encoder's heads and intermediate size
+  (ValueError, before anything is built).
 """
 
 import json
@@ -90,6 +97,7 @@ from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.ops.select import f32_products, set_kernel_policy
 from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
+from wav2vec2forbrain_tpu_torch.parallel.tensor import check_divides, gather_tree, split_tree
 from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1
 from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_checkpoint, load_into, save_checkpoint, save_subtree
@@ -139,8 +147,11 @@ class B2TGruW2VExperimentBase:
         self.base_config = validate(self.ARGS_MODEL, config)
         self.yaml_config = yamlConfig
         self.raw_config = config
-        # the data axis over the ranks (None in one process); a model axis raises
+        enc_cfg = self._encoder_config()
+        check_divides(self.base_config.mesh_model_parallel, enc_cfg.num_attention_heads, enc_cfg.intermediate_size)
+        # the (data, model) grid over the ranks (None in one process)
         self.shard = make_mesh(self.base_config.mesh_data_parallel, self.base_config.mesh_model_parallel)
+        self.tp = None if self.shard is None else self.shard.model  # parallel/tensor.py::TensorShard
         f32_products()
 
         cfg = self.base_config
@@ -170,7 +181,6 @@ class B2TGruW2VExperimentBase:
         self._build_model()
         if distributed.world_size() > 1:  # every rank starts from rank 0's weights
             distributed.broadcast_tensors(tree_leaves(self.params) + tree_leaves(self.model_state))
-        self._build_optimizer_and_steps()
 
         self.checkpoint_history = None
         if cfg.from_checkpoint is not None:
@@ -183,6 +193,8 @@ class B2TGruW2VExperimentBase:
                     self.checkpoint_history = TrainHistory.from_json(history_path)
                 except Exception:
                     print("Failed to load history from checkpoint")
+        self.params = split_tree(self.params, self.tp)  # this rank's pieces under tensor parallelism
+        self._build_optimizer_and_steps()
 
         self.step_rng = StepRng(cfg.seed + 1, device=self.device)
         self.lm_decoder = None  # built at the first test evaluator
@@ -321,9 +333,9 @@ class B2TGruW2VExperimentBase:
         self.labels = param_labels(self.params, cfg.unfreeze_strategy)
 
     def adopt_params(self, params: dict, state: dict) -> None:
-        """Take given weights and BN state (trees like the port's, for
+        """Take given weights and BN state (whole trees like the port's, for
         example bridge.params_from_jax of the JAX package's) before run()."""
-        copy_into(self.params, params)
+        copy_into(self.params, split_tree(params, self.tp))
         copy_into(self.model_state, state)
 
     def _step_cfg(self) -> StepConfig:
@@ -404,11 +416,12 @@ class B2TGruW2VExperimentBase:
     # --- checkpointing ------------------------------------------------------
 
     def store_trained_model(self):
+        params = gather_tree(self.params, self.tp)  # the whole tree (a collective under tensor parallelism)
         if not self.coordinator:
             return
-        save_checkpoint(os.path.join(self.results_dir, "model.pt"), self.params, self.model_state)
+        save_checkpoint(os.path.join(self.results_dir, "model.pt"), params, self.model_state)
         if getattr(self.base_config, "store_brain_encoder", False):
-            save_subtree(os.path.join(self.results_dir, "brain_encoder.pt"), self.params["brain"])
+            save_subtree(os.path.join(self.results_dir, "brain_encoder.pt"), params["brain"])
 
     # --- run ----------------------------------------------------------------
 

@@ -186,6 +186,7 @@ def forward(
     rng: Optional[ForwardRng] = None,
     train: bool = False,
     return_extras: bool = False,
+    tp=None,
 ):
     """Batch (B, T, 256) -> (logits (B, T', vocab) f32, logit_lens (B,),
     new_state), plus an extras dict when return_extras: "hidden_states"
@@ -195,7 +196,9 @@ def forward(
     "aux_logits".
 
     Train mode needs rng, a ForwardRng whose gru / enc / head streams seed
-    the GRU's inter-layer dropout, the encoder and the head's final dropout."""
+    the GRU's inter-layer dropout, the encoder and the head's final dropout.
+    tp: this rank's parallel/tensor.py::TensorShard under tensor
+    parallelism (the encoder's params are then its pieces), else None."""
     if train and rng is None:
         raise ValueError("forward: train mode needs a ForwardRng of seed streams (models/seeds.py)")
     cd = spec.compute_dtype
@@ -223,7 +226,7 @@ def forward(
     enc_stream = rng.enc if rng is not None else None
     head_stream = rng.head if rng is not None else None
     if spec.encoder_family == "wav2vec2":
-        hidden = apply_w2v_encoder(params["w2v"]["encoder"], enc_in, spec.w2v_cfg, train, cd, enc_stream)
+        hidden = apply_w2v_encoder(params["w2v"]["encoder"], enc_in, spec.w2v_cfg, train, cd, enc_stream, tp)
         new_state = state
         logits = apply_lm_head(params["w2v"]["lm_head"], hidden, spec.w2v_cfg, cd, head_stream, train)
         # the extras' hidden states are the encoder's, before the final dropout
@@ -231,7 +234,7 @@ def forward(
         cfg = spec.conformer_cfg
         hidden, new_enc_state = apply_conformer_encoder(
             params["w2v"]["encoder"], state["encoder"], enc_in, cfg,
-            train=train, compute_dtype=cd, stream=enc_stream,
+            train=train, compute_dtype=cd, stream=enc_stream, tp=tp,
         )
         # ForCTC head: final dropout + vocab projection; the extras' hidden
         # states are the dropped-out ones the head projects
@@ -261,6 +264,7 @@ def forward_with_loss(
     return_hidden: bool = False,
     mask_total: Optional[float] = None,
     group=None,
+    tp=None,
 ) -> dict:
     """{logits, logit_lens, loss (None without targets), state, metrics}
     (+ hidden_states with return_hidden). With an aux head the loss is the
@@ -272,11 +276,12 @@ def forward_with_loss(
     `group`, whose "mean" denominator is mask_total. Each CTC loss is this
     part's share, summed over the ranks (parallel/distributed.py::
     loss_across) before they are combined, so the loss and the metrics are
-    the global batch's on every rank."""
+    the global batch's on every rank. Under tensor parallelism `group` is
+    the data group and tp this rank's TensorShard (forward's)."""
     aux_on = spec.aux_head_vocab_size is not None
     fwd = forward(
         params, state, spec, x, day_idxs, input_lens, rng, train,
-        return_extras=aux_on or return_hidden,
+        return_extras=aux_on or return_hidden, tp=tp,
     )
     logits, logit_lens, new_state = fwd[:3]
     extras = fwd[3] if len(fwd) > 3 else {}

@@ -21,6 +21,14 @@ batch's under data parallelism: the stream's group); LayerDrop.
 Every LayerNorm (five per layer and the encoder's last) goes through
 models/wav2vec2.py::_layer_norm_routed, as in the JAX package: the
 layernorm kernel when the policy routes "layernorm" there.
+
+Tensor parallelism (`tp`, parallel/tensor.py): the layer's params are this
+rank's pieces. The attention and both FFN halves enter their column-split
+linears through `enter` and leave through `row_linear`; the rotary
+embedding rotates the whole hidden state with the global head count
+before the projections, the attention runs on this rank's heads at their
+global head ids, the activation dropout on its FFN columns at their global
+column ids, and every other site on whole tensors, as without tp.
 """
 
 import math
@@ -37,6 +45,7 @@ from wav2vec2forbrain_tpu_torch.ops.attention import attention
 from wav2vec2forbrain_tpu_torch.ops.conv_glu import depthwise_conv_same, glu_dwconv
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 from wav2vec2forbrain_tpu_torch.parallel import distributed
+from wav2vec2forbrain_tpu_torch.parallel.tensor import col0_of, enter, heads_of, row_linear
 
 
 @dataclass
@@ -186,27 +195,30 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, num_hea
 # --- blocks -----------------------------------------------------------------------
 
 
-def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
+def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False, tp=None):
     sd = x.dtype
-    y = apply_linear(p["intermediate_dense"], x, compute_dtype, out_dtype=sd)
+    y = apply_linear(p["intermediate_dense"], enter(x, tp), compute_dtype, out_dtype=sd)
     y = ACT2FN[cfg.hidden_act](y)
-    y = dropout_site(stream, y, cfg.activation_dropout, train)
-    y = apply_linear(p["output_dense"], y, compute_dtype, out_dtype=sd)
+    y = dropout_site(stream, y, cfg.activation_dropout, train, col0_of(tp, y.shape[-1]))
+    y = row_linear(p["output_dense"], y, tp, compute_dtype, sd)
     return dropout_site(stream, y, cfg.hidden_dropout, train)
 
 
-def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False):
+def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False,
+                             tp=None):
     heads = cfg.num_attention_heads
     cd = compute_dtype or x.dtype
     sd = x.dtype
-    qk_states = _apply_rotary(x, cos, sin, heads)
+    x = enter(x, tp)
+    qk_states = _apply_rotary(x, cos, sin, heads)  # the whole hidden state, the global heads
     q = apply_linear(p["linear_q"], qk_states, cd, out_dtype=sd)
     k = apply_linear(p["linear_k"], qk_states, cd, out_dtype=sd)
     v = apply_linear(p["linear_v"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
     seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
-    ctx = attention(q, k, v, heads, cd, rate, seed, row0=row0)
-    return apply_linear(p["linear_out"], ctx, cd, out_dtype=sd)
+    local_heads, head0 = heads_of(tp, heads)
+    ctx = attention(q, k, v, local_heads, cd, rate, seed, row0=row0, head0=head0)
+    return row_linear(p["linear_out"], ctx, tp, cd, sd)
 
 
 def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig, train: bool = False,
@@ -267,17 +279,18 @@ def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtyp
     return dropout_site(stream, y, cfg.conformer_conv_dropout, train), {"batch_norm": new_bn}
 
 
-def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False):
+def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False,
+                    tp=None):
     """One macaron block. Returns (x, new_state)."""
     eps = cfg.layer_norm_eps
     residual = x
     y = _layer_norm_routed(p["ffn1_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train)
+    y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train, tp)
     x = y * 0.5 + residual
 
     residual = x
     y = _layer_norm_routed(p["self_attn_layer_norm"], x, eps)
-    y = conformer_self_attention(p["self_attn"], y, cfg, cos, sin, compute_dtype, stream, train)
+    y = conformer_self_attention(p["self_attn"], y, cfg, cos, sin, compute_dtype, stream, train, tp)
     y = dropout_site(stream, y, cfg.attention_dropout, train)
     x = residual + y
 
@@ -287,7 +300,7 @@ def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_
 
     residual = x
     y = _layer_norm_routed(p["ffn2_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train)
+    y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train, tp)
     x = y * 0.5 + residual
     return _layer_norm_routed(p["final_layer_norm"], x, eps), new_state
 
@@ -300,8 +313,11 @@ def apply_conformer_encoder(
     train: bool = False,
     compute_dtype=None,
     stream: Optional[SeedStream] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Full encoder. Returns (hidden (B, T, H), new_state).
+    """Full encoder. Returns (hidden (B, T, H), new_state). With tp (a
+    parallel/tensor.py::TensorShard) the layers' params are this rank's
+    pieces (the module's header).
 
     Train mode needs `stream` (the forward's encoder stream): the input
     dropout's seed, then the LayerDrop decisions, then every layer's sites
@@ -321,6 +337,6 @@ def apply_conformer_encoder(
             stream.skip(sites_per_layer(cfg, CONFORMER_LAYER_SITES))
             new_states.append(s_layer)
             continue
-        x, new_s = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, stream, train)
+        x, new_s = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, stream, train, tp)
         new_states.append(new_s)
     return _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps), {"layers": new_states}

@@ -26,7 +26,9 @@ the global batch: `row0`, the global index of local row 0, on which every
 dropout mask is keyed (ops/hash_dropout.py, the attention kernels), and
 `group`, the process group whose ranks hold the other rows, over which
 train-mode BatchNorm takes its batch statistics (models/conformer.py).
-One process: row0 0, group None. The augmentation noise is drawn at the
+One process: row0 0, group None. On a (data, model) grid (parallel/mesh.py)
+row0 follows the rank's data index and group is its data group: the ranks
+of a model group hold the same rows and draw the same masks. The augmentation noise is drawn at the
 global batch's shape and sliced to the rank's rows (`StepRng.normal`).
 
 The dropout sites of one encoder layer, in the order the JAX layer draws

@@ -17,6 +17,13 @@ layer (models/seeds.py::W2V_LAYER_SITES), seeded in that order from the
 forward's encoder SeedStream; LayerDrop. Every LayerNorm goes through
 _layer_norm_routed: the layernorm kernel (ops/layernorm.py) when the policy
 routes "layernorm" there, else the plain version.
+
+Tensor parallelism (`tp`, parallel/tensor.py): the layer's params are this
+rank's pieces. The attention and the FFN enter their column-split linears
+through `enter` and leave through `row_linear`; q keeps its scale from the
+whole hidden size and the global head count, the attention runs on this
+rank's heads at their global head ids, the activation dropout on its FFN
+columns at their global column ids, every other site on whole tensors.
 """
 
 import contextlib
@@ -34,6 +41,7 @@ from wav2vec2forbrain_tpu_torch.ops.attention import attention as mha
 from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
 from wav2vec2forbrain_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
+from wav2vec2forbrain_tpu_torch.parallel.tensor import col0_of, enter, heads_of, row_linear
 
 
 @dataclass
@@ -138,12 +146,14 @@ def _layer_norm_routed(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return fn(x, p["scale"], p["bias"], eps)
 
 
-def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+def dropout_site(stream: Optional[SeedStream], x: torch.Tensor, rate: float, train: bool,
+                 col0: int = 0) -> torch.Tensor:
     """One dropout site: a hash mask keyed on the stream's next seed, at the
-    stream's global rows."""
+    stream's global rows (and, for a rank's columns of a split tensor, at
+    the global index col0 of its last dim's first)."""
     if not train or rate <= 0.0:
         return x
-    return hash_dropout(x, stream.seed(), rate, stream.row0)
+    return hash_dropout(x, stream.seed(), rate, stream.row0, col0)
 
 
 # The pos-conv's cuDNN backward (dx and dW) picks a non-deterministic
@@ -205,42 +215,45 @@ def pos_conv_embed(p: dict, x: torch.Tensor, cfg: Wav2Vec2EncoderConfig) -> torc
     return ACT2FN[cfg.feat_extract_activation](y)
 
 
-def self_attention(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+def self_attention(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False, tp=None):
     """HF Wav2Vec2Attention (Bart style): q scaled by head_dim ** -0.5 in
     the stream dtype, then attention at scale 1."""
     heads = cfg.num_attention_heads
     cd = compute_dtype or x.dtype
     sd = x.dtype
-    q = apply_linear(p["q_proj"], x, cd, out_dtype=sd) * (x.shape[-1] // heads) ** -0.5
+    scale = (x.shape[-1] // heads) ** -0.5  # the whole hidden size over the global heads
+    x = enter(x, tp)
+    q = apply_linear(p["q_proj"], x, cd, out_dtype=sd) * scale
     k = apply_linear(p["k_proj"], x, cd, out_dtype=sd)
     v = apply_linear(p["v_proj"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
     seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
-    ctx = mha(q, k, v, heads, cd, rate, seed, scale=1.0, row0=row0)
-    return apply_linear(p["out_proj"], ctx, cd, out_dtype=sd)
+    local_heads, head0 = heads_of(tp, heads)
+    ctx = mha(q, k, v, local_heads, cd, rate, seed, scale=1.0, row0=row0, head0=head0)
+    return row_linear(p["out_proj"], ctx, tp, cd, sd)
 
 
-def feed_forward(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+def feed_forward(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False, tp=None):
     sd = x.dtype
-    y = apply_linear(p["intermediate_dense"], x, compute_dtype, out_dtype=sd)
+    y = apply_linear(p["intermediate_dense"], enter(x, tp), compute_dtype, out_dtype=sd)
     y = ACT2FN[cfg.hidden_act](y)
-    y = dropout_site(stream, y, cfg.activation_dropout, train)
-    y = apply_linear(p["output_dense"], y, compute_dtype, out_dtype=sd)
+    y = dropout_site(stream, y, cfg.activation_dropout, train, col0_of(tp, y.shape[-1]))
+    y = row_linear(p["output_dense"], y, tp, compute_dtype, sd)
     return dropout_site(stream, y, cfg.hidden_dropout, train)
 
 
-def encoder_layer(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False):
+def encoder_layer(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False, tp=None):
     eps = cfg.layer_norm_eps
     if cfg.do_stable_layer_norm:
         y = _layer_norm_routed(p["layer_norm"], x, eps)
-        y = self_attention(p["attention"], y, cfg, compute_dtype, stream, train)
+        y = self_attention(p["attention"], y, cfg, compute_dtype, stream, train, tp)
         x = x + dropout_site(stream, y, cfg.hidden_dropout, train)
         y = feed_forward(p["feed_forward"], _layer_norm_routed(p["final_layer_norm"], x, eps), cfg,
-                         compute_dtype, stream, train)
+                         compute_dtype, stream, train, tp)
         return x + y
-    y = self_attention(p["attention"], x, cfg, compute_dtype, stream, train)
+    y = self_attention(p["attention"], x, cfg, compute_dtype, stream, train, tp)
     x = _layer_norm_routed(p["layer_norm"], x + dropout_site(stream, y, cfg.hidden_dropout, train), eps)
-    y = feed_forward(p["feed_forward"], x, cfg, compute_dtype, stream, train)
+    y = feed_forward(p["feed_forward"], x, cfg, compute_dtype, stream, train, tp)
     return _layer_norm_routed(p["final_layer_norm"], x + y, eps)
 
 
@@ -251,8 +264,11 @@ def apply_w2v_encoder(
     train: bool = False,
     compute_dtype=None,
     stream: Optional[SeedStream] = None,
+    tp=None,
 ) -> torch.Tensor:
-    """Full encoder. x: (B, T, H) -> (B, T, H).
+    """Full encoder. x: (B, T, H) -> (B, T, H). With tp (a
+    parallel/tensor.py::TensorShard) the layers' params are this rank's
+    pieces (the module's header).
 
     Train mode needs `stream` (the forward's encoder stream): the input
     dropout's seed, then the LayerDrop decisions, then every layer's sites
@@ -270,7 +286,7 @@ def apply_w2v_encoder(
         if dropped:
             stream.skip(sites_per_layer(cfg, W2V_LAYER_SITES))
             continue
-        x = encoder_layer(p_layer, x, cfg, compute_dtype, stream, train)
+        x = encoder_layer(p_layer, x, cfg, compute_dtype, stream, train, tp)
     if cfg.do_stable_layer_norm:
         x = _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps)
     return x

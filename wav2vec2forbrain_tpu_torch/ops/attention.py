@@ -17,7 +17,10 @@ frames too. The mask is keyed on (seed, batch row, head, q row, k col), so
 the kernel, the plain versions and the JAX package all drop the same
 probabilities. The batch row is global: `row0` is the global index of the
 operands' row 0 (a data-parallel rank's first row, 0 in one process), as
-the JAX kernel takes a row-id vector that shards with q.
+the JAX kernel takes a row-id vector that shards with q. So is the head:
+`head0` is the global index of the operands' head 0 (a tensor-parallel
+rank's first head, parallel/tensor.py), as the JAX kernel's head ids are
+the layer's under a head-partitioned call.
 
 The kernels are chosen by the compute dtype (`_fwd_route`). For heads up
 to 128 wide, at any T, the forward is one tensor-core launch and the
@@ -66,25 +69,25 @@ def _unheads(x, b, num_heads, dtype):
     return x.reshape(b, num_heads, t, d).permute(0, 2, 1, 3).reshape(b, t, num_heads * d).to(dtype)
 
 
-def _scaled_mask(seed, b, num_heads, t, rate, device, row0=0):
+def _scaled_mask(seed, b, num_heads, t, rate, device, row0=0, head0=0):
     """(mask (B*H, T, T) of 0/1, 1/keep), or None at rate 0."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention: dropout rate {rate} outside [0, 1)")
     if rate == 0.0:
         return None
-    keep = hash_keep_mask(seed, (b, num_heads, t, t), 1.0 - rate, device, row0)
+    keep = hash_keep_mask(seed, (b, num_heads, t, t), 1.0 - rate, device, row0, head0)
     return keep.reshape(b * num_heads, t, t), 1.0 / (1.0 - rate)
 
 
 def mha_dense_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0,
-                  row0: int = 0):
+                  row0: int = 0, head0: int = 0):
     """Plain dense attention: q/k/v (B, T, H*D) -> ctx (B, T, H*D) in
-    q.dtype; seed and row0 are used only when dropout_rate > 0."""
+    q.dtype; seed, row0 and head0 are used only when dropout_rate > 0."""
     b, t, _ = q.shape
     cd = compute_dtype
     s = torch.bmm(_heads(q, num_heads, cd), _heads(k, num_heads, cd).transpose(1, 2)) * scale
     p = torch.softmax(s, dim=-1)
-    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device, row0)
+    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device, row0, head0)
     if masked is not None:
         p = p * masked[0] * masked[1]
     ctx = torch.bmm(p.to(cd).float(), _heads(v, num_heads, cd))
@@ -92,7 +95,7 @@ def mha_dense_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, co
 
 
 def mha_bwd_plain(q, k, v, g, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0,
-                  row0: int = 0):
+                  row0: int = 0, head0: int = 0):
     """Plain version of the backward kernel: (dq, dk, dv), each (B, T, H*D)
     in q.dtype, for the upstream gradient g of the context."""
     b, t, _ = q.shape
@@ -100,7 +103,7 @@ def mha_bwd_plain(q, k, v, g, num_heads: int, scale: float, dropout_rate: float,
     qh, kh, vh = (_heads(x, num_heads, cd) for x in (q, k, v))
     gh = _heads(g.to(q.dtype), num_heads, cd)
     p = torch.softmax(torch.bmm(qh, kh.transpose(1, 2)) * scale, dim=-1)
-    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device, row0)
+    masked = _scaled_mask(seed, b, num_heads, t, dropout_rate, q.device, row0, head0)
     mask = None if masked is None else masked[0] * masked[1]
     pd = p if mask is None else p * mask
     dv = torch.bmm(pd.to(cd).float().transpose(1, 2), gh)
@@ -123,13 +126,15 @@ def _check(name, q, k, v, num_heads, compute_dtype):
         raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
 
 
-def _dropout_args(dropout_rate, seed, row0):
+def _dropout_args(dropout_rate, seed, row0, head0):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"attention: dropout rate {dropout_rate} outside [0, 1)")
     if not 0 <= row0 < 2**31:
         raise ValueError(f"attention: row0 {row0} outside [0, 2^31)")
+    if not 0 <= head0 < 2**31:
+        raise ValueError(f"attention: head0 {head0} outside [0, 2^31)")
     keep = 1.0 - dropout_rate
-    return int(seed), int(row0), float(keep), float(1.0 / keep)
+    return int(seed), int(row0), int(head0), float(keep), float(1.0 / keep)
 
 
 def _simt_fits(t, d):
@@ -149,7 +154,7 @@ def _fwd_route(t, d, compute_dtype):
     return None
 
 
-def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0=0):
+def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0=0, head0=0):
     _check("mha_fused_bth", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
@@ -163,7 +168,7 @@ def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, ro
         code = lib.w2vb_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), int(route == "resident"),
-            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed, row0),
+            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed, row0, head0),
             kernels.stream_of(q),
         )
     kernels.check("attention", code)
@@ -171,7 +176,7 @@ def _fwd_kernel(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, ro
     return o
 
 
-def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed, row0=0):
+def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed, row0=0, head0=0):
     _check("mha_fused_bth backward", q, k, v, num_heads, compute_dtype)
     b, t, hd = q.shape
     d = hd // num_heads
@@ -187,7 +192,7 @@ def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             int(q.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed, row0),
+            b, t, num_heads, d, float(scale), *_dropout_args(dropout_rate, seed, row0, head0),
             kernels.stream_of(q),
         )
     kernels.check("attention_bwd", code)
@@ -197,9 +202,9 @@ def _bwd_kernel(q, k, v, g, num_heads, scale, dropout_rate, compute_dtype, seed,
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0):
+    def forward(ctx, q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0, head0):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (num_heads, scale, dropout_rate, compute_dtype, seed, row0)
+        ctx.args = (num_heads, scale, dropout_rate, compute_dtype, seed, row0, head0)
         fn = _fwd_kernel if q.is_cuda else mha_dense_bth
         return fn(q, k, v, *ctx.args)
 
@@ -208,28 +213,29 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         fn = _bwd_kernel if q.is_cuda else mha_bwd_plain
         dq, dk, dv = fn(q, k, v, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def mha_fused_bth(q, k, v, num_heads: int, scale: float, dropout_rate: float, compute_dtype, seed: int = 0,
-                  row0: int = 0):
+                  row0: int = 0, head0: int = 0):
     """Same contract as mha_dense_bth; differentiable. On CUDA tensors the
     forward and backward kernels run (or raise); on CPU tensors their plain
     versions (mha_dense_bth, mha_bwd_plain)."""
     return _FusedAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), num_heads, float(scale),
-        float(dropout_rate), compute_dtype, int(seed), int(row0),
+        float(dropout_rate), compute_dtype, int(seed), int(row0), int(head0),
     )
 
 
 def attention(q, k, v, num_heads: int, compute_dtype, dropout_rate: float = 0.0, seed: int = 0,
-              scale: Optional[float] = None, row0: int = 0):
+              scale: Optional[float] = None, row0: int = 0, head0: int = 0):
     """Model-side entry (counterpart of mha_with_rng): the kernels when the
     policy routes "attention" to them, else the dense version. Pass
-    dropout_rate 0 in eval mode. scale defaults to head_dim ** -0.5 (the
-    wav2vec2 encoder pre-scales q and passes 1.0); row0 is the global batch
-    index of row 0 (the dropout mask's coordinate)."""
+    dropout_rate 0 in eval mode. num_heads is the heads q holds; scale
+    defaults to head_dim ** -0.5 (the wav2vec2 encoder pre-scales q and
+    passes 1.0); row0 and head0 are the global batch index of row 0 and the
+    global index of head 0 (the dropout mask's coordinates)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     fn = mha_fused_bth if kernel_enabled("attention") else mha_dense_bth
-    return fn(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0)
+    return fn(q, k, v, num_heads, scale, dropout_rate, compute_dtype, seed, row0, head0)

@@ -63,11 +63,11 @@ _SIGNATURES = {
     "w2vb_gru_bwd": [_vp, _vp, _i] + [_vp] * 16 + [_i] * 7 + [_vp],
     # gi, wt, w_bf16, b_hh, h0, hc, ys, T, ND, B, H, Bp, Hp, stream
     "w2vb_gru_dir_fwd": [_vp, _vp, _i, _vp, _vp, _vp, _vp] + [_i] * 6 + [_vp],
-    # q, k, v, o, io_bf16, cd_bf16, simt, B, T, NH, D, scale, seed, row0, keep_prob, inv_keep, stream
-    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 7 + [_f, _i, _i, _f, _f, _vp],
-    # q, k, v, g, dq, dk, dv, stats, io_bf16, cd_bf16, B, T, NH, D, scale, seed, row0, keep_prob,
+    # q, k, v, o, io_bf16, cd_bf16, simt, B, T, NH, D, scale, seed, row0, head0, keep_prob, inv_keep, stream
+    "w2vb_attention_fwd": [_vp] * 4 + [_i] * 7 + [_f, _i, _i, _i, _f, _f, _vp],
+    # q, k, v, g, dq, dk, dv, stats, io_bf16, cd_bf16, B, T, NH, D, scale, seed, row0, head0, keep_prob,
     # inv_keep, stream
-    "w2vb_attention_bwd": [_vp] * 8 + [_i] * 6 + [_f, _i, _i, _f, _f, _vp],
+    "w2vb_attention_bwd": [_vp] * 8 + [_i] * 6 + [_f, _i, _i, _i, _f, _f, _vp],
     # y, w, z, io_bf16, cd_bf16, B, T, C, ks, stream
     "w2vb_conv_glu_fwd": [_vp] * 3 + [_i] * 6 + [_vp],
     # y, w, dz, dy, dk, io_bf16, cd_bf16, B, T, C, ks, stream

@@ -19,7 +19,12 @@ broadcast and barrier (gloo has no reduce_scatter).
 - `gather_rows`: each rank's rows of a batch's outputs, in rank order (the
   counterpart of `host_fetchable`);
 - `sum_across` / `loss_across`: differentiable sums over the ranks, for
-  BatchNorm's batch statistics and for the loss.
+  BatchNorm's batch statistics and for the loss;
+- `enter_split` / `sum_partials`: the two ends of a tensor-parallel block
+  (parallel/tensor.py): identity forward with summed gradients, and summed
+  partial products with an identity backward;
+- `all_gather_pieces`: split leaves made whole again (ZeRO-1's moments and
+  params, tensor parallelism's trees).
 """
 
 import os
@@ -178,6 +183,50 @@ def loss_across(x: torch.Tensor, group) -> torch.Tensor:
     unchanged, and the SUM all-reduce of the params' gradients adds the
     ranks' parts once."""
     return _LossAcross.apply(x, group)
+
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def enter_split(x: torch.Tensor, group) -> torch.Tensor:
+    """x unchanged, on its way into work that the ranks of `group` split
+    between them (tensor parallelism's column-split linears): the backward
+    sums the ranks' gradients, each of which covers its own part of that
+    work only."""
+    return _EnterSplit.apply(x, group)
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial results (tensor parallelism's
+    row-split products), which every rank then uses alike: forward an
+    all-reduce, backward the identity, as `loss_across`."""
+    return _LossAcross.apply(x.contiguous(), group)
+
+
+def all_gather_pieces(jobs, group) -> None:
+    """For each (whole, piece, dim): every rank's piece of `whole` (the same
+    shape on each rank) written into its place along dim, rank r's at r *
+    piece.shape[dim], in flat buckets of one dtype (a collective: every
+    rank of `group` calls it with the same jobs)."""
+    for idx in buckets([piece for _, piece, _ in jobs]):
+        bucket = [jobs[i] for i in idx]
+        flat = torch.cat([piece.reshape(-1) for _, piece, _ in bucket])
+        parts = gather_rows(flat, group).split(flat.numel())
+        sizes = [piece.numel() for _, piece, _ in bucket]
+        for r, part in enumerate(parts):
+            for (whole, piece, d), got in zip(bucket, part.split(sizes)):
+                n = piece.shape[d]
+                whole.narrow(d, r * n, n).copy_(got.view(piece.shape))
 
 
 def group_size(group: Optional[object]) -> int:

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from wav2vec2forbrain_tpu_torch.bridge import unstack_encoder
+from wav2vec2forbrain_tpu_torch.parallel.tensor import split_tree
 from wav2vec2forbrain_tpu_torch.train.msgpack_codec import read_msgpack, relistify, to_state_dict, write_msgpack
 from wav2vec2forbrain_tpu_torch.tree import tree_map
 
@@ -69,11 +70,13 @@ def load_checkpoint(path: str) -> Tuple[dict, dict]:
     return bundle["params"], bundle.get("state", {})
 
 
-def load_into(path: str, params: dict, state: dict) -> None:
+def load_into(path: str, params: dict, state: dict, tp=None) -> None:
     """Copy a checkpoint's params (and BN state, where it has one) into the
-    given trees in place."""
+    given trees in place. A file holds whole trees; with tp (a
+    parallel/tensor.py::TensorShard) params holds this rank's pieces, and
+    the file's are split to them."""
     loaded, loaded_state = load_checkpoint(path)
-    copy_into(params, loaded)
+    copy_into(params, split_tree(loaded, tp))
     if loaded_state:
         copy_into(state, loaded_state)
 

@@ -22,6 +22,11 @@
   `Zero1`, init keeps this rank's piece of each split moment leaf, and
   step updates this rank's piece of each split param (the whole of the
   others) and then all-gathers the pieces.
+- Tensor parallelism (parallel/tensor.py): the params, gradients and
+  moments are this rank's model-axis pieces, each updated element by
+  element as the whole; `global_norm` with the rank's TensorShard sums the
+  split leaves' squares over the model group and counts each whole leaf
+  once, so clipping and the logged norm are the whole tree's.
 
 The update is a loop over the leaves in PyTorch ops, in place on the
 params: no finished optimizer kernel (the JAX package runs it as XLA).
@@ -31,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.parallel.tensor import TensorShard, split_dims
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -81,19 +87,29 @@ def two_module_warmup_schedules(
     return LRSchedules(brain=module1_lr, w2v=module2_lr)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (f32 0-d tensor)."""
+def global_norm(grads, tp: Optional[TensorShard] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (f32 0-d tensor). With tp,
+    grads holds this rank's pieces of the model-split leaves: their squares
+    are summed over the model group, the whole leaves' added once."""
     leaves = tree_leaves(grads)
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    if tp is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    pairs = []
+    tree_map(lambda g, d: None if g is None else pairs.append((g, d)), grads, split_dims(grads))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    split_sq = sum((torch.sum(torch.square(g.float())) for g, d in pairs if d is not None), zero)
+    torch.distributed.all_reduce(split_sq, group=tp.group)
+    return torch.sqrt(split_sq + sum((torch.sum(torch.square(g.float())) for g, d in pairs if d is None), zero))
 
 
-def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None,
+                        tp: Optional[TensorShard] = None):
     """torch clip_grad_norm_ over the whole tree: coef = max_norm / (norm +
-    1e-6), clamped to 1. Returns (clipped grads, norm)."""
+    1e-6), clamped to 1. Returns (clipped grads, norm); tp as global_norm's."""
     if norm is None:
-        norm = global_norm(grads)
+        norm = global_norm(grads, tp)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: None if g is None else g * scale, grads), norm
 
@@ -130,15 +146,17 @@ class Optimizer:
         if self.kind == "sgd":
             return AdamState(0, None, None)
 
-        def zeros(p, label, dtype):
+        dims = self._model_dims(params)
+
+        def zeros(p, label, md, dtype):
             if label == "frozen":
                 return None
             if self.zero is not None:
-                p = self.zero.local(p)
+                p = self.zero.local(p, md)
             return torch.zeros_like(p, dtype=dtype or p.dtype)
 
-        mu = tree_map(lambda p, l: zeros(p, l, self.mu_dtype), params, self.labels)
-        nu = tree_map(lambda p, l: zeros(p, l, self.nu_dtype), params, self.labels)
+        mu = tree_map(lambda p, l, md: zeros(p, l, md, self.mu_dtype), params, self.labels, dims)
+        nu = tree_map(lambda p, l, md: zeros(p, l, md, self.nu_dtype), params, self.labels, dims)
         return AdamState(0, mu, nu)
 
     @torch.no_grad()
@@ -167,12 +185,12 @@ class Optimizer:
 
         zero = self.zero
 
-        def leaf(p, g, label, m, v):
+        def leaf(p, g, label, m, v, md):
             if label == "frozen":
                 return
             if zero is not None:  # this rank's piece (the whole leaf where it is not split)
-                p = zero.local(p)
-                g = None if g is None else zero.local(g)
+                p = zero.local(p, md)
+                g = None if g is None else zero.local(g, md)
             g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
             if self.weight_decay != 0.0:
                 g = g + self.weight_decay * p
@@ -182,10 +200,14 @@ class Optimizer:
             m.copy_(m32)
             v.copy_(v32)
 
-        tree_map(leaf, params, grads, self.labels, state.mu, state.nu)
+        tree_map(leaf, params, grads, self.labels, state.mu, state.nu, self._model_dims(params))
         if zero is not None:
             zero.gather_params(params, self.labels)
         return AdamState(count, state.mu, state.nu)
+
+    def _model_dims(self, params):
+        """Each leaf's model-axis dim, which ZeRO-1's data-axis split skips."""
+        return tree_map(lambda _: None, params) if self.zero is None else self.zero.model_dims(params)
 
     def _moments(self, g, m, v):
         if self.nu_dtype is None:

@@ -29,6 +29,12 @@ all-reduce is also what the JAX package's kernel partitioning
 (parallel/kernel_partition.py) adds: every kernel runs on the rank's local
 rows, and the batch-summed weight gradients (the GRU's dW, preproc's per-day
 dW, conv_glu's dK) are summed over the ranks with the rest.
+
+Tensor parallelism (`shard.model`, parallel/tensor.py): the params are this
+rank's pieces, the rows those of its data index, and every collective
+above runs over the data group (`shard.group`); the encoder's blocks
+reduce over the model group themselves. The gradient norm sums the split
+leaves' squares over the model group (train/optim.py::global_norm).
 """
 
 from typing import Any, NamedTuple, Optional
@@ -66,6 +72,7 @@ def build_eval_step(spec: ModelSpec, shard=None):
     tensors on the params' device. With a shard: the loss and the metrics
     are the global batch's, the rest this rank's rows'."""
     group = None if shard is None else shard.group
+    tp = None if shard is None else shard.model
 
     def eval_step(params, state, batch, mask_total=None):
         with torch.inference_mode():
@@ -82,6 +89,7 @@ def build_eval_step(spec: ModelSpec, shard=None):
                 sample_mask=batch.sample_mask,
                 mask_total=mask_total,
                 group=group,
+                tp=tp,
             )
             loss = out["loss"]
             if loss is None:
@@ -102,6 +110,7 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig, shard=None):
     on. With a shard, mask_total (the global batch's sample_mask sum, or its
     row count) is required."""
     clip = step_cfg.gradient_clipping
+    tp = None if shard is None else shard.model
 
     def grad_fn(params, model_state, batch, rng: StepRng, mask_total=None):
         global_b = batch.input.shape[0]
@@ -125,19 +134,19 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig, shard=None):
         out = forward_with_loss(
             params, model_state, spec, x, batch.day_idxs, batch.input_lens,
             batch.target, batch.target_lens, rng=fwd_rng, train=True,
-            sample_mask=batch.sample_mask, mask_total=mask_total, group=group,
+            sample_mask=batch.sample_mask, mask_total=mask_total, group=group, tp=tp,
         )
         leaves = [p for p in tree_leaves(params) if p.requires_grad]
         found = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
-        if shard is not None:  # the same leaves on every rank: LayerDrop's decisions are shared
+        if shard is not None and shard.size > 1:  # the same leaves on every rank: LayerDrop's decisions are shared
             distributed.all_reduce_tensors([g for g in found if g is not None], group)
         by_id = {id(p): g for p, g in zip(leaves, found)}
         grads = tree_map(lambda p: by_id.get(id(p)), params)
         if clip is not None:
-            grads, norm = clip_by_global_norm(grads, clip)
+            grads, norm = clip_by_global_norm(grads, clip, tp=tp)
             grads = tree_map(lambda g, label: None if label == "frozen" else g, grads, labels)
         else:
-            norm = global_norm(grads)
+            norm = global_norm(grads, tp)
         return out, grads, norm
 
     return grad_fn

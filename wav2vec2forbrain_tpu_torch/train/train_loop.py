@@ -34,6 +34,14 @@ best-model decisions. Rank 0 alone writes files (the best model, the train
 state, whose ZeRO-1 moments are gathered first so the file keeps the whole
 layout), each write followed by a barrier; every rank reads back.
 
+Tensor parallelism (parallel/tensor.py): the params and the moments are
+this rank's model-axis pieces. Every file holds the whole tree: the ranks
+gather the pieces over the model group (and the moments first over the
+data group, under ZeRO-1) before rank 0 writes, and every reader splits
+the whole tree again, so a file written at one (dp, mp) reads at any
+other. The gathered outputs are the data group's rows: the ranks of a
+model group hold the same ones.
+
 An epoch the JAX package runs in K-step chunks (K =
 experiment.resolve_multi_step_chunk() >= 2, batches at the split's widths)
 visits its batches in the chunks' order (`_epoch_batches`,
@@ -59,6 +67,7 @@ from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.parallel.mesh import padded_rows
+from wav2vec2forbrain_tpu_torch.parallel.tensor import gather_tree, split_tree
 from wav2vec2forbrain_tpu_torch.train.buckets import chunk_order, width_for
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_tree, to_cpu
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
@@ -187,6 +196,7 @@ class Trainer:
 
         self.step_timer = StepTimer()
         self.shard = experiment.shard
+        self.tp = None if self.shard is None else self.shard.model  # parallel/tensor.py::TensorShard
         self.zero = experiment.optimizer.zero
         self.chunk_k = experiment.resolve_multi_step_chunk()
 
@@ -343,11 +353,12 @@ class Trainer:
         mu, nu = opt.mu, opt.nu
         if self.zero is not None and mu is not None:
             mu, nu = self.zero.full_moments(mu, self.params), self.zero.full_moments(nu, self.params)
+        params, mu, nu = (gather_tree(t, self.tp) for t in (self.params, mu, nu))
         if not distributed.is_coordinator():
             distributed.barrier("train state written")
             return
         bundle = {
-            "params": to_cpu(self.params),
+            "params": to_cpu(params),
             "state": to_cpu(self.model_state),
             "opt": {"count": int(opt.count), "mu": to_cpu(mu), "nu": to_cpu(nu)},
             "rng": {"host": self.rng._host.get_state(), "device": self.rng._device.get_state()},
@@ -382,11 +393,11 @@ class Trainer:
                   f"RNG and the loaders' shuffle streams start from --seed={self.config.seed} as a fresh run's")
         else:
             bundle = load_tree(path)
-        copy_into(self.params, bundle["params"])
+        copy_into(self.params, split_tree(bundle["params"], self.tp))
         copy_into(self.model_state, bundle["state"])
         opt = bundle["opt"]
         if self.opt_state.mu is not None:
-            mu, nu = opt["mu"], opt["nu"]
+            mu, nu = (split_tree(opt[k], self.tp) for k in ("mu", "nu"))
             if self.zero is not None:  # the file's whole moments -> this rank's pieces
                 mu, nu = self.zero.shard_moments(mu), self.zero.shard_moments(nu)
             copy_into(self.opt_state.mu, mu)
@@ -405,12 +416,13 @@ class Trainer:
         return int(bundle["epoch"]) + 1, history
 
     def _save_model(self, path: str):
+        params = gather_tree(self.params, self.tp)
         if distributed.is_coordinator():
-            save_checkpoint(path, self.params, self.model_state)
+            save_checkpoint(path, params, self.model_state)
         distributed.barrier("model written")
 
     def _load_model(self, path: str):
-        load_into(path, self.params, self.model_state)
+        load_into(path, self.params, self.model_state, self.tp)
 
     # --- main loop ----------------------------------------------------------
 

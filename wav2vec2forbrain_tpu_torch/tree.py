@@ -28,3 +28,13 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, *rest, path: str = ""):
+    """fn(path, leaf, *matching leaves of rest) over the leaves of tree, with
+    tree_leaves_with_path's paths (tuples come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, *(r[i] for r in rest), path=f"{path}/{i}") for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)
