@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (wav2vec2forbrain_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root; needs one card
-    python3 chip_smoke.py --phases 1,2,14   # only the listed phases (and those they read from)
+    python3 chip_smoke.py --phases 1,2,15   # only the listed phases (and those they read from)
 
 Phases, each of which exits nonzero on failure:
   0. device: CUDA with compute capability 9.0, else exit nonzero; prints the
@@ -204,8 +204,9 @@ Phases, each of which exits nonzero on failure:
      --batch_size=4 --device_data_cache=on --length_buckets=4
      --length_bucket_order=grouped (an epoch the JAX package runs in K-step
      chunks on a card): fails unless its train batches ran in the loader's
-     order stably sorted by bucket width (read from the collate calls) and
-     exactly the w2v training kernels launched; prints the order.
+     order stably sorted by bucket width (read from the batches the input
+     path hands out) and exactly the w2v training kernels launched; prints
+     the order.
  14. tensor parallelism (--mesh_model_parallel=2: parallel/tensor.py's
      Megatron split of the encoder's attention and FFN matmuls), the ranks on
      the one card (this script re-run with --tp-rank / --tp-cli-rank, joined
@@ -232,14 +233,39 @@ Phases, each of which exits nonzero on failure:
      at its own head0. Prints each rank's step seconds, its model-group
      all-reduce seconds (gloo through the host: no NCCL figure) and peak
      memory.
+ 15. the input path (train/device_cache.py, Trainer._stream_for), on
+     synthetic splits at phase 7's frame range (train 256, val 48, test 32)
+     at f32 compute (the CLI's), for the conformer (phase 7's flags, B32)
+     and w2v-base at the fft point (phase 8's, B64, biGRU 3 x 1024), each
+     built by the CLI's entry with --device_data_cache=auto (every split
+     resident): a. every batch of one train and one val epoch gathered
+     from its split's cache is bitwise Trainer._place's batch of the
+     collated batch, in every field, at the splits' widths and on a
+     --length_buckets=4 grid; b. after a warm-up epoch of each way on the
+     val split, one train epoch (Trainer._train_epoch) from the same
+     params, Adam and BN state, step RNG and shuffle stream, three ways in
+     turns, each twice (the second time under torch.profiler, CUDA
+     activity): resident, streamed with --host_prefetch and streamed
+     inline; each prints train samples/s, the host ms a step waits for its
+     batch, the epoch's seconds and the device's busy share (kernels and
+     copies of the profiled run of that way over the run's epoch seconds);
+     fails unless the six histories and final params are bitwise equal;
+     c. and the six runs' kernel launch counts equal (exactly the family's
+     training kernels); d. prints each split's resident bytes and upload
+     seconds, and the family's peak memory.
+Phases 7-9, 11b, 13 and 14c run the CLI with --device_data_cache=auto, so
+every split is resident (each rank of 14c holds a replica): they print the
+resident splits; the width checks of 7 (the LM decode run), 9 and 13b read
+the batches the Trainer's input path hands out (`recorded_batches`).
 --phases 1,2,14 runs only those phases (1 always; PHASE_NEEDS adds the
 phases a listed one reads); its kernels line has no times without phase 2.
 The counts are set to 0 just before each phase's timed run and read just
 after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the three CLI training
 runs, the LM decode run, the sweep, phase 10's runs a and b, both ranks
-of phase 11a, phase 12's three `auto` paths, phase 13's two runs and
-phase 14's ranks, by path in `launches_by_path`;
+of phase 11a, phase 12's three `auto` paths, phase 13's two runs, phase
+14's ranks and phase 15's first resident epoch of each family, by path in
+`launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
@@ -357,7 +383,8 @@ CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer",
              "conformer_dp": ("conformer", True), "w2v_analysis": ("w2v_brain", False),
              "conformer_analysis": ("conformer_brain", False), "audio_analysis": ("w2v_audio", False),
              "w2v_resumed": ("w2v", True), "w2v_grouped": ("w2v", True),
-             "conformer_tp": ("conformer", True), "w2v_tp": ("w2v", True), "conformer_tp_cli": ("conformer", True)}
+             "conformer_tp": ("conformer", True), "w2v_tp": ("w2v", True), "conformer_tp_cli": ("conformer", True),
+             "conformer_input": ("conformer", True), "w2v_input": ("w2v", True)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -402,7 +429,12 @@ TP_GRAD_ATOL = TP_GRAD_RTOL = 1e-4
 TP_CLI_TEST_LOSS_REL = 2e-4
 TP_TIMEOUT = 480  # seconds for a phase 14 group of ranks
 TP_MIN_SPLIT_TWICE = 72  # phase 14b: w2v-base's q, k, v, out, FFN up and down kernels, 12 layers (their mu)
-LAST_PHASE = 14
+# phase 15: phase 7's frame range; train 256 (2 sessions x 144 trials in 9 blocks; the first block is test, 32),
+# val 48 (2 x 24 in test/)
+INPUT_SPLITS = dict(n_trials=144, n_blocks=9, test_dir_n_trials=24)
+INPUT_WAYS = ("resident", "prefetch", "inline")
+INPUT_BUCKETS = 4
+LAST_PHASE = 15
 # --phases: the earlier phases whose results a phase reads (11b phase 7's test loss; 12 phase 7 and 8's models
 # and phase 10's snapshot; 13 phase 8's train state)
 PHASE_NEEDS = {11: {7}, 12: {7, 8, 10}, 13: {8}}
@@ -1318,6 +1350,7 @@ def cli_phase(device_name, power, family, test_losses, models):
     argv = CLI_FLAGS[family] + common
     print(f"  python -m wav2vec2forbrain_tpu_torch.run {' '.join(argv)}")
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     exp, wall = _cli_run(argv + [f"--results_subdir_name={family}_train"])
     launches = dict(kernels.LAUNCHES)
     results = exp.results_dir
@@ -1340,7 +1373,8 @@ def cli_phase(device_name, power, family, test_losses, models):
     n_train = len(exp.dataloader_train.dataset)
     print(f"  training run: {wall:.2f} s wall for 2 epochs of {n_train} samples (batches "
           f"{[len(b) for b in exp.dataloader_train.iter_index_batches()]}), train samples/s per epoch {sps}, "
-          f"batch widths (T, U) {exp.batch_widths}, on {device_name} ({power})")
+          f"batch widths (T, U) {exp.batch_widths}, resident splits {sorted(exp.get_device_caches())}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {device_name} ({power})")
     print(f"  epoch losses (train, val) {[round(x, 4) for x in losses]}; test loss {test_loss!r}, "
           f"WER {hist['test']['average']['metrics'].get('word_error_rate')}")
     print(f"  kernel launches in the CLI training run: {json.dumps(launches)}")
@@ -1421,26 +1455,51 @@ def write_arpa(sentences, path):
         f.write("\n".join(lines))
 
 
+class _RecordedStream:
+    """A Trainer epoch's batch stream that records each batch it hands out."""
+
+    def __init__(self, stream, trainer, split, seen):
+        self.stream, self.trainer, self.split, self.seen = stream, trainer, split, seen
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from wav2vec2forbrain_tpu_torch.util.seq import round_up
+
+        t = time.perf_counter()
+        batch, true_b, mask_total, host = item = next(self.stream)
+        host_s = time.perf_counter() - t
+        exp = self.trainer.experiment
+        longest = int(host.input_lens.max())
+        self.seen.append((self.split, batch.input.shape[1 + exp.time_axis],
+                          round_up(longest, exp.base_config.pad_to_multiple), longest, host_s))
+        return item
+
+    def close(self):
+        self.stream.close()
+
+
 @contextlib.contextmanager
-def recorded_widths():
-    """[(split, time width run, the collate's time width)] of every batch
-    Trainer._place puts on the card while the block runs."""
+def recorded_batches():
+    """[(split, time width run, the collate's time width, the longest trial,
+    host seconds the epoch waited for the batch)] of every batch the
+    Trainer's epochs and predictions take from their input path
+    (Trainer._stream_for: gathered on the card or collated and placed)
+    while the block runs."""
     from wav2vec2forbrain_tpu_torch.train import train_loop
 
-    place = train_loop.Trainer._place
+    stream_for = train_loop.Trainer._stream_for
     seen = []
 
-    def recording(self, batch, split):
-        out = place(self, batch, split)
-        axis = 1 + self.experiment.time_axis
-        seen.append((split, out[0].input.shape[axis], batch.input.shape[axis]))
-        return out
+    def recording(self, loader, split, grouped):
+        return _RecordedStream(stream_for(self, loader, split, grouped), self, split, seen)
 
-    train_loop.Trainer._place = recording
+    train_loop.Trainer._stream_for = recording
     try:
         yield seen
     finally:
-        train_loop.Trainer._place = place
+        train_loop.Trainer._stream_for = stream_for
 
 
 @contextlib.contextmanager
@@ -1476,8 +1535,9 @@ def lm_run(argv, model_path, device_name, power):
     flags = argv + ["--results_subdir_name=conformer_lm", *LM_FLAGS, f"--from_checkpoint={model_path}"]
     print(f"  python -m wav2vec2forbrain_tpu_torch.run ... {' '.join(flags[len(argv):])}")
     kernels.reset_launches()
-    with recorded_widths() as widths, timed_decodes() as decode_s:
+    with recorded_batches() as seen, timed_decodes() as decode_s:
         exp, wall = _cli_run(flags)
+    widths = [b[:3] for b in seen]
     launches = dict(kernels.LAUNCHES)
     with open(os.path.join(exp.results_dir, "test_predictions.json")) as f:
         pred = json.load(f)
@@ -1487,7 +1547,8 @@ def lm_run(argv, model_path, device_name, power):
     print(f"  LM decode run: {wall:.2f} s wall; LM order {order}; test loss {pred['average']['loss']!r}; "
           f"WER {metrics.get('word_error_rate')} CER {metrics.get('char_error_rate')}; "
           f"LM WER {lm_wer} CER {lm_cer}; on {device_name} ({power})")
-    print(f"  batch widths (split, run, collate): {widths}; length buckets {exp.t_buckets}")
+    print(f"  batch widths (split, run, collate): {widths}; length buckets {exp.t_buckets}; resident splits "
+          f"{sorted(exp.get_device_caches())}")
     print(f"  LM decode host seconds per test batch (beam {exp.base_config.lm_decode_beam_width}, "
           f"{len(pred['history'])} batches): {[round(x, 4) for x in decode_s]}")
     print(f"  kernel launches in the LM decode run: {json.dumps(launches)}")
@@ -1524,11 +1585,12 @@ def sweep_phase(work, device_name, power):
     print(f"  python -m wav2vec2forbrain_tpu_torch.sweep {' '.join(argv)}")
     points = []  # (wall, buckets, [(split, width run, collate width)], params on the card)
     kernels.reset_launches()
-    with recorded_widths() as widths:
+    with recorded_batches() as seen:
         def launch(flags):
-            start = len(widths)
+            start = len(seen)
             exp, wall = _cli_run(flags)
-            points.append((wall, exp.t_buckets, widths[start:], all(p.is_cuda for p in tree_leaves(exp.params))))
+            points.append((wall, exp.t_buckets, [b[:3] for b in seen[start:]],
+                           all(p.is_cuda for p in tree_leaves(exp.params))))
             return 0
 
         summary, best = sweep.main(argv, launch=launch)
@@ -2126,6 +2188,8 @@ def dp_cli_phase(work, device_name, power, ref):
         n_config = sum(json.loads(line)["_type"] == "run_config" for line in f)
     with open(os.path.join(results, "history.json")) as f:
         test_loss = json.load(f)["test"]["average"]["loss"]
+    resident = [line.strip() for line in proc.stdout.splitlines() if line.startswith("device_data_cache: resident")]
+    print(f"  the rank's input path: {resident or 'streamed (no resident split)'}")
     print(f"  torchrun (NCCL, 1 rank, ZeRO-1): {wall:.2f} s wall; test loss {test_loss!r} vs phase 7's {ref!r}: "
           f"bitwise equal {test_loss == ref}; run_config rows in metrics.jsonl: {n_config}; on {device_name} ({power})")
     if test_loss != ref or n_config != 1:
@@ -2402,7 +2466,7 @@ def tp_cli_rank(rank: int, port: str, work: str, out_path: str) -> None:
     undo()
     res = dict(results=exp.results_dir, wall_s=wall, launches=dict(kernels.LAUNCHES), offsets=sorted(offsets),
                model_all_reduce_s=seconds["model"], peak_gb=torch.cuda.max_memory_allocated() / 2**30,
-               model=exp.shard.model.rank)
+               model=exp.shard.model.rank, resident={s: c.nbytes for s, c in exp.get_device_caches().items()})
     dist.barrier()
     dist.destroy_process_group()
     with open(out_path, "w") as f:
@@ -2446,7 +2510,8 @@ def tp_cli_phase(work, device_name, power):
         _check_launches(res["launches"], "conformer", train=True)
         head0s = sorted({h for _, h in res["offsets"]})
         print(f"  rank {r} (model {res['model']}): {res['wall_s']:.2f} s wall, model-group all-reduces "
-              f"{res['model_all_reduce_s']:.2f} s, peak memory {res['peak_gb']:.2f} GiB; attention head0 {head0s}")
+              f"{res['model_all_reduce_s']:.2f} s, peak memory {res['peak_gb']:.2f} GiB; attention head0 {head0s}; "
+              f"resident splits (bytes) {res['resident']}")
         if head0s != [res["model"] * heads // TP_MODEL]:
             fail(f"phase 14c rank {r}: attention launched at head0 {head0s}")
     rel = abs(test_loss - ref_loss) / abs(ref_loss)
@@ -2634,20 +2699,19 @@ def _grouped_run(argv, device_name, power):
     state = loader.rng_state()
     loader_order = [max(lengths[i] for i in idxs) for idxs in loader.iter_index_batches()]
     loader.set_rng_state(state)
-    ran = []  # the longest trial of each train batch the epoch collates, in the order it runs them
-    collate = loader.collate_fn
-    loader.collate_fn = lambda samples: ran.append(max(s.input.shape[exp.time_axis] for s in samples)) or collate(samples)
     kernels.reset_launches()
     t = time.perf_counter()
-    exp.run()
+    with recorded_batches() as seen:
+        exp.run()
     wall = time.perf_counter() - t
     launches = dict(kernels.LAUNCHES)
+    ran = [longest for split, _, _, longest, _ in seen if split == "train"]  # in the order the epoch runs them
     widths = [width_for(buckets, n) for n in ran]
     stable = sorted(range(len(loader_order)), key=lambda i: width_for(buckets, loader_order[i]))
     ok = widths == sorted(widths) and ran == [loader_order[i] for i in stable] and len(set(widths)) >= 2
     print(f"  {' '.join(argv[-4:])}: {wall:.2f} s wall on {device_name} ({power}); {len(ran)} train batches at widths "
           f"{widths} (buckets {buckets}; the loader's order {[width_for(buckets, n) for n in loader_order]}), "
-          f"sorted stably: {ok}")
+          f"sorted stably: {ok}; resident splits {sorted(exp.get_device_caches())}")
     print(f"  kernel launches in the grouped run: {json.dumps(launches)}")
     _check_launches(launches, "w2v", train=True)
     if not ok:
@@ -2741,11 +2805,192 @@ def crossing_phase(work, results, device_name, power):
     return {"w2v_resumed": launches, "w2v_grouped": _grouped_run(grouped, device_name, power)}
 
 
+def _train_state(trainer):
+    """A copy of what a train epoch changes: params, Adam state, BN state, the
+    step RNG's generators and the train loader's shuffle stream."""
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    opt = trainer.opt_state
+    return dict(params=[t.detach().clone() for t in tree_leaves(trainer.params)],
+                mu=_clone(opt.mu), nu=_clone(opt.nu), count=opt.count, state=_clone(trainer.model_state),
+                rng=(trainer.rng._host.get_state(), trainer.rng._device.get_state()),
+                loader=trainer.dataloader_train.rng_state())
+
+
+def _restore_train_state(trainer, saved):
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.train.optim import AdamState
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    with torch.no_grad():
+        for t, v in zip(tree_leaves(trainer.params), saved["params"]):
+            t.copy_(v)
+        opt = trainer.opt_state
+        for tree, want in ((opt.mu, saved["mu"]), (opt.nu, saved["nu"])):
+            for t, v in zip(tree_leaves(tree), tree_leaves(want)):
+                t.copy_(v)
+    trainer.opt_state = AdamState(saved["count"], opt.mu, opt.nu)
+    trainer.model_state = _clone(saved["state"])
+    trainer.rng._host.set_state(saved["rng"][0])
+    trainer.rng._device.set_state(saved["rng"][1])
+    trainer.rng.forwards.clear()
+    trainer.dataloader_train.set_rng_state(saved["loader"])
+
+
+def _gathers_equal_place(trainer, caches, split):
+    """Phase 15a: every batch of one epoch of `split`, gathered from its
+    cache, against Trainer._place of the collated batch, bitwise in every
+    field. Returns (batches, the widths they ran at)."""
+    import torch
+
+    loader = {"train": trainer.dataloader_train, "val": trainer.dataloader_val}[split]
+    state = loader.rng_state()
+    index_batches = list(loader.iter_index_batches())
+    loader.set_rng_state(state)
+    widths = set()
+    for idxs in index_batches:
+        host = loader.collate_fn([loader.dataset[i] for i in idxs])
+        placed, true_b, mask_total = trainer._place(host, split)
+        got, got_b, got_total, _ = next(caches[split].stream([idxs], trainer.config.batch_size, trainer.shard))
+        fields = [name for name, a, b in zip(got._fields, got, placed) if a.dtype != b.dtype or not torch.equal(a, b)]
+        if fields or (got_b, got_total) != (true_b, mask_total):
+            fail(f"phase 15a: the {split} batch {idxs} gathered differs from _place's in {fields or 'its counts'}")
+        widths.add(got.input.shape[1 + trainer.experiment.time_axis])
+    return len(index_batches), sorted(widths)
+
+
+def _input_way_epoch(trainer, caches, way, profiled):
+    """One train epoch from the input path `way`; (history, launches, train
+    samples/s, host ms a step on the batch, epoch s, device busy s or None)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+
+    trainer.caches = caches if way == "resident" else {}
+    trainer.config.host_prefetch = way == "prefetch"
+    trainer.step_timer.reset()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    profiler = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if profiled
+                else contextlib.nullcontext())
+    with recorded_batches() as seen, profiler as prof:
+        hist = trainer._train_epoch(trainer.dataloader_train, 0)
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    timer = trainer.step_timer
+    host_ms = 1e3 * sum(b[4] for b in seen if b[0] == "train") / timer.steps
+    busy_s = None
+    if profiled:  # the raw trace: key_averages() takes tens of seconds over an epoch's kernels
+        cuda = torch.autograd.DeviceType.CUDA
+        busy_s = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda) / 1e9 or None
+    return hist.to_dict(), launches, timer.samples_per_sec, host_ms, timer.total_time, busy_s
+
+
+def input_path_phase(work, device_name, power):
+    """Phase 15 (in its own scratch dir under phase 7's); returns
+    {"<family>_input": launches of the first resident epoch}."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.args.argparsing import get_experiment_from_args
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_synthetic_splits_dir
+    from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
+    from wav2vec2forbrain_tpu_torch.train.train_loop import Trainer
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    os.makedirs(work)
+    make_synthetic_splits_dir(os.path.join(work, "t12"), seed=SEED + 15, min_frames=200, max_frames=700,
+                              **INPUT_SPLITS)
+    with open(os.path.join(work, "config.yaml"), "w") as f:
+        f.write(f"cache_dir: {work}/cache\nfig_dir: {work}/figs\nn3gram_lm_model_path: {work}/missing_3gram.arpa\n"
+                f"n5gram_lm_model_path: {work}/missing_5gram.arpa\ndataset_splits_dir: {work}/t12\n"
+                "wandb_api_key: offline\n")
+    cwd = os.getcwd()
+    os.chdir(work)
+    out = {}
+    try:
+        for family in ("conformer", "w2v"):
+            t_family = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            exp = get_experiment_from_args(CLI_FLAGS[family] + [
+                "--w2v_skip_loading_weights=true", "--epochs=1", f"--seed={SEED}", f"--results_subdir_name={family}"])
+            caches = exp.get_device_caches()
+            sizes = {split: len(loader.dataset) for split, loader in (
+                ("train", exp.dataloader_train), ("val", exp.dataloader_val), ("test", exp.dataloader_test))}
+            if sorted(caches) != ["test", "train", "val"] or sizes["train"] < 256:
+                fail(f"phase 15 {family}: resident splits {sorted(caches)} (want all three), split sizes {sizes}")
+            print(f"  {FAMILY_NAMES[family]}, batch {exp.base_config.batch_size}, f32 compute, splits {sizes}")
+            print("  (d) resident: " + "; ".join(
+                f"{split} {c.nbytes} bytes at (T, U) ({c.t_full}, {c.u_full}), uploaded in {c.upload_s:.4f} s"
+                for split, c in caches.items()) + f"; on {power}")
+            trainer = Trainer(exp)
+            # (a) the gather against _place, at the splits' widths and on a --length_buckets=4 grid
+            checked = {}
+            for label in ("split widths", f"--length_buckets={INPUT_BUCKETS}"):
+                if label != "split widths":
+                    grid = plan_buckets({s: c.input_lens for s, c in caches.items()},
+                                        {s: c.t_full for s, c in caches.items()}, INPUT_BUCKETS,
+                                        exp.base_config.pad_to_multiple)
+                    for split, c in caches.items():
+                        c.set_buckets(grid.get(split))
+                    exp.t_buckets = {split: c.buckets for split, c in caches.items() if c.buckets}
+                checked[label] = {split: _gathers_equal_place(trainer, caches, split) for split in ("train", "val")}
+            for c in caches.values():
+                c.set_buckets(None)
+            exp.t_buckets = {}
+            print(f"  (a) every gathered batch bitwise _place's (batches, widths): {checked}")
+            # (b) one train epoch three ways from the same state, in turns, each twice (the second time profiled)
+            for way in INPUT_WAYS:  # warm-up: each way once on the val split
+                trainer.caches = caches if way == "resident" else {}
+                trainer.config.host_prefetch = way == "prefetch"
+                trainer._train_epoch(exp.dataloader_val, 0, split="val")
+            saved = _train_state(trainer)
+            runs, final = [], None
+            for profiled in (False, True):
+                for way in INPUT_WAYS:
+                    _restore_train_state(trainer, saved)
+                    hist, launches, sps, host_ms, epoch_s, busy_s = _input_way_epoch(trainer, caches, way, profiled)
+                    params = tree_leaves(trainer.params)
+                    if final is None:
+                        final = [t.detach().clone() for t in params]
+                        out[f"{family}_input"] = launches
+                    same = all(torch.equal(a, b) for a, b in zip(params, final))
+                    runs.append(dict(way=way, profiled=profiled, hist=hist, launches=launches, sps=sps,
+                                     host_ms=host_ms, epoch_s=epoch_s, busy_s=busy_s, same_params=same))
+            busy = {r["way"]: r["busy_s"] for r in runs if r["profiled"]}
+            for r in runs:
+                b = busy[r["way"]]
+                share = "not measured" if b is None else f"{100 * b / r['epoch_s']:.1f}%"
+                print(f"  (b) {r['way']:8s} {'profiled' if r['profiled'] else 'plain   '}: {r['sps']:.2f} train "
+                      f"samples/s, {r['host_ms']:.3f} host ms a step on the batch, epoch {r['epoch_s']:.3f} s, device "
+                      f"busy {share}{'' if b is None else f' ({b:.3f} s of kernels and copies)'}; on {power}")
+            hist_same = all(r["hist"] == runs[0]["hist"] for r in runs)
+            launch_same = all(r["launches"] == runs[0]["launches"] for r in runs)
+            params_same = all(r["same_params"] for r in runs)
+            print(f"  (b) histories bitwise equal {hist_same}, final params bitwise equal {params_same}; (c) kernel "
+                  f"launches equal {launch_same}: {json.dumps(runs[0]['launches'])}")
+            _check_launches(runs[0]["launches"], family, train=True)
+            if not (hist_same and launch_same and params_same):
+                fail(f"phase 15 {family}: the three input paths differ (histories {hist_same}, params "
+                     f"{params_same}, launches {launch_same})")
+            print(f"  {family}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"{time.perf_counter() - t_family:.2f} s on {power}")
+            del exp, trainer, caches, saved, runs, final
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.2f} s on {device_name} ({power})")
+    return out
+
+
 def cli_phases(device_name, power, phases):
-    """Phases 7-14 (those in `phases`) in a scratch dir under build/
+    """Phases 7-15 (those in `phases`) in a scratch dir under build/
     (git-ignored), removed after; {path: launches} of the CLI training runs,
     the LM decode run, the sweep, phase 10's runs, phase 11a's ranks, phase
-    12's `auto` paths, phase 13's runs and phase 14's ranks."""
+    12's `auto` paths, phase 13's runs, phase 14's ranks and phase 15's
+    first resident epochs."""
     import shutil
 
     from scipy.io import loadmat
@@ -2805,6 +3050,10 @@ def cli_phases(device_name, power, phases):
             out["conformer_tp"] = tp_step_phase("a", device_name, power)
             out["w2v_tp"] = tp_step_phase("b", device_name, power)
             out["conformer_tp_cli"] = tp_cli_phase(work, device_name, power)
+        if 15 in phases:
+            print("[15] the input path: resident splits against _place, and train epochs resident, streamed with "
+                  "prefetch and streamed inline, for both families")
+            out.update(input_path_phase(os.path.join(work, "input_path"), device_name, power))
         return out
     finally:
         os.chdir(cwd)

@@ -69,7 +69,8 @@ def test_port_and_chip_smoke_import_without_jax_or_pydantic():
             "wav2vec2forbrain_tpu_torch.analysis.results_analysis",
             "wav2vec2forbrain_tpu_torch.analysis.raw_data_analysis",
             "wav2vec2forbrain_tpu_torch.train.jax_train_state", "wav2vec2forbrain_tpu_torch.ops.ctc",
-            "wav2vec2forbrain_tpu_torch.probe_determinism"} <= set(modules)
+            "wav2vec2forbrain_tpu_torch.probe_determinism",
+            "wav2vec2forbrain_tpu_torch.train.device_cache"} <= set(modules)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         BLOCKED = {BLOCKED!r}

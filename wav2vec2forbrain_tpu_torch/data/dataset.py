@@ -49,14 +49,14 @@ def process_label(label: str, remove_punctuation: bool) -> str:
     return _PUNCTUATION_RE.sub("", label) if remove_punctuation else label
 
 
-def dataset_width(dataset, tokenizer, pad_to_multiple: int = 1, target_pad_to_multiple: int = 1,
-                  wire_bytes: int = 4):
-    """(T, U, bytes, lengths) of a split's dataset-wide padding bucket, as
-    the JAX package's device data cache plans it (train/device_cache.py):
-    the longest sample's frames and the longest target's tokens, rounded up
-    to the multiples, the bytes such a cache would hold, and each sample's
-    frames (after resampling, as the collate's input_lens). None for an
-    empty split."""
+def split_pass(dataset, tokenizer, pad_to_multiple: int = 1, target_pad_to_multiple: int = 1):
+    """One host pass over a split's samples: (samples, lengths, T, targets),
+    the samples as __getitem__ gives them (resampled), each one's frames
+    (the collate's input_lens), the longest rounded up to pad_to_multiple,
+    and the (N, U) int32 token ids padded with the pad id to the longest
+    rounded up to target_pad_to_multiple. None for an empty split. Both
+    `dataset_width` and the device data cache's plan
+    (train/device_cache.py) read it."""
     n = len(dataset)
     if n == 0:
         return None
@@ -66,6 +66,23 @@ def dataset_width(dataset, tokenizer, pad_to_multiple: int = 1, target_pad_to_mu
     t_max = round_up(max(lengths), pad_to_multiple)
     ids = tokenizer([process_label(s.target, dataset.config.remove_punctuation) for s in samples]).input_ids
     u_max = round_up(ids.shape[1], target_pad_to_multiple)
+    if u_max > ids.shape[1]:
+        ids = np.pad(ids, ((0, 0), (0, u_max - ids.shape[1])), constant_values=tokenizer.pad_token_id)
+    return samples, lengths, t_max, ids.astype(np.int32)
+
+
+def dataset_width(dataset, tokenizer, pad_to_multiple: int = 1, target_pad_to_multiple: int = 1,
+                  wire_bytes: int = 4):
+    """(T, U, bytes, lengths) of a split's dataset-wide padding bucket, as
+    the device data cache plans it (train/device_cache.py): the longest
+    sample's frames and the longest target's tokens, rounded up to the
+    multiples, the bytes the cache holds, and each sample's frames (after
+    resampling, as the collate's input_lens). None for an empty split."""
+    split = split_pass(dataset, tokenizer, pad_to_multiple, target_pad_to_multiple)
+    if split is None:
+        return None
+    samples, lengths, t_max, ids = split
+    n, u_max = ids.shape
     per_frame = samples[0].input.size // lengths[0]
     return t_max, u_max, n * t_max * per_frame * wire_bytes + n * u_max * 4 + 3 * n * 4, lengths
 

@@ -28,18 +28,23 @@ What the port does differently, or not at all:
 - --use_pallas does not gate the hand-written kernels: they are the port's
   implementation on the card. --pallas_kernels selects them
   (ops/select.py); --pallas_kernels=none runs the plain versions.
-- --device_data_cache keeps its width rule without the residency
-  (`batch_widths`): "on" runs every batch of a split, predictions too, at
-  the split's dataset-wide (T, U) rounded to --pad_to_multiple /
-  --target_pad_to_multiple; "off" at the collate's width; "auto" is "on"
-  on the card when the splits fit --device_data_cache_max_bytes, "off"
-  elsewhere (the JAX rule on an accelerator and on the CPU). Under "on",
-  --length_buckets runs each batch at its bucket's width (`t_buckets`,
-  train/buckets.py); under "off" buckets change nothing, as in JAX.
+- The input path (train/device_cache.py, train/train_loop.py): under
+  --device_data_cache a split is uploaded once and each batch gathered on
+  the device (`get_device_caches`): "on" on the experiment's device (the
+  CPU too), "auto" on the card when the splits fit
+  --device_data_cache_max_bytes (the JAX rule on an accelerator; on the
+  CPU it streams), "off" streams. A resident split's batches run at its
+  dataset-wide (T, U) rounded to --pad_to_multiple /
+  --target_pad_to_multiple (`batch_widths`), with --length_buckets at
+  each batch's bucket (`t_buckets`, train/buckets.py); a streamed split
+  runs at the collate's width. Unlike the JAX package, an upload that
+  fails raises instead of streaming. --host_prefetch collates, pads and
+  copies a streamed split's next batch on a worker thread while the
+  current step runs.
 - --multi_step_chunk keeps no K-step chunks (an XLA dispatch saving), but
   it decides, with the JAX rule (`resolve_multi_step_chunk`: "auto" is 32
   on the card, 0 on the CPU), which epochs the JAX package would chunk: K
-  >= 2 and batches at the split's widths (--device_data_cache on). Such an
+  >= 2 and a resident split (--device_data_cache). Such an
   epoch visits its batches in the chunks' order (train/buckets.py::
   chunk_order): val and test epochs stably sorted by width (unless the LM
   decode needs their logits), train epochs so under
@@ -48,8 +53,7 @@ What the port does differently, or not at all:
   split (the JAX package runs it at the collate's): its loss is the
   training run's test loss. The two agree under --device_data_cache=off.
 - Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
-  --precompile_buckets, --host_prefetch; --multi_step_chunk as a speed
-  knob (above).
+  --precompile_buckets; --multi_step_chunk as a speed knob (above).
 - Data parallelism runs one process a rank under torchrun (`python -m
   torch.distributed.run --nproc_per_node=N -m wav2vec2forbrain_tpu_torch.run
   ...`; parallel/): the process group is joined before anything else (NCCL
@@ -88,7 +92,7 @@ from wav2vec2forbrain_tpu_torch.args.flags import (
     validate,
 )
 from wav2vec2forbrain_tpu_torch.args.yaml_config import YamlConfigModel
-from wav2vec2forbrain_tpu_torch.data.dataset import Brain2TextDataset, dataset_width, time_axis_of
+from wav2vec2forbrain_tpu_torch.data.dataset import Brain2TextDataset, time_axis_of
 from wav2vec2forbrain_tpu_torch.data.loader import Brain2TextBatchSampler, DataLoader
 from wav2vec2forbrain_tpu_torch.data.tokenizer import Wav2Vec2CTCTokenizer
 from wav2vec2forbrain_tpu_torch.models import pretrained
@@ -99,18 +103,18 @@ from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.parallel.mesh import make_mesh
 from wav2vec2forbrain_tpu_torch.parallel.tensor import check_divides, gather_tree, split_tree
 from wav2vec2forbrain_tpu_torch.parallel.zero import Zero1
-from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_checkpoint, load_into, save_checkpoint, save_subtree
+from wav2vec2forbrain_tpu_torch.train.device_cache import build_split_caches
 from wav2vec2forbrain_tpu_torch.train.evaluator import EvaluatorWithLMDecoder
 from wav2vec2forbrain_tpu_torch.train.history import TrainHistory
 from wav2vec2forbrain_tpu_torch.train.logger import make_logger
 from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, step_lr, two_module_warmup_schedules
 from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_eval_step, build_train_step
-from wav2vec2forbrain_tpu_torch.train.train_loop import WIRE_DTYPES, Trainer
+from wav2vec2forbrain_tpu_torch.train.train_loop import Trainer
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk", "host_prefetch")
+IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk")
 USE_PALLAS_NOTE = (
     "--use_pallas=false: the port's CUDA kernels are its implementation; "
     "use --pallas_kernels=none to run the plain versions"
@@ -162,6 +166,7 @@ class B2TGruW2VExperimentBase:
         self.dataloader_train = self._create_dataloader("train")
         self.dataloader_val = self._create_dataloader("val")
         self.dataloader_test = self._create_dataloader("test")
+        self._device_caches = None
         self.batch_widths, self.t_buckets, self.sample_lengths = self._resolve_batch_widths()
 
         subdir = [cfg.results_subdir_name] if cfg.results_subdir_name is not None else []
@@ -250,37 +255,36 @@ class B2TGruW2VExperimentBase:
         return DataLoader(ds, batch_size=cfg.batch_size, collate_fn=collate, shuffle=(split == "train"),
                           batch_sampler=sampler, seed=cfg.seed, length_key=length_key)
 
+    def get_device_caches(self) -> dict:
+        """{split: train/device_cache.py::DeviceDatasetCache} per
+        --device_data_cache, built once (at construction): "on" uploads
+        every split to the experiment's device (the CPU included), "auto"
+        to the card when the splits fit --device_data_cache_max_bytes (the
+        JAX rule on an accelerator; nothing on the CPU), "off" none. A
+        split without a cache streams (Trainer._place)."""
+        if self._device_caches is None:
+            cfg = self.base_config
+            mode = cfg.device_data_cache
+            if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
+                self._device_caches = {}
+            else:
+                loaders = {"train": self.dataloader_train, "val": self.dataloader_val, "test": self.dataloader_test}
+                self._device_caches = build_split_caches(
+                    loaders, self.tokenizer, cfg, self.device,
+                    max_bytes=cfg.device_data_cache_max_bytes if mode == "auto" else None)
+        return self._device_caches
+
     def _resolve_batch_widths(self):
-        """({split: (T, U)}, {split: T widths}, {split: sample lengths}): the
-        dataset-wide widths of the splits whose batches run at them
-        (--device_data_cache), their --length_buckets widths and each
-        sample's frames; ({}, {}, {}) where batches run at the collate's
-        width."""
-        cfg = self.base_config
-        mode = cfg.device_data_cache
-        if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
-            return {}, {}, {}
-        loaders = {"train": self.dataloader_train, "val": self.dataloader_val, "test": self.dataloader_test}
-        plans = {
-            split: dataset_width(loader.dataset, self.tokenizer, cfg.pad_to_multiple, cfg.target_pad_to_multiple,
-                                 WIRE_DTYPES[cfg.h2d_dtype].itemsize)
-            for split, loader in loaders.items()
-        }
-        plans = {split: p for split, p in plans.items() if p is not None}
-        total = sum(p[2] for p in plans.values())
-        if mode == "auto" and total > cfg.device_data_cache_max_bytes:
-            print(f"device_data_cache: {total / 1e6:.0f} MB exceeds the "
-                  f"{cfg.device_data_cache_max_bytes / 1e6:.0f} MB budget; batches at the collate's width")
-            return {}, {}, {}
-        widths = {split: p[:2] for split, p in plans.items()}
-        print(f"device_data_cache: batches at the dataset-wide (T, U): {widths}")
-        t_buckets = {}
-        lengths = {split: p[3] for split, p in plans.items()}
-        if cfg.length_buckets != "off":
-            t_buckets = plan_buckets(lengths, {split: w[0] for split, w in widths.items()}, cfg.length_buckets,
-                                     cfg.pad_to_multiple)
-            if t_buckets:
-                print(f"device_data_cache: length buckets (frames) {sorted({w for b in t_buckets.values() for w in b})}")
+        """({split: (T, U)}, {split: T widths}, {split: sample lengths}) of
+        the resident splits (get_device_caches): their dataset-wide widths,
+        their --length_buckets widths and each sample's frames. A streamed
+        split has none and runs at the collate's width. The resident gather
+        and the streamed Trainer._place read the same widths, so a batch is
+        the same either way."""
+        caches = self.get_device_caches()
+        widths = {split: (c.t_full, c.u_full) for split, c in caches.items()}
+        t_buckets = {split: c.buckets for split, c in caches.items() if c.buckets}
+        lengths = {split: c.input_lens.tolist() for split, c in caches.items()}
         return widths, t_buckets, lengths
 
     def resolve_multi_step_chunk(self) -> int:
@@ -493,9 +497,10 @@ class B2TGruW2VExperimentBase:
     def _predict(self, trainer, mode: Literal["train", "test"]):
         """Lag-1 pipelined prediction pass: batch i+1 is queued on the device
         before batch i's logits are fetched and decoded (the LM decode, where
-        it is on, runs on the evaluator's threads). Batches run at the width
-        the Trainer gives that split, so --only_test reproduces the test loss
-        of the run that stored the model."""
+        it is on, runs on the evaluator's threads). Batches come from the
+        Trainer's input path in the loader's order, at the width the Trainer
+        gives that split, so --only_test reproduces the test loss of the run
+        that stored the model."""
         dataloader = self.dataloader_train if mode == "train" else self.dataloader_test
         evaluator = self.create_evaluator("test" if mode == "test" else "train", True)
         n = len(dataloader)
@@ -518,12 +523,15 @@ class B2TGruW2VExperimentBase:
                 self.visualize_predictions(host_batch, preds, os.path.join(out_dir, f"batch_{i}.png"), i)
             print(f"Running predictions on {mode}. Batch {i + 1}/{n} done\r", end="")
 
-        for i, host_batch in enumerate(dataloader):
-            batch, true_b, mask_total = trainer._place(host_batch, mode)
-            outs = trainer.eval_step(trainer.params, trainer.model_state, batch, mask_total)
-            if pending is not None:
-                process(*pending)
-            pending = (outs, host_batch, true_b, i)
+        stream = trainer._stream_for(dataloader, mode, grouped=False)
+        try:
+            for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                outs = trainer.eval_step(trainer.params, trainer.model_state, batch, mask_total)
+                if pending is not None:
+                    process(*pending)
+                pending = (outs, host_batch, true_b, i)
+        finally:
+            stream.close()
         if pending is not None:
             process(*pending)
         result = evaluator.evaluate()

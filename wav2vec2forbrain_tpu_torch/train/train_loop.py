@@ -13,26 +13,41 @@
   train_state/state.msgpack (train/jax_train_state.py).
 
 Both are lag-1 pipelined: step i+1 is enqueued on the device before step
-i's outputs are fetched and decoded on the host. `Trainer._put` pads a
-ragged batch's rows up to --batch_size with masked duplicates of its last
-row (the loss and the metrics ignore them; in train mode the conformer's
-BatchNorm batch statistics see them, as in the JAX package), pads the time
-and target axes to the split's width under --device_data_cache (the
-experiment's `batch_widths`; with --length_buckets the time axis to the
-batch's bucket, `t_buckets`) and applies the --h2d_dtype host cast. Where
-the test evaluator decodes with an LM, each test batch's logits come to
-the host with its ids.
+i's outputs are fetched and decoded on the host. Where the test evaluator
+decodes with an LM, each test batch's logits come to the host with its ids.
+
+The input path (`Trainer._stream_for`): an epoch takes (device batch, true
+rows, mask_total, host batch) from one of two streams.
+- A resident split (--device_data_cache, train/device_cache.py) gathers
+  each batch on the device from an index row; the host batch the
+  evaluator reads has the true rows' targets and lengths, no features.
+- A streamed split collates each batch on the host and `_place`s it: the
+  rows padded up to --batch_size with masked duplicates of its last row
+  (the loss and the metrics ignore them; in train mode the conformer's
+  BatchNorm batch statistics see them, as in the JAX package), the time
+  and target axes padded to the split's width where the split has one
+  (the experiment's `batch_widths`, with --length_buckets the batch's
+  bucket, `t_buckets`), the --h2d_dtype cast on the host, and the copy.
+  With --host_prefetch a worker thread (`_HostPrefetcher`) does all of
+  that one step ahead; on a card it copies from pinned host memory on its
+  own CUDA stream, the step's stream waits on the copy's event, and the
+  batch's tensors are marked as used by the step's stream.
+Both give the same batches bitwise. Every epoch's stream is closed before
+the epoch returns, so a train-state checkpoint reads the loaders' shuffle
+streams after the worker has ended.
 
 Data parallelism (torchrun, parallel/): every rank loads the same global
-batch; `_place` pads its rows to --batch_size rounded up to the data axis
-(as the JAX Trainer._put), picks the width from the whole batch (the
-BatchNorm statistics count pad frames, so the ranks must agree), and keeps
-the rank's rows. The steps return the global loss and metrics; the ranks'
-predicted ids (and logits, where they are needed) are gathered, so every
-rank tracks the same history and takes the same early-stopping and
-best-model decisions. Rank 0 alone writes files (the best model, the train
-state, whose ZeRO-1 moments are gathered first so the file keeps the whole
-layout), each write followed by a barrier; every rank reads back.
+batch (or its index row); `_place` and the resident gather pad its rows to
+--batch_size rounded up to the data axis (as the JAX Trainer._put), pick
+the width from the whole batch (the BatchNorm statistics count pad frames,
+so the ranks must agree), and keep the rank's rows. Each rank holds a
+replica of the resident splits. The steps return the global loss and
+metrics; the ranks' predicted ids (and logits, where they are needed) are
+gathered, so every rank tracks the same history and takes the same
+early-stopping and best-model decisions. Rank 0 alone writes files (the
+best model, the train state, whose ZeRO-1 moments are gathered first so
+the file keeps the whole layout), each write followed by a barrier; every
+rank reads back.
 
 Tensor parallelism (parallel/tensor.py): the params and the moments are
 this rank's model-axis pieces. Every file holds the whole tree: the ranks
@@ -43,19 +58,21 @@ other. The gathered outputs are the data group's rows: the ranks of a
 model group hold the same ones.
 
 An epoch the JAX package runs in K-step chunks (K =
-experiment.resolve_multi_step_chunk() >= 2, batches at the split's widths)
-visits its batches in the chunks' order (`_epoch_batches`,
+experiment.resolve_multi_step_chunk() >= 2, a resident split) visits its
+batches in the chunks' order (`_epoch_index_batches`,
 train/buckets.py::chunk_order): sorted by width for val and test (unless
 the LM decode needs the logits) and for train epochs under
 --length_bucket_order=grouped. Each batch and each step is the same;
 only the order of the optimizer steps and of the per-batch history moves.
 
-Left out, being XLA- or TPU-only: the K-step chunks themselves, the bucket
-precompile and the host prefetch thread.
+Left out, being XLA- or TPU-only: the K-step chunks themselves and the
+bucket precompile.
 """
 
 import json
 import os
+import queue
+import threading
 import time
 from typing import Any, Iterable, Literal, NamedTuple
 
@@ -70,13 +87,12 @@ from wav2vec2forbrain_tpu_torch.parallel.mesh import padded_rows
 from wav2vec2forbrain_tpu_torch.parallel.tensor import gather_tree, split_tree
 from wav2vec2forbrain_tpu_torch.train.buckets import chunk_order, width_for
 from wav2vec2forbrain_tpu_torch.train.checkpoint import copy_into, load_into, load_tree, save_checkpoint, save_tree, to_cpu
+from wav2vec2forbrain_tpu_torch.train.device_cache import WIRE_DTYPES
 from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
 from wav2vec2forbrain_tpu_torch.train.history import EpochLosses, SingleEpochHistory, TrainHistory
 from wav2vec2forbrain_tpu_torch.train.jax_train_state import read_jax_train_state
 from wav2vec2forbrain_tpu_torch.train.optim import AdamState
 from wav2vec2forbrain_tpu_torch.util.profiling import StepTimer
-
-WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
 def train_state_file(path: str) -> str:
@@ -168,6 +184,105 @@ def pad_width(batch: B2tBatch, t: int, u: int, time_axis: int = 0, pad_id: int =
     return batch._replace(input=np.pad(x, widths), target=target)
 
 
+class _HostPrefetcher:
+    """Collate, pad and copy each batch one step ahead on a worker thread
+    (counterpart of the JAX Trainer's _HostPrefetcher): a queue of 2 (at
+    most two batches wait on the device), a stop flag, and a bounded put
+    that re-checks it, so a consumer that exits early never leaves the
+    worker blocked. `put(host_batch)` returns ((device batch, true rows,
+    mask_total), event): on a card the batch was copied on the worker's own
+    stream and `event` follows the copy; the consumer's stream waits on it,
+    and each tensor is marked as used by that stream, so the caching
+    allocator does not hand its memory out again before the step has read
+    it. A worker's exception is raised on the consumer side; `close()`,
+    which the epoch loops call however they end, stops and joins the
+    worker."""
+
+    _DONE = object()
+
+    def __init__(self, batches, put, device=None):
+        self._device = device
+        self._q = queue.Queue(maxsize=2)
+        self._err = None
+        self._stop = False
+        self._thread = threading.Thread(target=self._work, args=(batches, put), name="host-prefetch", daemon=True)
+        self._thread.start()
+
+    def _put_item(self, item) -> bool:
+        while not self._stop:
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _work(self, batches, put):
+        try:
+            for host_batch in batches:
+                if self._stop or not self._put_item((put(host_batch), host_batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 -- handed to the consumer, which raises it
+            self._err = e
+        finally:
+            self._put_item(self._DONE)
+
+    def close(self):
+        """Stop the worker, drop what it queued and join it (idempotent)."""
+        self._stop = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._DONE if self._stop else self._q.get()
+        if item is self._DONE:
+            self.close()
+            err, self._err = self._err, None
+            if err is not None:
+                raise err
+            raise StopIteration
+        ((batch, true_b, mask_total), event), host_batch = item
+        if event is not None:
+            current = torch.cuda.current_stream(self._device)
+            current.wait_event(event)
+            for t in batch:
+                if t is not None:
+                    t.record_stream(current)
+        return batch, true_b, mask_total, host_batch
+
+
+def _batch_stream(batches, place, prefetch: bool, device):
+    """(device batch, true rows, mask_total, host batch) for each host batch:
+    placed inline (`place(host_batch, None)`), or by a _HostPrefetcher one
+    step ahead, which on a card places each batch on a copy stream of its
+    own (`place(host_batch, stream)`)."""
+    if not prefetch:
+        def inline():
+            for host_batch in batches:
+                yield (*place(host_batch, None), host_batch)
+
+        return inline()
+    if device.type != "cuda":
+        return _HostPrefetcher(batches, lambda host_batch: (place(host_batch, None), None))
+    stream = torch.cuda.Stream(device)
+
+    def put(host_batch):
+        with torch.cuda.device(device):
+            placed = place(host_batch, stream)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return placed, event
+
+    return _HostPrefetcher(batches, put, device)
+
+
 class Trainer:
     shard = None  # parallel/mesh.py::DataShard under data parallelism
     zero = None  # parallel/zero.py::Zero1 under ZeRO-1
@@ -199,6 +314,7 @@ class Trainer:
         self.tp = None if self.shard is None else self.shard.model  # parallel/tensor.py::TensorShard
         self.zero = experiment.optimizer.zero
         self.chunk_k = experiment.resolve_multi_step_chunk()
+        self.caches = experiment.get_device_caches()  # {split: DeviceDatasetCache} of the resident splits
 
     # --- helpers ------------------------------------------------------------
 
@@ -206,10 +322,12 @@ class Trainer:
         """(padded device batch, true row count) for a host batch of `split`."""
         return self._place(batch, split)[:2]
 
-    def _place(self, batch: B2tBatch, split: str) -> tuple:
+    def _place(self, batch: B2tBatch, split: str, stream=None) -> tuple:
         """(device batch, true row count, mask_total): the host batch padded
         and widened; under data parallelism its rows of this rank, and the
-        global batch's "mean" denominator (None in one process)."""
+        global batch's "mean" denominator (None in one process). With a CUDA
+        `stream` (the prefetch worker's) the arrays go through pinned host
+        memory in asynchronous copies on that stream."""
         true_b = batch.input.shape[0]
         dp = 1 if self.shard is None else self.shard.size
         batch = pad_rows(batch, padded_rows(self.config.batch_size, true_b, dp))
@@ -227,23 +345,57 @@ class Trainer:
             mask_total = float(rows if batch.sample_mask is None else batch.sample_mask.sum())
             mine = self.shard.rows(rows)
             batch = B2tBatch(*(None if a is None else a[mine] for a in batch))
-        dev = to_device(batch._replace(input=None), self.device)
-        x = torch.from_numpy(np.ascontiguousarray(batch.input)).to(WIRE_DTYPES[self.config.h2d_dtype])
-        return dev._replace(input=x.to(self.device)), true_b, mask_total
+        wire = WIRE_DTYPES[self.config.h2d_dtype]
+        if stream is None:
+            dev = to_device(batch._replace(input=None), self.device)
+            x = torch.from_numpy(np.ascontiguousarray(batch.input)).to(wire)
+            return dev._replace(input=x.to(self.device)), true_b, mask_total
+        x = torch.empty(batch.input.shape, dtype=wire, pin_memory=True)
+        x.copy_(torch.from_numpy(np.ascontiguousarray(batch.input)))
+        pinned = [x] + [None if a is None else torch.from_numpy(np.asarray(a)).pin_memory() for a in batch[1:]]
+        with torch.cuda.stream(stream):
+            dev = B2tBatch(*(None if a is None else a.to(self.device, non_blocking=True) for a in pinned))
+        return dev, true_b, mask_total
 
-    def _epoch_batches(self, loader, split: str, grouped: bool):
-        """The epoch's host batches: in the loader's order, or, where the
-        JAX package would chunk this epoch, in the chunks' order (the same
-        batches from the same shuffle stream; sorted by width where
-        `grouped`)."""
-        widths = self.experiment.batch_widths.get(split)
-        if self.chunk_k < 2 or widths is None:
-            return loader
+    def _chunked(self, split: str) -> bool:
+        """Whether the JAX package would run this split's epochs in K-step
+        chunks (K >= 2 and the split resident)."""
+        return self.chunk_k >= 2 and split in self.experiment.batch_widths
+
+    def _epoch_index_batches(self, loader, split: str, grouped: bool):
+        """The epoch's index batches in the order it visits them: the
+        loader's, or, where the JAX package would chunk this epoch, the
+        chunks' (sorted by width where `grouped`)."""
+        if not self._chunked(split):
+            return loader.iter_index_batches()
         index_batches = list(loader.iter_index_batches())
         buckets = self.experiment.t_buckets.get(split)
         lengths = self.experiment.sample_lengths[split]
+        widths = self.experiment.batch_widths[split]
         t = [width_for(buckets, max(lengths[i] for i in idxs)) if buckets else widths[0] for idxs in index_batches]
-        return (loader.collate_fn([loader.dataset[i] for i in index_batches[j]]) for j in chunk_order(t, grouped))
+        return [index_batches[j] for j in chunk_order(t, grouped)]
+
+    def _epoch_batches(self, loader, split: str, grouped: bool):
+        """The epoch's host batches, collated in `_epoch_index_batches`'
+        order (the loader itself where that is the loader's order)."""
+        if not self._chunked(split):
+            return loader
+        return (loader.collate_fn([loader.dataset[i] for i in idxs])
+                for idxs in self._epoch_index_batches(loader, split, grouped))
+
+    def _stream_for(self, loader, split: str, grouped: bool):
+        """(device batch, true rows, mask_total, host batch) for each batch
+        of an epoch of `split`, in `_epoch_index_batches`' order: gathered
+        on the device where the split is resident (train/device_cache.py;
+        the host batch then has no features), else collated and placed by
+        `_place`, on the --host_prefetch worker one step ahead where it is
+        on. The caller closes the stream."""
+        cache = self.caches.get(split)
+        if cache is not None:
+            return cache.stream(self._epoch_index_batches(loader, split, grouped), self.config.batch_size, self.shard)
+        return _batch_stream(self._epoch_batches(loader, split, grouped),
+                             lambda host_batch, stream: self._place(host_batch, split, stream),
+                             self.config.host_prefetch, self.device)
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """A step output's rows of the global batch (every rank's, gathered)."""
@@ -281,18 +433,20 @@ class Trainer:
                 preds["metrics"] = {k: float(v) for k, v in out.metrics.items()}
             self._track(evaluator, preds, host_batch, i, n)
 
-        grouped = self.config.length_bucket_order == "grouped"
-        for i, host_batch in enumerate(self._epoch_batches(data_loader, split, grouped)):
-            batch, true_b, mask_total = self._place(host_batch, split)
-            out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr, w2v_lr,
-                                  mask_total)
-            self.opt_state = out.opt_state
-            self.model_state = out.model_state
-            self.rng.forwards.clear()  # the step's seed streams are spent
-            epoch_samples += true_b
-            if pending is not None:
-                process(*pending)
-            pending = (out, host_batch, true_b, i)
+        stream = self._stream_for(data_loader, split, self.config.length_bucket_order == "grouped")
+        try:
+            for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr,
+                                      w2v_lr, mask_total)
+                self.opt_state = out.opt_state
+                self.model_state = out.model_state
+                self.rng.forwards.clear()  # the step's seed streams are spent
+                epoch_samples += true_b
+                if pending is not None:
+                    process(*pending)
+                pending = (out, host_batch, true_b, i)
+        finally:
+            stream.close()  # the prefetch worker, if any, has ended
         if pending is not None:
             process(*pending)
         dt_epoch = time.perf_counter() - t_epoch
@@ -320,12 +474,15 @@ class Trainer:
                 preds["logits"] = self._rows(logits)[:true_b].cpu().numpy()
             self._track(evaluator, preds, host_batch, i, n)
 
-        for i, host_batch in enumerate(self._epoch_batches(dataloader, mode, not need_logits)):
-            batch, true_b, mask_total = self._place(host_batch, mode)
-            outs = self.eval_step(self.params, self.model_state, batch, mask_total)
-            if pending is not None:
-                process(*pending)
-            pending = (outs, host_batch, true_b, i)
+        stream = self._stream_for(dataloader, mode, not need_logits)
+        try:
+            for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                outs = self.eval_step(self.params, self.model_state, batch, mask_total)
+                if pending is not None:
+                    process(*pending)
+                pending = (outs, host_batch, true_b, i)
+        finally:
+            stream.close()
         if pending is not None:
             process(*pending)
         results = evaluator.evaluate()
