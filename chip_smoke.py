@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (wav2vec2forbrain_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root; needs one card
-    python3 chip_smoke.py --phases 1,2,15   # only the listed phases (and those they read from)
+    python3 chip_smoke.py --phases 1,2,16   # only the listed phases (and those they read from)
 
 Phases, each of which exits nonzero on failure:
   0. device: CUDA with compute capability 9.0, else exit nonzero; prints the
@@ -253,6 +253,35 @@ Phases, each of which exits nonzero on failure:
      c. and the six runs' kernel launch counts equal (exactly the family's
      training kernels); d. prints each split's resident bytes and upload
      seconds, and the family's peak memory.
+ 16. --remat_policy (models/remat.py), in phase 7's scratch dir. a. The
+     conformer at phase 15's shape (B32 x 700 frames: T' 168) at f32 compute,
+     built as phases 4 and 6 build it (profile_train.build_trainer), two
+     train steps under each policy from one set of params, Adam and BN
+     state, seed streams (LayerDrop replayed: layer DROPPED_LAYER dropped)
+     and batches, `none` first. b. The same for w2v-base at phase 6's point
+     (B64 x 384, bf16 compute) under none, min and blocks. Each prints the
+     second step's ms, the trainer's peak (params, Adam and BN state and
+     the batch, plus the step's own peak over what was allocated before it),
+     the bytes the first step's forward keeps (remat.counting: outside the
+     checkpointed regions, their inputs, the kept products) and the second
+     step's forward launches; fails unless every policy's losses, BN state,
+     gradients and updated params are `none`'s (bitwise, else within
+     REMAT_REL of each leaf's largest magnitude), the launches a step are
+     `none`'s plus, for each forward kernel a checkpointed layer runs, one
+     more a layer that ran (under all_but_wide conv_glu's alone), the kept
+     bytes and the peak are below `none`'s (for w2v-base the peak before
+     its pos-conv's backward, _peak_before_pos_conv_bwd; the step's is
+     printed). c. --remat_policy=auto's train steps
+     (train/steps.py::RematAuto) from 16a's state, streams and batches:
+     under a budget between none's footprint and blocks' the first step
+     runs none and the second blocks; with the card filled so that none's
+     step runs out of memory, the first step runs again under blocks;
+     either way none's steps (remat_auto_steps). Phases 7 and 8 check that
+     the CLI's auto, the default, stayed at none. d. Phase 7's
+     conformer CLI training run at --remat_policy=min: fails unless its
+     test loss is phase 7's (bitwise, or within TP_CLI_TEST_LOSS_REL with
+     the reason printed) and exactly the conformer's training kernels
+     launched.
 Phases 7-9, 11b, 13 and 14c run the CLI with --device_data_cache=auto, so
 every split is resident (each rank of 14c holds a replica): they print the
 resident splits; the width checks of 7 (the LM decode run), 9 and 13b read
@@ -264,13 +293,14 @@ after it. The second-to-last stdout line is the kernels JSON (one row per
 kernel; launches summed over the two training runs, the three CLI training
 runs, the LM decode run, the sweep, phase 10's runs a and b, both ranks
 of phase 11a, phase 12's three `auto` paths, phase 13's two runs, phase
-14's ranks and phase 15's first resident epoch of each family, by path in
-`launches_by_path`;
+14's ranks, phase 15's first resident epoch of each family and phase 16's
+second steps under min and its CLI run, by path in `launches_by_path`;
 `profiler_ms` and `library_profiler_ms` null unless the row's device_ms
 was starved), the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -376,7 +406,8 @@ SNAPSHOT_NOISE = 0.02  # added to the port's init (seeded), so every leaf is off
 # each CLI run's path: (the kernels it must launch, PATH_KERNELS' key; training or serving)
 # (phase 11a's two ranks: "conformer_dp"; phase 12's paths: "*_analysis")
 # (phase 8's second run: "w2v_cli_repeat"; phase 13's: "w2v_resumed", "w2v_grouped"; phase 14's ranks:
-# "conformer_tp", "w2v_tp", "conformer_tp_cli")
+# "conformer_tp", "w2v_tp", "conformer_tp_cli"; phase 16's second steps under min: "*_remat", its CLI run:
+# "conformer_remat_cli")
 CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer", False),
              "w2v_cli": ("w2v", True), "w2v_cli_repeat": ("w2v", True), "w2v_sweep": ("w2v_sweep", True),
              "w2v_frozen": ("w2v_sweep", True), "conformer_pretrained": ("conformer", False),
@@ -384,7 +415,9 @@ CLI_PATHS = {"conformer_cli": ("conformer", True), "conformer_lm": ("conformer",
              "conformer_analysis": ("conformer_brain", False), "audio_analysis": ("w2v_audio", False),
              "w2v_resumed": ("w2v", True), "w2v_grouped": ("w2v", True),
              "conformer_tp": ("conformer", True), "w2v_tp": ("w2v", True), "conformer_tp_cli": ("conformer", True),
-             "conformer_input": ("conformer", True), "w2v_input": ("w2v", True)}
+             "conformer_input": ("conformer", True), "w2v_input": ("w2v", True),
+             "conformer_remat": ("conformer", True), "w2v_remat": ("w2v", True),
+             "conformer_remat_cli": ("conformer", True)}
 # the configuration each row of the kernels JSON is timed at: a training run's
 ROW_LABELS = {
     "preproc": "B32 T384 sigma0.3 f32",
@@ -434,10 +467,21 @@ TP_MIN_SPLIT_TWICE = 72  # phase 14b: w2v-base's q, k, v, out, FFN up and down k
 INPUT_SPLITS = dict(n_trials=144, n_blocks=9, test_dir_n_trials=24)
 INPUT_WAYS = ("resident", "prefetch", "inline")
 INPUT_BUCKETS = 4
-LAST_PHASE = 15
+# phase 16: --remat_policy (models/remat.py). a: the conformer at phase 15's shape (B32, 700 frames: T' 168) at f32
+# compute under every policy; b: w2v-base at phase 6's point under these; the forward kernels a checkpointed layer
+# runs (each launches again in the recompute: a policy's count a step is `none`'s plus this many times the layers
+# that ran; under all_but_wide only the kernels of the layer's wide sections); a policy's step against `none`'s:
+# bitwise, else the largest leaf difference relative to the leaf's largest magnitude, at most REMAT_REL
+REMAT_FRAMES = 700
+REMAT_W2V_POLICIES = ("none", "min", "blocks")
+LAYER_FWD_KERNELS = {"conformer": {"attention": 1, "conv_glu": 1, "layernorm": 5},
+                     "w2v": {"attention": 1, "layernorm": 2}}
+WIDE_FWD_KERNELS = ("conv_glu",)
+REMAT_REL = 1e-6
+LAST_PHASE = 16
 # --phases: the earlier phases whose results a phase reads (11b phase 7's test loss; 12 phase 7 and 8's models
-# and phase 10's snapshot; 13 phase 8's train state)
-PHASE_NEEDS = {11: {7}, 12: {7, 8, 10}, 13: {8}}
+# and phase 10's snapshot; 13 phase 8's train state; 16 phase 7's test loss)
+PHASE_NEEDS = {11: {7}, 12: {7, 8, 10}, 13: {8}, 16: {7}}
 TP_HEADS_BATCH = 16  # phase 2's rows at head0: a batch of 16
 # phase 12: the audio clips (the first 6 s long: T' 299), the front end's seed in the snapshot, pre against
 # embed_brain (the same kernels on the same inputs, f32), post `auto` against `none` (PERF.md §2's f32 rule)
@@ -1379,6 +1423,11 @@ def cli_phase(device_name, power, family, test_losses, models):
           f"WER {hist['test']['average']['metrics'].get('word_error_rate')}")
     print(f"  kernel launches in the CLI training run: {json.dumps(launches)}")
     _check_launches(launches, family, train=True)
+    auto = exp.remat_auto  # --remat_policy=auto, the default: none fits this run's batches
+    print(f"  --remat_policy=auto: {None if auto is None else auto.policy} after the run, its watched batch shapes "
+          f"{None if auto is None else sorted(auto.fitted)}")
+    if auto is None or auto.policy != "none" or not auto.fitted:
+        fail(f"{family} CLI: --remat_policy=auto left none (or watched no step)")
     out = {f"{family}_cli": launches}
     if family == "w2v":  # the same run again: bitwise the first
         kernels.reset_launches()
@@ -1593,7 +1642,7 @@ def sweep_phase(work, device_name, power):
                            all(p.is_cuda for p in tree_leaves(exp.params))))
             return 0
 
-        summary, best = sweep.main(argv, launch=launch)
+        summary, best = sweep.main(argv, launch=sweep.in_process(launch))
     launches = dict(kernels.LAUNCHES)
     torch.cuda.empty_cache()
     with open(summary) as f:
@@ -1898,7 +1947,7 @@ def weights_phase(work, device_name, power):
             runs.append((flags, exp, wall))
             return 0
 
-        summary, _ = sweep.main(argv, launch=launch)
+        summary, _ = sweep.main(argv, launch=sweep.in_process(launch))
     frozen_launches = dict(kernels.LAUNCHES)
     with open(summary) as f:
         rows = [json.loads(line) for line in f]
@@ -2985,12 +3034,285 @@ def input_path_phase(work, device_name, power):
     return out
 
 
+def _largest_rel(a_leaves, b_leaves):
+    """The largest max-abs difference of two lists of tensors (None leaves
+    skipped), each relative to the second's largest magnitude: 0.0 where
+    every pair is bitwise equal."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(a_leaves, b_leaves):
+        if a is not None and not torch.equal(a, b):
+            worst = max(worst, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+    return worst
+
+
+@contextlib.contextmanager
+def _peak_before_pos_conv_bwd(marks):
+    """Append to `marks` the allocator's peak when the gradient of w2v's
+    pos-conv output is ready (every encoder layer's backward done, the
+    pos-conv's not begun); a no-op for the conformer, which has none.
+    w2v-base at phase 6's point peaks in that backward under every policy
+    (`profile_train --family w2v --memory`: convolution_backward adds 24.28
+    GiB over 3.59 live on an H100 80GB HBM3 at 700 W), so 16b holds the
+    peak before it to `none`'s and prints the step's."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models import wav2vec2
+
+    orig = wav2vec2.pos_conv_embed
+
+    def hooked(*args, **kwargs):
+        y = orig(*args, **kwargs)
+        if y.requires_grad:
+            y.register_hook(lambda g: marks.append(torch.cuda.max_memory_allocated()))
+        return y
+
+    wav2vec2.pos_conv_embed = hooked
+    try:
+        yield None
+    finally:
+        wav2vec2.pos_conv_embed = orig
+
+
+def remat_step_phase(dev, power, family, policies, frames, compute_dtype, auto=False):
+    """Phase 16a / 16b: two train steps of `family` under each policy from one
+    set of params, Adam and BN state, seed streams (a LayerDrop replay that
+    drops DROPPED_LAYER) and batches; then, with `auto`, phase 16c on the same
+    (remat_auto_steps). Returns the launches of the second step under `min`."""
+    import dataclasses
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.data.batch import to_device
+    from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
+    from wav2vec2forbrain_tpu_torch.models import remat
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
+    from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, STEP_CFG, W2V_LR, build_trainer
+    from wav2vec2forbrain_tpu_torch.train.optim import AdamState
+    from wav2vec2forbrain_tpu_torch.train.steps import build_grad_fn
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    select.set_kernel_policy("auto")
+    tr = build_trainer(dev, SEED, family, compute_dtype)
+    enc_cfg = tr.spec.w2v_cfg if tr.spec.encoder_family == "wav2vec2" else tr.spec.conformer_cfg
+    n_layers = enc_cfg.num_hidden_layers
+    ran = n_layers - 1  # the replay drops DROPPED_LAYER in both steps
+    batches = [to_device(b, dev) for b in make_requests(2, tr.batch_size, frames, SEED + 16)]
+    opt0 = AdamState(tr.opt_state.count, _clone(tr.opt_state.mu), _clone(tr.opt_state.nu))
+    print(f"  {FAMILY_NAMES[family]}, batch {tr.batch_size} x {frames} frames, {compute_dtype} compute, f32 stream, "
+          f"layer {DROPPED_LAYER} dropped; two steps a policy from one state")
+    ref, min_launches, step_peaks = None, None, {}
+    for policy in policies:
+        spec = dataclasses.replace(tr.spec, remat_policy=policy)
+        grad_fn = build_grad_fn(spec, tr.labels, STEP_CFG)
+        params, state = _clone(tr.params), _clone(tr.state)
+        opt = AdamState(opt0.count, _clone(opt0.mu), _clone(opt0.nu))
+        rng = _layerdrop_rng(SEED + 16, dev, n_layers, 2)
+        losses, grads_by_step, states = [], [], []
+        marks = []  # the allocator's peak when the pos-conv's output gradient is ready (w2v, the second step)
+        for step, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            if step == 1:
+                gc.collect()  # the earlier phases' host garbage is not this step's time
+                kernels.reset_launches()
+                before = torch.cuda.memory_allocated()
+                stats = torch.cuda.memory_stats()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+            with remat.counting() if step == 0 else _peak_before_pos_conv_bwd(marks) as saved:
+                out, grads, _ = grad_fn(params, state, batch, rng)
+            opt = tr.optimizer.step(params, grads, opt, BRAIN_LR, W2V_LR)  # the moments in place, the count anew
+            torch.cuda.synchronize()
+            if step == 0:
+                saved_bytes = saved
+            else:
+                step_ms = 1e3 * (time.perf_counter() - t)
+                launches = dict(kernels.LAUNCHES)
+                step_peak = torch.cuda.max_memory_allocated() - before
+                after = torch.cuda.memory_stats()
+                mallocs = {k: after.get(k, 0) - stats.get(k, 0) for k in ("segment.all.allocated", "num_alloc_retries")}
+            state = out["state"]
+            losses.append(out["loss"].detach())
+            grads_by_step.append(grads if ref is None else None)
+            if ref is not None:  # against `none`'s step, then drop this policy's gradients
+                grads_by_step[-1] = _largest_rel(tree_leaves(grads), tree_leaves(ref["grads"][step]))
+            states.append(state)
+            del out, grads
+        step_peaks[policy] = step_peak
+        resident = sum(t.numel() * t.element_size() for t in tree_leaves(params) + tree_leaves(opt.mu)
+                       + tree_leaves(opt.nu) + tree_leaves(state) + list(batches[1]) if t is not None)
+        peak = (resident + step_peak) / 2**30
+        # the peak remat governs: the step's, or w2v's before its pos-conv's backward (_peak_before_pos_conv_bwd)
+        governed = (resident + marks[-1] - before) / 2**30 if marks else peak
+        governed_text = f"before the pos-conv's backward {governed:.2f}" if marks else ""
+        row = dict(policy=policy, losses=losses, states=states, params=params, launches=launches, peak=peak,
+                   governed=governed, step_ms=step_ms, saved=saved_bytes)
+        if ref is None:
+            if policy != "none":
+                fail(f"phase 16 {family}: the first policy must be none, not {policy}")
+            ref = dict(row, grads=grads_by_step)
+            print(f"  none: step {step_ms:.1f} ms (cudaMalloc calls, allocator retries in it: {mallocs}), peak "
+                  f"{peak:.2f} GiB (resident {resident / 2**30:.2f} + the step's {step_peak / 2**30:.2f}"
+                  f"{'; ' + governed_text if governed_text else ''}), saved "
+                  f"{saved_bytes.total / 2**30:.3f} GiB; losses "
+                  f"{[float(x) for x in losses]}; launches a step {json.dumps(launches)} on {power}")
+            continue
+        loss_rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(losses, ref["losses"]))
+        state_rel = max(_largest_rel(tree_leaves(a), tree_leaves(b)) for a, b in zip(states, ref["states"]))
+        grad_rel = max(grads_by_step)
+        param_rel = _largest_rel(tree_leaves(params), tree_leaves(ref["params"]))
+        bitwise = loss_rel == state_rel == grad_rel == param_rel == 0.0
+        governed_ratio = f"; {governed_text}, {governed / ref['governed']:.3f}x" if governed_text else ""
+        recomputed = WIDE_FWD_KERNELS if policy == "all_but_wide" else tuple(LAYER_FWD_KERNELS[family])
+        want = {k: v + (ran * LAYER_FWD_KERNELS[family].get(k, 0) if k in recomputed else 0)
+                for k, v in ref["launches"].items()}
+        s = saved_bytes
+        print(f"  {policy}: step {step_ms:.1f} ms ({step_ms / ref['step_ms']:.3f}x none; {mallocs}), peak "
+              f"{peak:.2f} GiB ({peak / ref['peak']:.3f}x; the step's {step_peak / 2**30:.2f}{governed_ratio}), "
+              f"saved {s.total / 2**30:.3f} GiB "
+              f"(outside regions {s.saved / 2**30:.3f}, region inputs {s.inputs / 2**30:.3f}, kept products "
+              f"{s.kept / 2**30:.3f}); against none: bitwise {bitwise} (loss rel {loss_rel:.2e}, BN {state_rel:.2e}, "
+              f"gradients {grad_rel:.2e}, params {param_rel:.2e}); forward launches a step "
+              f"{ {k: launches[k] for k in LAYER_FWD_KERNELS[family]} } (none's "
+              f"{ {k: ref['launches'][k] for k in LAYER_FWD_KERNELS[family]} }) on {power}")
+        if max(loss_rel, state_rel, grad_rel, param_rel) > REMAT_REL:
+            fail(f"phase 16 {family} {policy}: the step differs from none's beyond {REMAT_REL}")
+        if launches != want:
+            fail(f"phase 16 {family} {policy}: launches a step {launches}, expected {want} (the recompute's)")
+        if not (s.total < ref["saved"].total and governed < ref["governed"]):
+            fail(f"phase 16 {family} {policy}: peak {governed:.2f} GiB / saved {s.total} bytes against none's "
+                 f"{ref['governed']:.2f} / {ref['saved'].total}")
+        if policy == "min":
+            min_launches = launches
+        del row, params, states
+    if auto:
+        print("  c. --remat_policy=auto's train steps (train/steps.py::RematAuto) on the same params, streams and "
+              "batches")
+        remat_auto_steps(dev, power, tr, batches, opt0, ref, step_peaks, n_layers)
+    del ref, tr, batches, opt0
+    torch.cuda.empty_cache()
+    return min_launches
+
+
+def remat_auto_steps(dev, power, tr, batches, opt0, ref, step_peaks, n_layers):
+    """Phase 16c: two train steps through build_train_step under a RematAuto
+    from 16a's params, Adam and BN state, streams and batches, the peak
+    counter reset where none, the first candidate, takes over. `halfway`
+    lies between the steps' own peaks under none and blocks (16a). a. At a
+    budget of what is allocated plus halfway, the first step runs none and
+    passes the budget, the second runs blocks. b. With the card filled (a
+    uint8 ballast) to leave halfway free, at a budget of its whole memory,
+    the first step runs out of memory under none and runs again under
+    blocks. Both fail unless the steps are `none`'s (bitwise, else within
+    REMAT_REL)."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, STEP_CFG, W2V_LR
+    from wav2vec2forbrain_tpu_torch.train.optim import AdamState
+    from wav2vec2forbrain_tpu_torch.train.steps import RematAuto, build_train_step
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+
+    class Logged(RematAuto):
+        def __init__(self, budget):
+            super().__init__(budget, dev)
+            self.log = []  # (policy, ran) of every watched step
+
+        def settle(self, batch, ran):
+            self.log.append((self.policy, ran))
+            return super().settle(batch, ran)
+
+    def run(fill):
+        params, state = _clone(tr.params), _clone(tr.state)
+        opt = AdamState(opt0.count, _clone(opt0.mu), _clone(opt0.nu))
+        rng = _layerdrop_rng(SEED + 16, dev, n_layers, 2)
+        ballast = None
+        if fill:
+            torch.cuda.empty_cache()
+            ballast = torch.empty(int(torch.cuda.mem_get_info(dev)[0] - halfway), dtype=torch.uint8, device=dev)
+            auto = Logged(torch.cuda.get_device_properties(dev).total_memory)
+        else:
+            auto = Logged(torch.cuda.memory_allocated() + halfway)
+        step = build_train_step(tr.spec, tr.labels, tr.optimizer, STEP_CFG, auto=auto)
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for batch in batches:
+            out = step(params, opt, state, batch, rng, BRAIN_LR, W2V_LR)
+            opt, state = out.opt_state, out.model_state
+            losses.append(out.loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rel = max(max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(losses, ref["losses"])),
+                  _largest_rel(tree_leaves(params), tree_leaves(ref["params"])))
+        del params, state, opt, out, ballast
+        torch.cuda.empty_cache()
+        return auto, rel, wall
+
+    halfway = (step_peaks["none"] + step_peaks["blocks"]) / 2  # between the steps' own peaks (16a)
+    print(f"  the steps' own peaks (16a): none {step_peaks['none'] / 2**30:.2f} GiB, blocks "
+          f"{step_peaks['blocks'] / 2**30:.2f} GiB; halfway {halfway / 2**30:.2f} GiB")
+    for fill in (False, True):
+        auto, rel, wall = run(fill)
+        how = "the card filled to leave halfway free" if fill else "what is allocated plus halfway"
+        print(f"  {'b' if fill else 'a'}. budget {auto.budget / 2**30:.2f} GiB ({how}): watched steps {auto.log}, "
+              f"policy after them {auto.policy}; "
+              f"against none's steps rel {rel:.2e}; two steps {wall:.2f} s on {power}")
+        want = [("none", False), ("blocks", True)] if fill else [("none", True), ("blocks", True)]
+        if auto.log != want or auto.policy != "blocks" or rel > REMAT_REL:
+            fail(f"phase 16c: auto watched {auto.log} and ended at {auto.policy} (want {want}, blocks), rel {rel:.2e}")
+
+
+def remat_phase(work, device_name, power, test_losses):
+    """Phase 16 (in phase 7's scratch dir); returns {path: launches} of 16a's
+    and 16b's second steps under min and of 16d's CLI run."""
+    import math
+
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models import remat
+    from wav2vec2forbrain_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    print("  a. the conformer at phase 15's shape, every policy")
+    out["conformer_remat"] = remat_step_phase(dev, power, "conformer", remat.POLICIES, REMAT_FRAMES, torch.float32,
+                                              auto=True)
+    print(f"  b. w2v-base at phase 6's point, {REMAT_W2V_POLICIES}")
+    out["w2v_remat"] = remat_step_phase(dev, power, "w2v", REMAT_W2V_POLICIES, 384, torch.bfloat16)
+
+    print("  d. phase 7's conformer CLI at --remat_policy=min")
+    kernels.reset_launches()
+    exp, wall = _cli_run(CLI_FLAGS["conformer"] + [
+        "--w2v_skip_loading_weights=true", "--epochs=2", "--checkpoint_every_n_epochs=1", f"--seed={SEED}",
+        "--remat_policy=min", "--results_subdir_name=conformer_remat"])
+    out["conformer_remat_cli"] = dict(kernels.LAUNCHES)
+    with open(os.path.join(exp.results_dir, "history.json")) as f:
+        test_loss = json.load(f)["test"]["average"]["loss"]
+    ref = test_losses["conformer"]
+    rel = abs(test_loss - ref) / abs(ref)
+    print(f"  the CLI at min: {wall:.2f} s wall, test loss {test_loss!r} vs phase 7's {ref!r}: bitwise "
+          f"{test_loss == ref}, rel {rel:.2e}; launches {json.dumps(out['conformer_remat_cli'])}")
+    _check_launches(out["conformer_remat_cli"], "conformer", train=True)
+    if not math.isfinite(test_loss) or rel > TP_CLI_TEST_LOSS_REL:
+        fail(f"phase 16d: the test loss at min {test_loss} is not phase 7's {ref} (rel {rel:.2e})")
+    if test_loss != ref:
+        print(f"  (not bitwise: within {TP_CLI_TEST_LOSS_REL:.0e}; a policy changes no product, so look for a "
+              f"kernel or library call that depends on its buffers' addresses)")
+    del exp
+    torch.cuda.empty_cache()
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.2f} s on {device_name} ({power})")
+    return out
+
+
 def cli_phases(device_name, power, phases):
-    """Phases 7-15 (those in `phases`) in a scratch dir under build/
+    """Phases 7-16 (those in `phases`) in a scratch dir under build/
     (git-ignored), removed after; {path: launches} of the CLI training runs,
     the LM decode run, the sweep, phase 10's runs, phase 11a's ranks, phase
-    12's `auto` paths, phase 13's runs, phase 14's ranks and phase 15's
-    first resident epochs."""
+    12's `auto` paths, phase 13's runs, phase 14's ranks, phase 15's first
+    resident epochs and phase 16's runs."""
     import shutil
 
     from scipy.io import loadmat
@@ -3054,6 +3376,10 @@ def cli_phases(device_name, power, phases):
             print("[15] the input path: resident splits against _place, and train epochs resident, streamed with "
                   "prefetch and streamed inline, for both families")
             out.update(input_path_phase(os.path.join(work, "input_path"), device_name, power))
+        if 16 in phases:
+            print("[16] --remat_policy: every policy's train step against none's (peak memory, step ms, saved "
+                  "bytes, the recompute's launches), auto's choice, the conformer CLI at min")
+            out.update(remat_phase(work, device_name, power, test_losses))
         return out
     finally:
         os.chdir(cwd)

@@ -160,6 +160,9 @@ def test_model_spec_from_args_matches(checkpoint_name):
     for f in dataclasses.fields(ModelSpec):
         if f.name in ("w2v_cfg", "conformer_cfg", "compute_dtype", "activation_dtype"):
             continue
+        if f.name == "remat_policy":  # JAX's acts on its scanned layer loop only: unscanned, nothing is remat'd
+            assert not ref.scan_layers and got.remat_policy == "none"
+            continue
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
 
 

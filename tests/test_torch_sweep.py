@@ -139,12 +139,9 @@ def test_a_grid_point_runs_in_process(env, monkeypatch, capsys):  # noqa: F811
     (work / "config.yaml").write_text("".join(f"{k}: {v}\n" for k, v in fields.items()))
     monkeypatch.chdir(work)
 
-    def launch(flags):
-        run.main(flags, device="cpu")
-        return 0
-
     summary, best = sweep.main([SCRATCH, "--max_runs", "1", "--extra", "--epochs=1", "--batch_size=3",
-                                "--encoder_gru_hidden_size=32", "--device_data_cache=off"], launch=launch)
+                                "--encoder_gru_hidden_size=32", "--device_data_cache=off"],
+                               launch=sweep.in_process(lambda flags: run.main(flags, device="cpu")))
     assert summary == str(work / "cache" / "sweep_results" / "b2p2t_gru+w2v__from_scratch" / "summary.jsonl")
     with open(summary) as f:
         rows = [json.loads(line) for line in f]
@@ -159,3 +156,66 @@ def test_a_grid_point_runs_in_process(env, monkeypatch, capsys):  # noqa: F811
         cfg = json.load(f)
     assert cfg["encoder_gru_hidden_size"] == 32 and cfg["epochs"] == 1 and cfg["w2v_skip_loading_weights"] is True
     assert "Best test_ctc_loss" in capsys.readouterr().out
+
+
+def _record_points(cache, values, commands):
+    """A launcher that records each command and writes what rank 0 of a
+    torchrun point writes: one results dir with its metrics.jsonl (the
+    other ranks write no file)."""
+
+    def launch(command):
+        d = cache / "experiment_results" / "b2p2t_gru+w2v" / f"run{len(commands)}"
+        os.makedirs(d)
+        (d / "metrics.jsonl").write_text(json.dumps({"_type": "run_config", "rank": 0}) + "\n"
+                                         + json.dumps({"test_ctc_loss": values[len(commands)]}) + "\n")
+        commands.append(command)
+        return 0
+
+    return launch
+
+
+def test_torchrun_command_at_two_ranks(tmp_path, capsys):
+    """--nproc_per_node 2: each point runs as two ranks under torchrun with
+    the one-process point's flags, and its metric is read from rank 0's
+    files."""
+    config, cache = _config_yaml(tmp_path)
+    one, two = [], []
+    sweep.main([SCRATCH, "--max_runs", "2", f"--config_yaml={config}"], launch=_record_points(cache, [2.0, 1.0], one))
+    (cache / "experiment_results").rename(tmp_path / "one_rank_results")
+    summary, best = sweep.main([SCRATCH, "--max_runs", "2", "--nproc_per_node", "2", f"--config_yaml={config}"],
+                               launch=_record_points(cache, [4.0, 3.0], two))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                "-m", "wav2vec2forbrain_tpu_torch.run"]
+    assert sweep.program(2) == torchrun
+    assert [c[: len(torchrun)] for c in two] == [torchrun, torchrun]
+    assert [c[len(torchrun):] for c in two] == [c[len(sweep.PROGRAM):] for c in one]
+    assert all("--nproc_per_node" not in " ".join(c[len(torchrun):]) for c in two)
+    with open(summary) as f:
+        rows = [json.loads(line) for line in f][-2:]
+    assert [r["test_ctc_loss"] for r in rows] == [4.0, 3.0] and best[0] == 3.0
+    assert rows[1]["results_dir"] == str(cache / "experiment_results" / "b2p2t_gru+w2v" / "run1")
+    assert " ".join(torchrun) in capsys.readouterr().out
+
+
+def test_one_rank_keeps_the_command(tmp_path):
+    """--nproc_per_node 1 (the default) launches exactly the one-process
+    command of a sweep without the option."""
+    config, cache = _config_yaml(tmp_path)
+    default, one = [], []
+    sweep.main([SCRATCH, "--max_runs", "3", f"--config_yaml={config}"],
+               launch=_record_points(cache, [1.0] * 3, default))
+    (cache / "experiment_results").rename(tmp_path / "default_results")
+    sweep.main([SCRATCH, "--max_runs", "3", "--nproc_per_node", "1", f"--config_yaml={config}"],
+               launch=_record_points(cache, [1.0] * 3, one))
+    assert one == default and all(c[: len(sweep.PROGRAM)] == sweep.PROGRAM for c in one)
+    assert sweep.PROGRAM == [sys.executable, "-m", "wav2vec2forbrain_tpu_torch.run"] == sweep.program(1)
+
+
+def test_in_process_launcher_refuses_torchrun(tmp_path):
+    seen = []
+    launch = sweep.in_process(seen.append)
+    assert launch(sweep.program(1) + ["--epochs=1"]) == 0 and seen == [["--epochs=1"]]
+    with pytest.raises(ValueError, match="one process"):
+        launch(sweep.program(2) + ["--epochs=1"])
+    with pytest.raises(ValueError, match="at least 1"):
+        sweep.program(0)

@@ -107,6 +107,28 @@ class B2TDatasetArgsModel:
 
 
 @dataclass
+class CTCTextDatasetArgsModel:
+    """Flags of the reference's synthetic CTC-text corruption dataset (ref:
+    src/args/base_args.py:34-48): no registered experiment reads them, in
+    the reference, the JAX package or the port; kept with the same names
+    and defaults."""
+
+    limit_samples: Optional[int] = None
+    train_ratio: float = 0.8
+    val_ratio: float = 0.1
+    test_ratio: float = 0.1
+    avg_num_blank_after_char: int = 6
+    insert_wrong_char_prob: float = 0.05
+    remove_char_prob: float = 0.05
+    noise_mean: float = -16
+    noise_std: float = 2
+    correct_as_second_prob: float = 0.2
+    random_second_id_in_blank_prob: float = 0.1
+    cache_generated_samples: bool = False
+    remove_punctuation: bool = True
+
+
+@dataclass
 class BaseExperimentArgsModel:
     batch_size: int = 16
     epochs: int = 10

@@ -52,8 +52,18 @@ What the port does differently, or not at all:
 - --only_test runs each test batch at the width the Trainer gives the
   split (the JAX package runs it at the collate's): its loss is the
   training run's test loss. The two agree under --device_data_cache=off.
-- Parsed and ignored (XLA- or TPU-only): --scan_layers, --remat_policy,
+- Parsed and ignored (XLA- or TPU-only): --scan_layers,
   --precompile_buckets; --multi_step_chunk as a speed knob (above).
+- --remat_policy checkpoints each train-mode encoder layer
+  (models/remat.py; the JAX package remats its scanned layer body). "auto"
+  (`_remat_auto`) resolves on the card in the train steps themselves
+  (train/steps.py::RematAuto): none runs until a step's forward and
+  backward peak over 0.90 of the card's memory or run out of it, and then
+  the next of blocks, dots_nowide, min ("none" first, as the port has no
+  scanned loop that forces a checkpoint); no step is added, so a run that
+  fits under none launches what a run at --remat_policy=none launches. On
+  the CPU "none" (the JAX package's unrolled loop is not rematerialised
+  either).
 - Data parallelism runs one process a rank under torchrun (`python -m
   torch.distributed.run --nproc_per_node=N -m wav2vec2forbrain_tpu_torch.run
   ...`; parallel/): the process group is joined before anything else (NCCL
@@ -80,7 +90,7 @@ import os
 import random
 import sys
 from datetime import datetime
-from typing import Literal
+from typing import Literal, Optional
 
 import numpy as np
 import torch
@@ -109,12 +119,15 @@ from wav2vec2forbrain_tpu_torch.train.evaluator import EvaluatorWithLMDecoder
 from wav2vec2forbrain_tpu_torch.train.history import TrainHistory
 from wav2vec2forbrain_tpu_torch.train.logger import make_logger
 from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, step_lr, two_module_warmup_schedules
-from wav2vec2forbrain_tpu_torch.train.steps import StepConfig, build_eval_step, build_train_step
+from wav2vec2forbrain_tpu_torch.train.steps import RematAuto, StepConfig, build_eval_step, build_train_step
 from wav2vec2forbrain_tpu_torch.train.train_loop import Trainer
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-IGNORED_FLAGS = ("scan_layers", "remat_policy", "precompile_buckets", "multi_step_chunk")
+IGNORED_FLAGS = ("scan_layers", "precompile_buckets", "multi_step_chunk")
+# --remat_policy=auto keeps a policy whose step fits this share of the card's memory (the JAX package's
+# _REMAT_HBM_MARGIN: the rest is left to the eval step and the allocator's slack)
+REMAT_MEMORY_SHARE = 0.90
 USE_PALLAS_NOTE = (
     "--use_pallas=false: the port's CUDA kernels are its implementation; "
     "use --pallas_kernels=none to run the plain versions"
@@ -322,6 +335,7 @@ class B2TGruW2VExperimentBase:
             ctc_loss_reduction=cfg.ctc_loss_reduction,
             compute_dtype=DTYPES[cfg.compute_dtype],
             activation_dtype=DTYPES[cfg.activation_dtype],
+            remat_policy="none" if cfg.remat_policy == "auto" else cfg.remat_policy,  # auto: see _remat_auto
         )
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.params, self.model_state = init_model_params(generator, self.spec, self.device)
@@ -359,9 +373,21 @@ class B2TGruW2VExperimentBase:
             zero=Zero1(self.shard) if cfg.optimizer_state_sharding == "zero1" and self.shard is not None else None,
         )
         self.opt_state = self.optimizer.init(self.params)
-        self.train_step = build_train_step(self.spec, self.labels, self.optimizer, self._step_cfg(), self.shard)
+        self.remat_auto = self._remat_auto() if cfg.remat_policy == "auto" else None
+        self.train_step = build_train_step(self.spec, self.labels, self.optimizer, self._step_cfg(), self.shard,
+                                           self.remat_auto)
         self.eval_step = build_eval_step(self.spec, self.shard)
         self.lr_schedules = self._make_lr_schedules()
+
+    def _remat_auto(self) -> Optional[RematAuto]:
+        """--remat_policy=auto: on the card the train steps' RematAuto at a
+        budget of REMAT_MEMORY_SHARE of its memory; on the CPU None, and
+        the steps run the spec's "none"."""
+        if self.device.type != "cuda":
+            print("remat_policy=auto: none (on the CPU: no card memory to budget)")
+            return None
+        return RematAuto(REMAT_MEMORY_SHARE * torch.cuda.get_device_properties(self.device).total_memory,
+                         self.device)
 
     def _make_lr_schedules(self) -> LRSchedules:
         cfg = self.base_config

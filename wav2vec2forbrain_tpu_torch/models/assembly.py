@@ -93,6 +93,9 @@ class ModelSpec:
     aux_head_vocab_size: Optional[int] = None
     additional_loss_weight: float = 1.0
     additional_loss_squared: bool = False
+    # what a train-mode encoder layer keeps for its backward (models/remat.py::POLICIES;
+    # --remat_policy=auto resolves to one of them before the model runs, experiments/impl.py)
+    remat_policy: str = "none"
 
     def __post_init__(self):
         if self.encoder_family == "conformer":
@@ -114,9 +117,11 @@ class ModelSpec:
         ctc_loss_reduction: str = "mean",
         compute_dtype: torch.dtype = torch.float32,
         activation_dtype: torch.dtype = torch.float32,
+        remat_policy: str = "none",
     ) -> "ModelSpec":
         """The spec of an experiment's flags (args/flags.py), as the JAX
-        ModelSpec.from_args builds it (without its scan / remat fields)."""
+        ModelSpec.from_args builds it (without its scan field; remat_policy
+        resolved, not "auto")."""
         return cls(
             unfolder_kernel_len=bfe_args.unfolder_kernel_len,
             unfolder_stride_len=bfe_args.unfolder_stride_len,
@@ -139,6 +144,7 @@ class ModelSpec:
             aux_head_vocab_size=getattr(bfe_args, "aux_head_vocab_size", None),
             additional_loss_weight=getattr(bfe_args, "additional_loss_weight", None) or 1.0,
             additional_loss_squared=bool(getattr(bfe_args, "additional_loss_squared", False)),
+            remat_policy=remat_policy,
         )
 
 
@@ -226,7 +232,8 @@ def forward(
     enc_stream = rng.enc if rng is not None else None
     head_stream = rng.head if rng is not None else None
     if spec.encoder_family == "wav2vec2":
-        hidden = apply_w2v_encoder(params["w2v"]["encoder"], enc_in, spec.w2v_cfg, train, cd, enc_stream, tp)
+        hidden = apply_w2v_encoder(params["w2v"]["encoder"], enc_in, spec.w2v_cfg, train, cd, enc_stream, tp,
+                                   spec.remat_policy)
         new_state = state
         logits = apply_lm_head(params["w2v"]["lm_head"], hidden, spec.w2v_cfg, cd, head_stream, train)
         # the extras' hidden states are the encoder's, before the final dropout
@@ -234,7 +241,7 @@ def forward(
         cfg = spec.conformer_cfg
         hidden, new_enc_state = apply_conformer_encoder(
             params["w2v"]["encoder"], state["encoder"], enc_in, cfg,
-            train=train, compute_dtype=cd, stream=enc_stream, tp=tp,
+            train=train, compute_dtype=cd, stream=enc_stream, tp=tp, remat_policy=spec.remat_policy,
         )
         # ForCTC head: final dropout + vocab projection; the extras' hidden
         # states are the dropped-out ones the head projects

@@ -31,21 +31,29 @@ global head ids, the activation dropout on its FFN columns at their global
 column ids, and every other site on whole tensors, as without tp.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.models import remat
 from wav2vec2forbrain_tpu_torch.models.activations import ACT2FN
 from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, init_linear, matmul_f32, uniform
 from wav2vec2forbrain_tpu_torch.models.seeds import CONFORMER_LAYER_SITES, SeedStream, sites_per_layer
-from wav2vec2forbrain_tpu_torch.models.wav2vec2 import _init_layer_norm, _layer_norm_routed, dropout_site, init_pos_conv
+from wav2vec2forbrain_tpu_torch.models.wav2vec2 import (
+    _init_layer_norm,
+    _layer_norm_routed,
+    dropout_site,
+    feed_forward,
+    init_pos_conv,
+)
 from wav2vec2forbrain_tpu_torch.ops.attention import attention
 from wav2vec2forbrain_tpu_torch.ops.conv_glu import depthwise_conv_same, glu_dwconv
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 from wav2vec2forbrain_tpu_torch.parallel import distributed
-from wav2vec2forbrain_tpu_torch.parallel.tensor import col0_of, enter, heads_of, row_linear
+from wav2vec2forbrain_tpu_torch.parallel.tensor import enter, heads_of, row_linear
 
 
 @dataclass
@@ -195,15 +203,6 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, num_hea
 # --- blocks -----------------------------------------------------------------------
 
 
-def conformer_feed_forward(p, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False, tp=None):
-    sd = x.dtype
-    y = apply_linear(p["intermediate_dense"], enter(x, tp), compute_dtype, out_dtype=sd)
-    y = ACT2FN[cfg.hidden_act](y)
-    y = dropout_site(stream, y, cfg.activation_dropout, train, col0_of(tp, y.shape[-1]))
-    y = row_linear(p["output_dense"], y, tp, compute_dtype, sd)
-    return dropout_site(stream, y, cfg.hidden_dropout, train)
-
-
 def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, compute_dtype, stream=None, train=False,
                              tp=None):
     heads = cfg.num_attention_heads
@@ -211,14 +210,16 @@ def conformer_self_attention(p, x, cfg: ConformerEncoderConfig, cos, sin, comput
     sd = x.dtype
     x = enter(x, tp)
     qk_states = _apply_rotary(x, cos, sin, heads)  # the whole hidden state, the global heads
-    q = apply_linear(p["linear_q"], qk_states, cd, out_dtype=sd)
-    k = apply_linear(p["linear_k"], qk_states, cd, out_dtype=sd)
-    v = apply_linear(p["linear_v"], x, cd, out_dtype=sd)
+    with remat.named("blk"):
+        q = apply_linear(p["linear_q"], qk_states, cd, out_dtype=sd)
+        k = apply_linear(p["linear_k"], qk_states, cd, out_dtype=sd)
+        v = apply_linear(p["linear_v"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
     seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
     local_heads, head0 = heads_of(tp, heads)
     ctx = attention(q, k, v, local_heads, cd, rate, seed, row0=row0, head0=head0)
-    return row_linear(p["linear_out"], ctx, tp, cd, sd)
+    with remat.named("blk"):
+        return row_linear(p["linear_out"], ctx, tp, cd, sd)
 
 
 def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConfig, train: bool = False,
@@ -258,11 +259,11 @@ def _batch_norm(p: dict, state: dict, x: torch.Tensor, cfg: ConformerEncoderConf
     return (y * p["scale"] + p["bias"]).to(x.dtype), new_state
 
 
-def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
-    """Returns (y, new_state) with new_state = {"batch_norm": ...}."""
-    cd = compute_dtype or x.dtype
-    sd = x.dtype
-    y = _layer_norm_routed(p["layer_norm"], x, cfg.layer_norm_eps)
+def _conv_wide(p, state, cfg: ConformerEncoderConfig, compute_dtype, train, stream, y):
+    """The conv module's wide section, from its first pointwise conv to the
+    activation after BatchNorm: (y, new BN state)."""
+    cd = compute_dtype or y.dtype
+    sd = y.dtype
     # pointwise conv1 (k=1, no bias) == dense to 2C, then GLU over channels
     y = matmul_f32(y.to(cd), p["pointwise_conv1"]["kernel"].to(cd)).to(sd)
     w_dw = p["depthwise_conv"]["kernel"][:, 0, :]  # (ks, C)
@@ -274,8 +275,18 @@ def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtyp
         y = depthwise_conv_same(y.to(cd), w_dw.to(cd)).to(cd).to(sd)
     group = stream.group if train else None
     y, new_bn = _batch_norm(p["batch_norm"], state["batch_norm"], y, cfg, train, group)
-    y = ACT2FN[cfg.hidden_act](y)
-    y = matmul_f32(y.to(cd), p["pointwise_conv2"]["kernel"].to(cd)).to(sd)
+    return ACT2FN[cfg.hidden_act](y), new_bn
+
+
+def conformer_conv_module(p, state, x, cfg: ConformerEncoderConfig, compute_dtype, stream=None, train=False):
+    """Returns (y, new_state) with new_state = {"batch_norm": ...}; the wide
+    section is checkpointed under the "all_but_wide" remat policy
+    (models/remat.py)."""
+    cd = compute_dtype or x.dtype
+    y = _layer_norm_routed(p["layer_norm"], x, cfg.layer_norm_eps)
+    y, new_bn = remat.wide(functools.partial(_conv_wide, p, state, cfg, compute_dtype, train), stream, 0, y)
+    with remat.named("blk"):
+        y = matmul_f32(y.to(cd), p["pointwise_conv2"]["kernel"].to(cd)).to(x.dtype)
     return dropout_site(stream, y, cfg.conformer_conv_dropout, train), {"batch_norm": new_bn}
 
 
@@ -285,7 +296,7 @@ def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_
     eps = cfg.layer_norm_eps
     residual = x
     y = _layer_norm_routed(p["ffn1_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train, tp)
+    y = feed_forward(p["ffn1"], y, cfg, compute_dtype, stream, train, tp)
     x = y * 0.5 + residual
 
     residual = x
@@ -300,7 +311,7 @@ def conformer_layer(p, state, x, cfg: ConformerEncoderConfig, cos, sin, compute_
 
     residual = x
     y = _layer_norm_routed(p["ffn2_layer_norm"], x, eps)
-    y = conformer_feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train, tp)
+    y = feed_forward(p["ffn2"], y, cfg, compute_dtype, stream, train, tp)
     x = y * 0.5 + residual
     return _layer_norm_routed(p["final_layer_norm"], x, eps), new_state
 
@@ -314,6 +325,7 @@ def apply_conformer_encoder(
     compute_dtype=None,
     stream: Optional[SeedStream] = None,
     tp=None,
+    remat_policy: str = "none",
 ) -> Tuple[torch.Tensor, dict]:
     """Full encoder. Returns (hidden (B, T, H), new_state). With tp (a
     parallel/tensor.py::TensorShard) the layers' params are this rank's
@@ -323,7 +335,8 @@ def apply_conformer_encoder(
     dropout's seed, then the LayerDrop decisions, then every layer's sites
     in order. A layer that LayerDrop skips is not computed, but it consumes
     its sites' seeds and keeps its BatchNorm state, as the JAX forward
-    computes it and where-masks both out."""
+    computes it and where-masks both out. In train mode each layer that runs
+    is checkpointed under remat_policy (models/remat.py)."""
     if train and stream is None:
         raise ValueError("apply_conformer_encoder: train mode needs a seed stream (models/seeds.py)")
     x = dropout_site(stream, x, cfg.hidden_dropout, train)
@@ -331,12 +344,18 @@ def apply_conformer_encoder(
     cos, sin = rotary_cos_sin(x.shape[1], head, cfg.rotary_embedding_base, x.device)
     n_layers = len(params["layers"])
     drop = stream.layerdrop_mask(n_layers, cfg.layerdrop) if train and cfg.layerdrop > 0.0 else [False] * n_layers
+    n_sites = sites_per_layer(cfg, CONFORMER_LAYER_SITES)
+    policy = remat_policy if train else "none"
+
+    def layer(s, p_layer, s_layer, x):
+        return conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, s, train, tp)
+
     new_states = []
     for p_layer, s_layer, dropped in zip(params["layers"], state["layers"], drop):
         if dropped:
-            stream.skip(sites_per_layer(cfg, CONFORMER_LAYER_SITES))
+            stream.skip(n_sites)
             new_states.append(s_layer)
             continue
-        x, new_s = conformer_layer(p_layer, s_layer, x, cfg, cos, sin, compute_dtype, stream, train, tp)
+        x, new_s = remat.checkpoint_layer(layer, policy, stream, n_sites, p_layer, s_layer, x)
         new_states.append(new_s)
     return _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps), {"layers": new_states}

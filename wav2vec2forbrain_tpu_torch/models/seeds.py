@@ -101,6 +101,16 @@ class SeedStream:
         for _ in range(n):
             self.seed()
 
+    def mark(self):
+        """Where the stream stands now; `rewind(mark)` goes back there."""
+        return None if self._gen is None else self._gen.get_state(), self.n_seeds, len(self.layerdrop_drawn)
+
+    def rewind(self, mark) -> None:
+        state, self.n_seeds, n_masks = mark
+        if state is not None:
+            self._gen.set_state(state)
+        del self.layerdrop_drawn[n_masks:]
+
     def layerdrop_mask(self, n: int, rate: float) -> List[bool]:
         """n decisions, True = skip the layer (u < rate, u ~ U[0, 1))."""
         if self._gen is not None:
@@ -166,6 +176,24 @@ class StepRng:
         fr.place(row0, group)
         self.forwards.append(fr)
         return fr
+
+    def mark(self):
+        """Where the source stands now, a replay's streams included;
+        `rewind(mark)` goes back there (a step run again draws what it drew
+        the first time)."""
+        replay = None if self._replay is None else [(fr, [s.mark() for s in fr]) for fr in self._replay]
+        return self._host.get_state(), self._device.get_state(), len(self.forwards), replay
+
+    def rewind(self, mark) -> None:
+        host, device, n_forwards, replay = mark
+        self._host.set_state(host)
+        self._device.set_state(device)
+        del self.forwards[n_forwards:]
+        if replay is not None:
+            for fr, marks in replay:
+                for stream, m in zip(fr, marks):
+                    stream.rewind(m)
+            self._replay = [fr for fr, _ in replay]
 
     def normal(self, shape, device, rows: Optional[slice] = None) -> torch.Tensor:
         """f32 N(0, 1) noise of `shape` on the device generator; with rows,

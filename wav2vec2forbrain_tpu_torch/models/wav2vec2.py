@@ -27,6 +27,7 @@ columns at their global column ids, every other site on whole tensors.
 """
 
 import contextlib
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -34,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from wav2vec2forbrain_tpu_torch.models import remat
 from wav2vec2forbrain_tpu_torch.models.activations import ACT2FN
 from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, init_linear, uniform
 from wav2vec2forbrain_tpu_torch.models.seeds import W2V_LAYER_SITES, SeedStream, sites_per_layer
@@ -41,7 +43,7 @@ from wav2vec2forbrain_tpu_torch.ops.attention import attention as mha
 from wav2vec2forbrain_tpu_torch.ops.hash_dropout import hash_dropout
 from wav2vec2forbrain_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
-from wav2vec2forbrain_tpu_torch.parallel.tensor import col0_of, enter, heads_of, row_linear
+from wav2vec2forbrain_tpu_torch.parallel.tensor import col0_of, enter, heads_of, row_finish, row_linear, row_product
 
 
 @dataclass
@@ -223,22 +225,36 @@ def self_attention(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None,
     sd = x.dtype
     scale = (x.shape[-1] // heads) ** -0.5  # the whole hidden size over the global heads
     x = enter(x, tp)
-    q = apply_linear(p["q_proj"], x, cd, out_dtype=sd) * scale
-    k = apply_linear(p["k_proj"], x, cd, out_dtype=sd)
-    v = apply_linear(p["v_proj"], x, cd, out_dtype=sd)
+    with remat.named("blk"):
+        q = apply_linear(p["q_proj"], x, cd, out_dtype=sd) * scale
+        k = apply_linear(p["k_proj"], x, cd, out_dtype=sd)
+        v = apply_linear(p["v_proj"], x, cd, out_dtype=sd)
     rate = cfg.attention_dropout if train else 0.0
     seed, row0 = (stream.seed(), stream.row0) if rate > 0.0 else (0, 0)
     local_heads, head0 = heads_of(tp, heads)
     ctx = mha(q, k, v, local_heads, cd, rate, seed, scale=1.0, row0=row0, head0=head0)
-    return row_linear(p["out_proj"], ctx, tp, cd, sd)
+    with remat.named("blk"):
+        return row_linear(p["out_proj"], ctx, tp, cd, sd)
 
 
-def feed_forward(p, x, cfg: Wav2Vec2EncoderConfig, compute_dtype, stream=None, train=False, tp=None):
-    sd = x.dtype
-    y = apply_linear(p["intermediate_dense"], enter(x, tp), compute_dtype, out_dtype=sd)
+def _ffn_wide(p, cfg, compute_dtype, train, tp, stream, x):
+    """The FFN's (B, T, intermediate) section: the up projection, the
+    activation and its dropout, then the down projection's f32 product (this
+    rank's partial sum under tp)."""
+    with remat.named("ffn_wide"):
+        y = apply_linear(p["intermediate_dense"], x, compute_dtype, out_dtype=x.dtype)
     y = ACT2FN[cfg.hidden_act](y)
     y = dropout_site(stream, y, cfg.activation_dropout, train, col0_of(tp, y.shape[-1]))
-    y = row_linear(p["output_dense"], y, tp, compute_dtype, sd)
+    with remat.named("blk"):
+        return row_product(p["output_dense"], y, compute_dtype)
+
+
+def feed_forward(p, x, cfg, compute_dtype, stream=None, train=False, tp=None):
+    """Both families' FFN (cfg: either encoder config); its wide section is
+    checkpointed under the "all_but_wide" remat policy (models/remat.py)."""
+    wide = functools.partial(_ffn_wide, p, cfg, compute_dtype, train, tp)
+    y = remat.wide(wide, stream, int(train and cfg.activation_dropout > 0.0), enter(x, tp))
+    y = row_finish(p["output_dense"], y, tp, x.dtype)
     return dropout_site(stream, y, cfg.hidden_dropout, train)
 
 
@@ -265,6 +281,7 @@ def apply_w2v_encoder(
     compute_dtype=None,
     stream: Optional[SeedStream] = None,
     tp=None,
+    remat_policy: str = "none",
 ) -> torch.Tensor:
     """Full encoder. x: (B, T, H) -> (B, T, H). With tp (a
     parallel/tensor.py::TensorShard) the layers' params are this rank's
@@ -273,7 +290,9 @@ def apply_w2v_encoder(
     Train mode needs `stream` (the forward's encoder stream): the input
     dropout's seed, then the LayerDrop decisions, then every layer's sites
     in order. A layer that LayerDrop skips is not computed, but it consumes
-    its sites' seeds, as the JAX forward computes it and where-masks it out."""
+    its sites' seeds, as the JAX forward computes it and where-masks it out.
+    In train mode each layer that runs is checkpointed under remat_policy
+    (models/remat.py)."""
     if train and stream is None:
         raise ValueError("apply_w2v_encoder: train mode needs a seed stream (models/seeds.py)")
     x = x + pos_conv_embed(params["pos_conv"], x, cfg)
@@ -282,11 +301,17 @@ def apply_w2v_encoder(
     x = dropout_site(stream, x, cfg.hidden_dropout, train)
     n_layers = len(params["layers"])
     drop = stream.layerdrop_mask(n_layers, cfg.layerdrop) if train and cfg.layerdrop > 0.0 else [False] * n_layers
+    n_sites = sites_per_layer(cfg, W2V_LAYER_SITES)
+    policy = remat_policy if train else "none"
+
+    def layer(s, p_layer, x):
+        return encoder_layer(p_layer, x, cfg, compute_dtype, s, train, tp)
+
     for p_layer, dropped in zip(params["layers"], drop):
         if dropped:
-            stream.skip(sites_per_layer(cfg, W2V_LAYER_SITES))
+            stream.skip(n_sites)
             continue
-        x = encoder_layer(p_layer, x, cfg, compute_dtype, stream, train, tp)
+        x = remat.checkpoint_layer(layer, policy, stream, n_sites, p_layer, x)
     if cfg.do_stable_layer_norm:
         x = _layer_norm_routed(params["layer_norm"], x, cfg.layer_norm_eps)
     return x

@@ -91,6 +91,17 @@ def broadcast_object(obj):
     return box[0]
 
 
+def any_across(flags: List[bool], device) -> List[bool]:
+    """Each flag OR-ed over every rank (a no-op in one process); the flags
+    travel in a tensor on `device`, which the backend must take (NCCL:
+    the card)."""
+    if world_size() == 1:
+        return list(flags)
+    t = torch.tensor([float(f) for f in flags], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [bool(v) for v in t.tolist()]
+
+
 def shared_uuid() -> str:
     """A uuid4 string, rank 0's on every rank: paths that rank 0 writes
     and every rank reads back (the best-model checkpoint)."""

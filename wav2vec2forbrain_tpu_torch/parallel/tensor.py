@@ -36,7 +36,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from wav2vec2forbrain_tpu_torch.models.fc import apply_linear, matmul_f32
+from wav2vec2forbrain_tpu_torch.models.fc import matmul_f32
 from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.tree import tree_map, tree_map_with_path
 
@@ -151,15 +151,25 @@ def enter(x: torch.Tensor, tp: Optional[TensorShard]) -> torch.Tensor:
     return x if tp is None else distributed.enter_split(x, tp.group)
 
 
-def row_linear(params: dict, x: torch.Tensor, tp: Optional[TensorShard], compute_dtype, out_dtype):
-    """A row-split linear (models/fc.py::apply_linear's dtype contract):
-    this rank's rows of the kernel times its columns of x, the f32 partial
-    products summed over the model group, then the whole bias added once
-    and the sum cast to out_dtype. The backward passes dY through to each
-    rank's partial product."""
-    if tp is None:
-        return apply_linear(params, x, compute_dtype, out_dtype)
+def row_product(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The f32 product of a row-split linear's kernel and x: under tensor
+    parallelism this rank's rows times its columns of x, a partial sum."""
     kernel = params["kernel"]
     cd = compute_dtype or torch.promote_types(x.dtype, kernel.dtype)
-    y = distributed.sum_partials(matmul_f32(x.to(cd), kernel.to(cd)), tp.group) + params["bias"]
-    return y.to(out_dtype)
+    return matmul_f32(x.to(cd), kernel.to(cd))
+
+
+def row_finish(params: dict, y: torch.Tensor, tp: Optional[TensorShard], out_dtype) -> torch.Tensor:
+    """A row-split linear after its product: the partial products summed
+    over the model group (the backward passes dY through to each rank's
+    partial product), then the whole bias added once and the sum cast to
+    out_dtype."""
+    if tp is not None:
+        y = distributed.sum_partials(y, tp.group)
+    return (y + params["bias"]).to(out_dtype)
+
+
+def row_linear(params: dict, x: torch.Tensor, tp: Optional[TensorShard], compute_dtype, out_dtype):
+    """A row-split linear (models/fc.py::apply_linear's dtype contract, which
+    it is without tp): row_product, then row_finish."""
+    return row_finish(params, row_product(params, x, compute_dtype), tp, out_dtype)

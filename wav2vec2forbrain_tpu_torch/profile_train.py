@@ -1,7 +1,7 @@
 """Device-time breakdown of a full-width train step on one CUDA card.
 
     python -m wav2vec2forbrain_tpu_torch.profile_train [--family conformer|w2v] [--policy auto|none|...]
-        [--compute-dtype bfloat16|float32] [--pos-conv deterministic|default]
+        [--compute-dtype bfloat16|float32] [--pos-conv deterministic|default] [--remat-policy none|min|...]
 
 --family conformer (default): `b2p2t_gru+w2v_conformer` at full width
 (conformer-rope-large: 24 layers, d=1024, 16 heads, FFN 4096, k=31; biGRU
@@ -22,7 +22,16 @@ time; one stream, so kernels do not overlap) and of the unprofiled one, and
 wall ms per step of both. --pos-conv default runs w2v-base's pos-conv as a
 plain F.conv1d, without cuDNN's deterministic flag
 (models/wav2vec2.py::DETERMINISTIC_POS_CONV): the cost of bitwise
-reproducible w2v-base training. Needs a CUDA card; it has no CPU path.
+reproducible w2v-base training. --remat-policy checkpoints each encoder
+layer under that policy (models/remat.py; default none): the recompute's
+kernels and products show in the breakdown. --memory prints, instead of
+the time breakdown, where one train step (after a warm-up step) reaches
+its peak allocation: every op the step dispatches (the backward's too)
+is logged with the bytes allocated before it and the allocator's peak
+after it, and the ops are listed by the peak they reached, each with
+the autograd node it ran in (none: the forward) and the bytes it
+allocated beyond what was live before it. Needs a CUDA card; it has no
+CPU path.
 """
 
 import argparse
@@ -31,10 +40,12 @@ import time
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from wav2vec2forbrain_tpu_torch.data.batch import to_device
 from wav2vec2forbrain_tpu_torch.data.synthetic import make_requests
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, init_model_params, param_labels
-from wav2vec2forbrain_tpu_torch.models import wav2vec2
+from wav2vec2forbrain_tpu_torch.models import remat, wav2vec2
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.models.wav2vec2 import Wav2Vec2EncoderConfig
 from wav2vec2forbrain_tpu_torch.ops import select
@@ -68,10 +79,12 @@ class Trainer(NamedTuple):
     batch_size: int
 
 
-def build_trainer(device, seed: int = 0, family: str = "conformer", compute_dtype=torch.bfloat16) -> Trainer:
+def build_trainer(device, seed: int = 0, family: str = "conformer", compute_dtype=torch.bfloat16,
+                  remat_policy: str = "none") -> Trainer:
     """The full-width training setup of `family` above, on `device`."""
     fields, weight_decay, batch_size = FAMILIES[family]
-    spec = ModelSpec(compute_dtype=compute_dtype, activation_dtype=torch.float32, **fields)
+    spec = ModelSpec(compute_dtype=compute_dtype, activation_dtype=torch.float32, remat_policy=remat_policy,
+                     **fields)
     params, state = init_model_params(torch.Generator(device=device).manual_seed(seed), spec, device)
     labels = param_labels(params, "brain_encoder+w2v")
     optimizer = make_optimizer(labels, "adam", weight_decay)
@@ -96,6 +109,49 @@ def _category(name: str) -> str:
     return "other elementwise, reductions, copies"
 
 
+class _OpMemory(TorchDispatchMode):
+    """Logs (op, autograd node or None, bytes allocated before the op, the
+    allocator's peak after it) for every op dispatched under it."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device, self.rows = device, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = torch.cuda.memory_allocated(self.device)
+        out = func(*args, **(kwargs or {}))
+        node = torch._C._current_autograd_node()
+        self.rows.append((str(func), None if node is None else node.name(), before,
+                          torch.cuda.max_memory_allocated(self.device)))
+        return out
+
+
+def memory_peak(tr: Trainer, batches, rng: StepRng, device, top: int) -> None:
+    """--memory: one warm-up step, then one step under _OpMemory; prints the
+    step's peak and the ops that reached the highest peaks."""
+    run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
+    batch = to_device(batches[1], device)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with _OpMemory(device) as log:
+        tr.train_step(tr.params, run.opt_state, run.model_state, batch, rng, BRAIN_LR, W2V_LR)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"peak {peak / 2**30:.3f} GiB, {resident / 2**30:.3f} GiB allocated before the step; "
+          f"{len(log.rows)} ops dispatched")
+    # an op that raised the peak: the first row at each new peak value
+    rises, high = [], resident
+    for i, (op, node, before, after) in enumerate(log.rows):
+        if after > high:
+            rises.append((after, i, op, node, before))
+            high = after
+    print(f"{'peak GiB':>9} {'live before':>11} {'op adds':>9} {'op #':>6}  op (autograd node)")
+    for after, i, op, node, before in sorted(rises, reverse=True)[:top]:
+        print(f"{after / 2**30:9.3f} {before / 2**30:11.3f} {(after - before) / 2**30:9.3f} {i:6d}  "
+              f"{op} ({node or 'forward'})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", default="conformer", choices=sorted(FAMILIES), help="model family (see above)")
@@ -104,6 +160,9 @@ def main(argv=None) -> None:
                     help="the model's compute dtype (the activation stream stays float32)")
     ap.add_argument("--pos-conv", default="deterministic", choices=("deterministic", "default"),
                     help="w2v-base's pos-conv with cuDNN's deterministic flag, or a plain F.conv1d")
+    ap.add_argument("--remat-policy", default="none", choices=remat.POLICIES,
+                    help="what each train-mode encoder layer keeps for its backward (models/remat.py)")
+    ap.add_argument("--memory", action="store_true", help="where the step's peak allocation is reached (above)")
     args = ap.parse_args(argv)
     wav2vec2.DETERMINISTIC_POS_CONV = args.pos_conv == "deterministic"
     top = 30
@@ -115,9 +174,15 @@ def main(argv=None) -> None:
     select.f32_products()
     dev = torch.device("cuda", 0)
     select.set_kernel_policy(args.policy)
-    tr = build_trainer(dev, family=args.family, compute_dtype=getattr(torch, args.compute_dtype))
+    tr = build_trainer(dev, family=args.family, compute_dtype=getattr(torch, args.compute_dtype),
+                       remat_policy=args.remat_policy)
     rng = StepRng(0, dev)
     batches = make_requests(STEPS + 1, tr.batch_size, 384, seed=0)
+    if args.memory:
+        print(f"family {args.family}, compute {args.compute_dtype}, remat {args.remat_policy}, "
+              f"batch {tr.batch_size} x 384 frames")
+        memory_peak(tr, batches, rng, dev, top)
+        return
     run = train_batches(tr.train_step, tr.params, tr.opt_state, tr.state, batches[:1], rng, BRAIN_LR, W2V_LR)
     torch.cuda.synchronize()
     # the same steps without the profiler, for the wall time the idle share is taken against
@@ -138,7 +203,7 @@ def main(argv=None) -> None:
     events.sort(key=_device_us, reverse=True)
     total_us = sum(_device_us(e) for e in events)
     print(f"family {args.family}, policy {args.policy}, compute {args.compute_dtype}, pos-conv {args.pos_conv}, "
-          f"batch {tr.batch_size}: "
+          f"remat {args.remat_policy}, batch {tr.batch_size}: "
           f"{STEPS} train steps in {wall * 1e3:.2f} ms wall "
           f"({wall * 1e3 / STEPS:.2f} ms/step), device busy {total_us / 1e3:.2f} ms "
           f"= {100 * total_us / 1e6 / wall:.1f}% of wall; peak memory "

@@ -2,22 +2,28 @@
 repository's sweep.py), running the port's CLI.
 
     python -m wav2vec2forbrain_tpu_torch.sweep sweeps/b2p2t_gru+w2v_training_from_scratch.yaml \\
-        [--dry_run] [--max_runs N] [--config_yaml config.yaml] [--extra --flag=value ...]
+        [--dry_run] [--max_runs N] [--config_yaml config.yaml] [--nproc_per_node N] [--extra --flag=value ...]
 
 It reads the same sweeps/*.yaml and expands the same grid in the same
 order: each point runs `python -m wav2vec2forbrain_tpu_torch.run` (in
 place of the YAML's `program`) with the YAML's fixed flags (without
 --use_wandb and the ${...} placeholders), the point's flags and --extra.
+With --nproc_per_node N above 1 a point runs as N ranks under torchrun
+(`python -m torch.distributed.run --standalone --nproc_per_node=N -m
+wav2vec2forbrain_tpu_torch.run ...`, data parallel over N cards, as a JAX
+sweep point uses every local device); 1, the default, runs one process.
 Each run appends a row to <cache_dir>/sweep_results/<name>/summary.jsonl
 (cache_dir from config.yaml) with the sweep's metric, read from the run's
-metrics.jsonl; the best point by the YAML's metric and goal is printed.
+metrics.jsonl (under torchrun rank 0's: the only rank that writes files);
+the best point by the YAML's metric and goal is printed.
 
 The YAML is read by `read_sweep_yaml`, which takes the subset the sweep
 files use (top-level scalars, the `command:` list, the `metric:` mapping
 and `parameters: {name: {values: [...]}}` with flow lists).
-`main(argv, launch=...)` runs each point through `launch(flags) -> return
-code` (by default a subprocess), so a caller can run the points in
-process.
+`main(argv, launch=...)` runs each point through `launch(command) ->
+return code`, the command being `program(N)` followed by the point's flags
+(by default a subprocess), so a caller can run the points in process
+(`in_process`).
 """
 
 import argparse
@@ -33,6 +39,17 @@ from typing import Callable, List, Optional
 from wav2vec2forbrain_tpu_torch.args.yaml_config import _NOT_STR, read_flat_yaml
 
 PROGRAM = [sys.executable, "-m", "wav2vec2forbrain_tpu_torch.run"]
+
+
+def program(nproc_per_node: int = 1) -> List[str]:
+    """The command a point's flags follow: one process, or N ranks under torchrun."""
+    if nproc_per_node < 1:
+        raise ValueError(f"--nproc_per_node {nproc_per_node}: at least 1")
+    if nproc_per_node == 1:
+        return list(PROGRAM)
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc_per_node}",
+            "-m", "wav2vec2forbrain_tpu_torch.run"]
+
 
 _INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
 _FLOAT = re.compile(r"^[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?$")  # YAML 1.1 floats need the dot
@@ -203,8 +220,21 @@ def better(value, best, goal: str) -> bool:
                                   or (goal == "maximize" and value > best[0]))
 
 
-def run_subprocess(flags: List[str]) -> int:
-    return subprocess.run(PROGRAM + flags).returncode
+def run_subprocess(command: List[str]) -> int:
+    return subprocess.run(command).returncode
+
+
+def in_process(run_flags: Callable[[List[str]], object]) -> Callable[[List[str]], int]:
+    """A launcher that runs a one-process point's flags through run_flags
+    (for example run.main on the CPU); it refuses a torchrun command."""
+
+    def launch(command: List[str]) -> int:
+        if command[: len(PROGRAM)] != PROGRAM:
+            raise ValueError(f"an in-process launcher runs one process, not {' '.join(command)}")
+        run_flags(command[len(PROGRAM):])
+        return 0
+
+    return launch
 
 
 def main(argv: Optional[List[str]] = None, launch: Callable[[List[str]], int] = run_subprocess):
@@ -215,6 +245,7 @@ def main(argv: Optional[List[str]] = None, launch: Callable[[List[str]], int] = 
     ap.add_argument("--dry_run", action="store_true")
     ap.add_argument("--max_runs", type=int, default=None)
     ap.add_argument("--config_yaml", default="config.yaml")
+    ap.add_argument("--nproc_per_node", type=int, default=1, help="ranks a point runs as (torchrun above 1)")
     ap.add_argument("--extra", nargs=argparse.REMAINDER, default=[], help="extra flags appended to every run")
     args = ap.parse_args(argv)
 
@@ -231,6 +262,7 @@ def main(argv: Optional[List[str]] = None, launch: Callable[[List[str]], int] = 
 
     exp_type = next((f.split("=", 1)[1] for f in base_flags if f.startswith("--experiment_type=")),
                     "b2p2t_gru+w2v")
+    command = program(args.nproc_per_node)
     grid = list(expand_grid(sweep.get("parameters", {})))
     if run_cap:
         grid = grid[:run_cap]
@@ -239,11 +271,11 @@ def main(argv: Optional[List[str]] = None, launch: Callable[[List[str]], int] = 
     best = None
     for i, point in enumerate(grid):
         flags = base_flags + [f"--{k}={v}" for k, v in point.items()] + args.extra
-        print(f"\n[{i + 1}/{len(grid)}] {' '.join(PROGRAM + flags)}")
+        print(f"\n[{i + 1}/{len(grid)}] {' '.join(command + flags)}")
         if args.dry_run:
             continue
         t0 = time.time()
-        returncode = launch(flags)
+        returncode = launch(command + flags)
         value, run_dir = read_metric(cache_dir, exp_type, metric)
         row = {
             "run": i,

@@ -1,5 +1,5 @@
-"""Evaluators: greedy decode + WER/CER per batch, and the LM beam-search
-decode of the test split (counterpart of
+"""Evaluators: greedy decode + WER/CER per batch, the LM beam-search decode
+of the test split, and the phoneme error rate (counterpart of
 wav2vec2forbrain_tpu/train/evaluator.py).
 
 The same classes and metric names (word_error_rate, char_error_rate,
@@ -20,7 +20,8 @@ from typing import Callable, List, Literal, Optional
 import numpy as np
 
 from wav2vec2forbrain_tpu_torch.train.history import DecodedPredictionBatch, MetricEntry, SingleEpochHistory
-from wav2vec2forbrain_tpu_torch.train.metrics import char_error_rate, word_error_rate
+from wav2vec2forbrain_tpu_torch.train.metrics import char_error_rate, levenshtein, word_error_rate
+from wav2vec2forbrain_tpu_torch.util.phoneme_helper import PHONE_DEF_SIL
 
 def cut_after_eos_token(string: str, eos_token: str = "</s>") -> str:
     idx = string.find(eos_token)
@@ -191,6 +192,48 @@ class EvaluatorWithLMDecoder(DefaultEvaluator):
             self._lm_pool.shutdown(wait=False)
             self._lm_pool = None
         super().clean_up()
+
+
+class B2PEvaluator(Evaluator):
+    """Phoneme-error-rate evaluator (ref: evaluator.py:245-313).
+
+    Consumes argmax ids over the phoneme vocab (blank=0); PER = total
+    phoneme-level edit distance / total reference phonemes, aggregated over
+    the whole batch like the reference."""
+
+    def __init__(self, mode: Literal["train", "val", "test"], track_non_test_predictions: bool = False):
+        super().__init__(mode, track_non_test_predictions)
+        self.history = SingleEpochHistory()
+
+    def _track_batch(self, predictions, batch):
+        pred_ids = np.asarray(predictions["pred_ids"])
+        total_dist = 0
+        total_len = 0
+        labels = []
+        predicted = []
+        for i in range(pred_ids.shape[0]):
+            if batch.target is None:
+                continue
+            # collapse repeats then drop blanks (greedy CTC decode)
+            seq = pred_ids[i]
+            collapsed = [int(x) for j, x in enumerate(seq) if j == 0 or x != seq[j - 1]]
+            decoded = [x for x in collapsed if x != 0]
+            u = int(batch.target_lens[i]) if batch.target_lens is not None else None
+            true_seq = [int(x) for x in np.asarray(batch.target[i])[:u] if x > 0]
+            labels.append([PHONE_DEF_SIL[x - 1] for x in true_seq])
+            predicted.append([PHONE_DEF_SIL[x - 1] for x in decoded])
+            total_dist += levenshtein(true_seq, decoded)
+            total_len += len(true_seq)
+        metrics = dict(predictions.get("metrics") or {})
+        metrics["phoneme_error_rate"] = total_dist / total_len if total_len else nan
+        self.history.add_batch_metric(
+            MetricEntry(metrics, float(predictions["loss"])),
+            DecodedPredictionBatch([" ".join(p) for p in predicted], [" ".join(t) for t in labels])
+            if self.mode == "test" or self.track_non_test_predictions else None,
+        )
+
+    def evaluate(self) -> SingleEpochHistory:
+        return self.history
 
 
 def GreedyEvaluator(tokenizer) -> EvaluatorWithLMDecoder:

@@ -30,6 +30,28 @@ all-reduce is also what the JAX package's kernel partitioning
 rows, and the batch-summed weight gradients (the GRU's dW, preproc's per-day
 dW, conv_glu's dK) are summed over the ranks with the rest.
 
+--remat_policy=auto on the card (`RematAuto`, the counterpart of the JAX
+impl.py::_resolve_remat_policy): the train steps choose the policy as they
+run, with no step of their own. The JAX chooser compiles each candidate
+ahead of time and asks XLA for its memory; eager PyTorch cannot know a
+step's peak without running it. So the first of models/remat.py::
+AUTO_CANDIDATES (none) runs, and a step whose batch shape has not yet run
+under the current policy is watched: after its forward and backward the
+allocator's peak since the policy took over (the footprint: params, Adam
+moments and resident splits are allocated already) must be within the
+budget. The peak counter is reset only when the policy changes, so a run
+that stays under none leaves it as a run at --remat_policy=none does. One
+that passes the budget
+moves the later steps to the next candidate (its own result stands: every
+policy computes the same step, bitwise); one that runs out of memory is
+freed, its StepRng rewound, and run again under the next candidate, before
+the optimizer has touched anything. A step that does not fit under the
+last candidate raises. Under data or tensor parallelism the ranks OR their
+verdicts (`distributed.any_across`), so all take the same policy; the ranks
+run the same shapes, so an out-of-memory error strikes them at the same
+allocation (a rank that ran out alone would leave the others waiting in the
+step's collectives).
+
 Tensor parallelism (`shard.model`, parallel/tensor.py): the params are this
 rank's pieces, the rows those of its data index, and every collective
 above runs over the data group (`shard.group`); the encoder's blocks
@@ -37,10 +59,13 @@ reduce over the model group themselves. The gradient norm sums the split
 leaves' squares over the model group (train/optim.py::global_norm).
 """
 
+import dataclasses
+import gc
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.models import remat
 from wav2vec2forbrain_tpu_torch.models.assembly import ModelSpec, forward_with_loss
 from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.parallel import distributed
@@ -152,18 +177,91 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig, shard=None):
     return grad_fn
 
 
-def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: StepConfig, shard=None):
+class RematAuto:
+    """--remat_policy=auto's choice, made by the train steps (this module's
+    header). `policy` is the one the next step runs; `budget` in bytes."""
+
+    def __init__(self, budget: float, device):
+        self.budget, self.device = budget, device
+        self.policy = remat.AUTO_CANDIDATES[0]
+        self.fitted = set()  # batch shapes a step has run within the budget under `policy`
+
+    @staticmethod
+    def key(batch):
+        return tuple(batch.input.shape), tuple(batch.target.shape)
+
+    def reset_peak(self) -> None:
+        torch.cuda.reset_peak_memory_stats(self.device)
+
+    def peak(self) -> int:
+        return torch.cuda.max_memory_allocated(self.device)
+
+    def free(self) -> None:
+        """Return a failed step's memory (its frames may sit in cycles)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def settle(self, batch, ran: bool) -> bool:
+        """After a watched step's forward and backward (`ran`: not out of
+        memory): True to run it again under the next policy."""
+        peak = self.peak() if ran else None
+        out_of_memory, over = distributed.any_across([not ran, ran and peak > self.budget], self.device)
+        last = self.policy == remat.AUTO_CANDIDATES[-1]
+        at = f"a step at batch {tuple(batch.input.shape)} under {self.policy}"
+        if out_of_memory:
+            if last:
+                raise torch.OutOfMemoryError(f"remat_policy=auto: {at} ran out of memory, the last candidate")
+            self.free()
+            self._next(f"{at} ran out of memory; run again under")
+            return True
+        if over and not last:
+            self._next(f"{at} peaked at {peak / 2**30:.2f} GiB, over the budget of {self.budget / 2**30:.2f} GiB; "
+                       "the next steps run under")
+            return False
+        if not self.fitted:
+            print(f"remat_policy=auto: {self.policy} ({at} peaked at {peak / 2**30:.2f} GiB, budget "
+                  f"{self.budget / 2**30:.2f} GiB)")
+        self.fitted.add(self.key(batch))
+        return False
+
+    def _next(self, why: str) -> None:
+        self.policy = remat.AUTO_CANDIDATES[remat.AUTO_CANDIDATES.index(self.policy) + 1]
+        self.fitted = set()
+        self.reset_peak()
+        print(f"remat_policy=auto: {why} {self.policy}")
+
+
+def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: StepConfig, shard=None,
+                     auto: Optional[RematAuto] = None):
     """train_step(params, opt_state, model_state, batch, rng, brain_lr,
     w2v_lr, mask_total=None) -> TrainStepOut (JAX: build_step_fns'
     train_step). labels is the param_labels tree the optimizer was made
     with; rng a StepRng; shard and mask_total as build_grad_fn's (the
     optimizer carries ZeRO-1, train/optim.py). pred_ids and logit_lens are
-    this rank's rows'."""
-    grad_fn = build_grad_fn(spec, labels, step_cfg, shard)
+    this rank's rows'. With `auto`, each step runs under auto.policy
+    instead of spec.remat_policy, and watched steps settle it (the header)."""
+    grad_fns = {}
+
+    def grad_fn(policy):
+        if policy not in grad_fns:
+            grad_fns[policy] = build_grad_fn(dataclasses.replace(spec, remat_policy=policy), labels, step_cfg, shard)
+        return grad_fns[policy]
 
     def train_step(params, opt_state, model_state, batch, rng: StepRng, brain_lr, w2v_lr,
                    mask_total=None) -> TrainStepOut:
-        out, grads, _ = grad_fn(params, model_state, batch, rng, mask_total)
+        if auto is None or RematAuto.key(batch) in auto.fitted:
+            out, grads, _ = grad_fn(spec.remat_policy if auto is None else auto.policy)(
+                params, model_state, batch, rng, mask_total)
+        else:
+            while True:
+                mark = rng.mark()
+                try:
+                    out, grads, _ = grad_fn(auto.policy)(params, model_state, batch, rng, mask_total)
+                except torch.OutOfMemoryError:
+                    out = grads = None
+                if not auto.settle(batch, out is not None):
+                    break
+                rng.rewind(mark)
         new_opt_state = optimizer.step(params, grads, opt_state, brain_lr, w2v_lr)
         metrics = {k: v.detach() for k, v in out["metrics"].items()}
         return TrainStepOut(
