@@ -10,6 +10,7 @@ import random
 from typing import Callable, Dict, Iterator, List, Optional
 
 from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch
+from wav2vec2forbrain_tpu_torch.util import profiling
 
 
 class Brain2TextBatchSampler:
@@ -115,8 +116,12 @@ class DataLoader:
             yield order[start : start + self.batch_size]
 
     def __iter__(self) -> Iterator[B2tBatch]:
-        for idxs in self.iter_index_batches():
-            yield self.collate_fn([self.dataset[i] for i in idxs])
+        """Each batch collated as it is asked for: a `collate` span
+        (util/profiling.py) keyed on its index in the epoch."""
+        for k, idxs in enumerate(self.iter_index_batches()):
+            with profiling.span("collate", k):
+                batch = self.collate_fn([self.dataset[i] for i in idxs])
+            yield batch
 
 
 def _as_state(state):

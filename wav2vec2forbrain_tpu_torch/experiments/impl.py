@@ -122,6 +122,7 @@ from wav2vec2forbrain_tpu_torch.train.optim import LRSchedules, make_optimizer, 
 from wav2vec2forbrain_tpu_torch.train.steps import RematAuto, StepConfig, build_eval_step, build_train_step
 from wav2vec2forbrain_tpu_torch.train.train_loop import Trainer
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves
+from wav2vec2forbrain_tpu_torch.util import profiling
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 IGNORED_FLAGS = ("scan_layers", "precompile_buckets", "multi_step_chunk")
@@ -536,13 +537,15 @@ class B2TGruW2VExperimentBase:
 
         def process(outs, host_batch, true_b, i):
             loss, logits, logit_lens, pred_ids, _metrics = outs
-            preds = {
-                "loss": float(loss),
-                "pred_ids": rows(pred_ids)[:true_b].cpu().numpy(),
-                "logits": rows(logits)[:true_b].cpu().numpy(),
-                "logit_lens": rows(logit_lens)[:true_b].cpu().numpy(),
-            }
-            evaluator.track_batch(preds, host_batch)
+            with profiling.span("fetch", i):
+                preds = {
+                    "loss": float(loss),
+                    "pred_ids": rows(pred_ids)[:true_b].cpu().numpy(),
+                    "logits": rows(logits)[:true_b].cpu().numpy(),
+                    "logit_lens": rows(logit_lens)[:true_b].cpu().numpy(),
+                }
+            with profiling.span("evaluator", i):
+                evaluator.track_batch(preds, host_batch)
             if plots and i < self.base_config.visualize_predictions_n_batches:
                 out_dir = os.path.join(self.results_dir, f"{mode}_predictions")
                 os.makedirs(out_dir, exist_ok=True)
@@ -552,16 +555,19 @@ class B2TGruW2VExperimentBase:
         stream = trainer._stream_for(dataloader, mode, grouped=False)
         try:
             for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                profiling.serve(i)
                 outs = trainer.eval_step(trainer.params, trainer.model_state, batch, mask_total)
                 if pending is not None:
                     process(*pending)
                 pending = (outs, host_batch, true_b, i)
         finally:
             stream.close()
+            profiling.serve(None)
         if pending is not None:
             process(*pending)
-        result = evaluator.evaluate()
-        evaluator.clean_up()
+        with profiling.span("evaluator"):
+            result = evaluator.evaluate()
+            evaluator.clean_up()
         return result
 
     def visualize_predictions(self, batch, preds, out_path: str, batch_id: int):

@@ -23,9 +23,14 @@ columns [col0, col0 + n) of the FFN's intermediate activation and heads
 [head0, head0 + H) of the attention: `col0` offsets the last dim of
 `hash_uniform` / `hash_dropout`, `head0` the head dim of `hash_keep_mask`
 (every offset 0: the unsplit masks, bit for bit).
+
+Each mask's generation (the forward's, and the backward's regeneration) is
+a `hash_mask` span of util/profiling.py while its recorder is on.
 """
 
 import torch
+
+from wav2vec2forbrain_tpu_torch.util import profiling
 
 _M32 = 0xFFFFFFFF
 _SEED_MIX = 0x27D4EB2F
@@ -75,7 +80,8 @@ def _rounded(value: float, dtype) -> float:
 
 
 def _apply(x: torch.Tensor, seed: int, rate: float, row0: int, col0: int) -> torch.Tensor:
-    keep = hash_uniform(x.shape, seed, x.device, row0, col0) < _rounded(1.0 - rate, torch.float32)
+    with profiling.span("hash_mask"):
+        keep = hash_uniform(x.shape, seed, x.device, row0, col0) < _rounded(1.0 - rate, torch.float32)
     return torch.where(keep, x * _rounded(1.0 / (1.0 - rate), x.dtype), 0.0)
 
 
@@ -113,9 +119,10 @@ def hash_keep_mask(seed: int, shape_bhqk, keep_prob: float, device=None, row0: i
         i = torch.arange(start, start + n, dtype=torch.int64, device=device).reshape(view)
         return (i * mult).bitwise_and_(_M32)
 
-    mix = ((int(seed) * _SEED_MIX) & _M32) + iota(b, 0, 0x165667B1, int(row0))
-    mix = (mix.bitwise_and_(_M32) + iota(h, 1, 0x9E3779B9, int(head0))).bitwise_and_(_M32)
-    rc = (iota(tq, 2, 0x9E3779B9) + iota(tk, 3, 0x85EBCA6B)).bitwise_and_(_M32)
-    x = (mix + rc).bitwise_and_(_M32)
-    u = _to_uniform(_finalize(x))
-    return (u < _rounded(keep_prob, torch.float32)).to(torch.float32)
+    with profiling.span("hash_mask"):
+        mix = ((int(seed) * _SEED_MIX) & _M32) + iota(b, 0, 0x165667B1, int(row0))
+        mix = (mix.bitwise_and_(_M32) + iota(h, 1, 0x9E3779B9, int(head0))).bitwise_and_(_M32)
+        rc = (iota(tq, 2, 0x9E3779B9) + iota(tk, 3, 0x85EBCA6B)).bitwise_and_(_M32)
+        x = (mix + rc).bitwise_and_(_M32)
+        u = _to_uniform(_finalize(x))
+        return (u < _rounded(keep_prob, torch.float32)).to(torch.float32)

@@ -13,19 +13,27 @@ template and exits 0) and runs the experiment on the CUDA card; it raises
 where there is no card. `main(argv, device="cpu")` runs it on the CPU, and
 under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT) as one rank of a gloo group.
+
+WAV2VEC2FORBRAIN_TPU_TRACE_DIR=<dir> (the JAX package's trace variable)
+records the port's host spans over the run and writes them to
+<dir>/spans-<pid>.json at its end (README, "Tracing").
 """
 
 import sys
 from typing import Optional
 
 from wav2vec2forbrain_tpu_torch.args.argparsing import get_experiment_from_args
+from wav2vec2forbrain_tpu_torch.util import profiling
 
 
 def main(argv: Optional[list] = None, device: str = "cuda"):
     """Build the experiment from argv (sys.argv[1:] by default), run it and
-    return it."""
-    experiment = get_experiment_from_args(sys.argv[1:] if argv is None else argv, device=device)
-    experiment.run()
+    return it. With WAV2VEC2FORBRAIN_TPU_TRACE_DIR set, the span recorder
+    is on for the whole run and writes its spans there
+    (util/profiling.py::trace)."""
+    with profiling.trace():
+        experiment = get_experiment_from_args(sys.argv[1:] if argv is None else argv, device=device)
+        experiment.run()
     return experiment
 
 

@@ -38,6 +38,7 @@ from wav2vec2forbrain_tpu_torch.data.batch import B2tBatch
 from wav2vec2forbrain_tpu_torch.data.dataset import split_pass, time_axis_of
 from wav2vec2forbrain_tpu_torch.parallel.mesh import padded_rows
 from wav2vec2forbrain_tpu_torch.train.buckets import plan_buckets, split_buckets, width_for
+from wav2vec2forbrain_tpu_torch.util import profiling
 from wav2vec2forbrain_tpu_torch.util.seq import calc_seq_len
 
 WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
@@ -185,17 +186,20 @@ class DeviceDatasetCache:
         batch, as Trainer._place gives them: under data parallelism
         (`shard`, parallel/mesh.py::DataShard) the width comes from the whole
         global batch, mask_total is the global mask row's sum and the batch
-        holds this rank's rows; in one process mask_total is None."""
+        holds this rank's rows; in one process mask_total is None. Each
+        batch's gather is an `input_wait` span (util/profiling.py)."""
         dp = 1 if shard is None else shard.size
-        for idxs in index_batches:
-            idx, mask, true_b = padded_index_row(idxs, batch_size, dp)
-            width = self.width_for(idxs)
-            mask_total = None
-            if shard is not None:
-                mask_total = float(mask.sum())
-                mine = shard.rows(len(idx))
-                idx, mask = idx[mine], mask[mine]
-            yield self.device_batch(idx, mask, width), true_b, mask_total, self.host_batch(idxs)
+        for k, idxs in enumerate(index_batches):
+            with profiling.span("input_wait", k):
+                idx, mask, true_b = padded_index_row(idxs, batch_size, dp)
+                width = self.width_for(idxs)
+                mask_total = None
+                if shard is not None:
+                    mask_total = float(mask.sum())
+                    mine = shard.rows(len(idx))
+                    idx, mask = idx[mine], mask[mine]
+                item = self.device_batch(idx, mask, width), true_b, mask_total, self.host_batch(idxs)
+            yield item
 
 
 def build_split_caches(loaders: dict, tokenizer, config, device, max_bytes: Optional[int] = None,

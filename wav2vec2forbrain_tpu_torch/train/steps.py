@@ -52,6 +52,14 @@ run the same shapes, so an out-of-memory error strikes them at the same
 allocation (a rank that ran out alone would leave the others waiting in the
 step's collectives).
 
+Spans (util/profiling.py, recorded only while the recorder is on): a
+train step is a `train_step` span (the batch the loop names with
+`profiling.serve`: the root opens here, inside the step, because callers
+may wrap the step's call) holding
+`forward` (the noise and forward_with_loss), `backward` (autograd, the
+gradient all-reduce as `grad_allreduce`, the norm and the clipping) and
+`optimizer`; an eval step an `eval_step` span holding `forward`.
+
 Tensor parallelism (`shard.model`, parallel/tensor.py): the params are this
 rank's pieces, the rows those of its data index, and every collective
 above runs over the data group (`shard.group`); the encoder's blocks
@@ -71,6 +79,7 @@ from wav2vec2forbrain_tpu_torch.models.seeds import StepRng
 from wav2vec2forbrain_tpu_torch.parallel import distributed
 from wav2vec2forbrain_tpu_torch.train.optim import Optimizer, clip_by_global_norm, global_norm
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
+from wav2vec2forbrain_tpu_torch.util import profiling
 
 
 class StepConfig(NamedTuple):
@@ -100,22 +109,23 @@ def build_eval_step(spec: ModelSpec, shard=None):
     tp = None if shard is None else shard.model
 
     def eval_step(params, state, batch, mask_total=None):
-        with torch.inference_mode():
-            out = forward_with_loss(
-                params,
-                state,
-                spec,
-                batch.input,
-                batch.day_idxs,
-                batch.input_lens,
-                batch.target,
-                batch.target_lens,
-                train=False,
-                sample_mask=batch.sample_mask,
-                mask_total=mask_total,
-                group=group,
-                tp=tp,
-            )
+        with profiling.span("eval_step", profiling.SERVED), torch.inference_mode():
+            with profiling.span("forward"):
+                out = forward_with_loss(
+                    params,
+                    state,
+                    spec,
+                    batch.input,
+                    batch.day_idxs,
+                    batch.input_lens,
+                    batch.target,
+                    batch.target_lens,
+                    train=False,
+                    sample_mask=batch.sample_mask,
+                    mask_total=mask_total,
+                    group=group,
+                    tp=tp,
+                )
             loss = out["loss"]
             if loss is None:
                 loss = torch.zeros((), dtype=torch.float32, device=out["logits"].device)
@@ -145,33 +155,36 @@ def build_grad_fn(spec: ModelSpec, labels, step_cfg: StepConfig, shard=None):
                 raise ValueError("a data-parallel step needs the global batch's mask_total")
             global_b *= shard.size
             rows, group = shard.rows(global_b), shard.group
-        fwd_rng = rng.next_forward(0 if rows is None else rows.start, group)
-        x = batch.input.float()
-        if step_cfg.white_noise_sd > 0:
-            x = x + rng.normal((global_b, *x.shape[1:]), x.device, rows) * step_cfg.white_noise_sd
-        if step_cfg.constant_offset_sd > 0:
-            x = x + rng.normal((global_b, 1, x.shape[2]), x.device, rows) * step_cfg.constant_offset_sd
+        with profiling.span("forward"):
+            fwd_rng = rng.next_forward(0 if rows is None else rows.start, group)
+            x = batch.input.float()
+            if step_cfg.white_noise_sd > 0:
+                x = x + rng.normal((global_b, *x.shape[1:]), x.device, rows) * step_cfg.white_noise_sd
+            if step_cfg.constant_offset_sd > 0:
+                x = x + rng.normal((global_b, 1, x.shape[2]), x.device, rows) * step_cfg.constant_offset_sd
 
-        def need(p, label):
-            p.requires_grad_(label != "frozen" or clip is not None)
+            def need(p, label):
+                p.requires_grad_(label != "frozen" or clip is not None)
 
-        tree_map(need, params, labels)
-        out = forward_with_loss(
-            params, model_state, spec, x, batch.day_idxs, batch.input_lens,
-            batch.target, batch.target_lens, rng=fwd_rng, train=True,
-            sample_mask=batch.sample_mask, mask_total=mask_total, group=group, tp=tp,
-        )
-        leaves = [p for p in tree_leaves(params) if p.requires_grad]
-        found = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
-        if shard is not None and shard.size > 1:  # the same leaves on every rank: LayerDrop's decisions are shared
-            distributed.all_reduce_tensors([g for g in found if g is not None], group)
-        by_id = {id(p): g for p, g in zip(leaves, found)}
-        grads = tree_map(lambda p: by_id.get(id(p)), params)
-        if clip is not None:
-            grads, norm = clip_by_global_norm(grads, clip, tp=tp)
-            grads = tree_map(lambda g, label: None if label == "frozen" else g, grads, labels)
-        else:
-            norm = global_norm(grads, tp)
+            tree_map(need, params, labels)
+            out = forward_with_loss(
+                params, model_state, spec, x, batch.day_idxs, batch.input_lens,
+                batch.target, batch.target_lens, rng=fwd_rng, train=True,
+                sample_mask=batch.sample_mask, mask_total=mask_total, group=group, tp=tp,
+            )
+        with profiling.span("backward"):
+            leaves = [p for p in tree_leaves(params) if p.requires_grad]
+            found = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
+            if shard is not None and shard.size > 1:  # the same leaves on every rank: LayerDrop's decisions are shared
+                with profiling.span("grad_allreduce"):
+                    distributed.all_reduce_tensors([g for g in found if g is not None], group)
+            by_id = {id(p): g for p, g in zip(leaves, found)}
+            grads = tree_map(lambda p: by_id.get(id(p)), params)
+            if clip is not None:
+                grads, norm = clip_by_global_norm(grads, clip, tp=tp)
+                grads = tree_map(lambda g, label: None if label == "frozen" else g, grads, labels)
+            else:
+                norm = global_norm(grads, tp)
         return out, grads, norm
 
     return grad_fn
@@ -249,30 +262,32 @@ def build_train_step(spec: ModelSpec, labels, optimizer: Optimizer, step_cfg: St
 
     def train_step(params, opt_state, model_state, batch, rng: StepRng, brain_lr, w2v_lr,
                    mask_total=None) -> TrainStepOut:
-        if auto is None or RematAuto.key(batch) in auto.fitted:
-            out, grads, _ = grad_fn(spec.remat_policy if auto is None else auto.policy)(
-                params, model_state, batch, rng, mask_total)
-        else:
-            while True:
-                mark = rng.mark()
-                try:
-                    out, grads, _ = grad_fn(auto.policy)(params, model_state, batch, rng, mask_total)
-                except torch.OutOfMemoryError:
-                    out = grads = None
-                if not auto.settle(batch, out is not None):
-                    break
-                rng.rewind(mark)
-        new_opt_state = optimizer.step(params, grads, opt_state, brain_lr, w2v_lr)
-        metrics = {k: v.detach() for k, v in out["metrics"].items()}
-        return TrainStepOut(
-            params,
-            new_opt_state,
-            out["state"],
-            out["loss"].detach(),
-            torch.argmax(out["logits"].detach(), dim=-1).to(torch.int32),
-            out["logit_lens"],
-            rng,
-            metrics,
-        )
+        with profiling.span("train_step", profiling.SERVED):
+            if auto is None or RematAuto.key(batch) in auto.fitted:
+                out, grads, _ = grad_fn(spec.remat_policy if auto is None else auto.policy)(
+                    params, model_state, batch, rng, mask_total)
+            else:
+                while True:
+                    mark = rng.mark()
+                    try:
+                        out, grads, _ = grad_fn(auto.policy)(params, model_state, batch, rng, mask_total)
+                    except torch.OutOfMemoryError:
+                        out = grads = None
+                    if not auto.settle(batch, out is not None):
+                        break
+                    rng.rewind(mark)
+            with profiling.span("optimizer"):
+                new_opt_state = optimizer.step(params, grads, opt_state, brain_lr, w2v_lr)
+            metrics = {k: v.detach() for k, v in out["metrics"].items()}
+            return TrainStepOut(
+                params,
+                new_opt_state,
+                out["state"],
+                out["loss"].detach(),
+                torch.argmax(out["logits"].detach(), dim=-1).to(torch.int32),
+                out["logit_lens"],
+                rng,
+                metrics,
+            )
 
     return train_step

@@ -36,6 +36,15 @@ Both give the same batches bitwise. Every epoch's stream is closed before
 the epoch returns, so a train-state checkpoint reads the loaders' shuffle
 streams after the worker has ended.
 
+Spans (util/profiling.py, while its recorder is on), each keyed on the
+batch's index in its epoch or pass: `input_wait` around the consumer's
+next() of either stream; the loader's `collate` and the `place` of a
+streamed batch, inside `input_wait` when inline and on the `host-prefetch`
+thread under --host_prefetch; the step's own spans (train/steps.py) for
+the batch the loop serves (`profiling.serve`); `fetch` around the lag-1
+reads of a step's outputs and `evaluator` around their tracking, and
+around the epoch's `evaluate()`.
+
 Data parallelism (torchrun, parallel/): every rank loads the same global
 batch (or its index row); `_place` and the resident gather pad its rows to
 --batch_size rounded up to the data axis (as the JAX Trainer._put), pick
@@ -69,6 +78,7 @@ Left out, being XLA- or TPU-only: the K-step chunks themselves and the
 bucket precompile.
 """
 
+import itertools
 import json
 import os
 import queue
@@ -92,6 +102,7 @@ from wav2vec2forbrain_tpu_torch.train.evaluator import GreedyEvaluator
 from wav2vec2forbrain_tpu_torch.train.history import EpochLosses, SingleEpochHistory, TrainHistory
 from wav2vec2forbrain_tpu_torch.train.jax_train_state import read_jax_train_state
 from wav2vec2forbrain_tpu_torch.train.optim import AdamState
+from wav2vec2forbrain_tpu_torch.util import profiling
 from wav2vec2forbrain_tpu_torch.util.profiling import StepTimer
 
 
@@ -202,6 +213,7 @@ class _HostPrefetcher:
 
     def __init__(self, batches, put, device=None):
         self._device = device
+        self._taken = 0  # batches handed to the consumer
         self._q = queue.Queue(maxsize=2)
         self._err = None
         self._stop = False
@@ -219,8 +231,12 @@ class _HostPrefetcher:
 
     def _work(self, batches, put):
         try:
-            for host_batch in batches:
-                if self._stop or not self._put_item((put(host_batch), host_batch)):
+            for k, host_batch in enumerate(batches):
+                if self._stop:
+                    return
+                with profiling.span("place", k):
+                    placed = put(host_batch)
+                if not self._put_item((placed, host_batch)):
                     return
         except BaseException as e:  # noqa: BLE001 -- handed to the consumer, which raises it
             self._err = e
@@ -241,20 +257,22 @@ class _HostPrefetcher:
         return self
 
     def __next__(self):
-        item = self._DONE if self._stop else self._q.get()
-        if item is self._DONE:
-            self.close()
-            err, self._err = self._err, None
-            if err is not None:
-                raise err
-            raise StopIteration
-        ((batch, true_b, mask_total), event), host_batch = item
-        if event is not None:
-            current = torch.cuda.current_stream(self._device)
-            current.wait_event(event)
-            for t in batch:
-                if t is not None:
-                    t.record_stream(current)
+        with profiling.span("input_wait", self._taken):
+            item = self._DONE if self._stop else self._q.get()
+            if item is self._DONE:
+                self.close()
+                err, self._err = self._err, None
+                if err is not None:
+                    raise err
+                raise StopIteration
+            ((batch, true_b, mask_total), event), host_batch = item
+            if event is not None:
+                current = torch.cuda.current_stream(self._device)
+                current.wait_event(event)
+                for t in batch:
+                    if t is not None:
+                        t.record_stream(current)
+        self._taken += 1
         return batch, true_b, mask_total, host_batch
 
 
@@ -265,8 +283,15 @@ def _batch_stream(batches, place, prefetch: bool, device):
     own (`place(host_batch, stream)`)."""
     if not prefetch:
         def inline():
-            for host_batch in batches:
-                yield (*place(host_batch, None), host_batch)
+            taken = iter(batches)
+            for k in itertools.count():
+                with profiling.span("input_wait", k):
+                    host_batch = next(taken, None)
+                    if host_batch is None:
+                        return
+                    with profiling.span("place", k):
+                        placed = place(host_batch, None)
+                yield (*placed, host_batch)
 
         return inline()
     if device.type != "cuda":
@@ -424,18 +449,21 @@ class Trainer:
         t_epoch = time.perf_counter()
 
         def process(out, host_batch, true_b, i):
-            preds = {
-                "loss": float(out.loss),
-                "pred_ids": self._rows(out.pred_ids)[:true_b].cpu().numpy(),
-                "logit_lens": self._rows(out.logit_lens)[:true_b].cpu().numpy(),
-            }
-            if out.metrics:
-                preds["metrics"] = {k: float(v) for k, v in out.metrics.items()}
-            self._track(evaluator, preds, host_batch, i, n)
+            with profiling.span("fetch", i):
+                preds = {
+                    "loss": float(out.loss),
+                    "pred_ids": self._rows(out.pred_ids)[:true_b].cpu().numpy(),
+                    "logit_lens": self._rows(out.logit_lens)[:true_b].cpu().numpy(),
+                }
+                if out.metrics:
+                    preds["metrics"] = {k: float(v) for k, v in out.metrics.items()}
+            with profiling.span("evaluator", i):
+                self._track(evaluator, preds, host_batch, i, n)
 
         stream = self._stream_for(data_loader, split, self.config.length_bucket_order == "grouped")
         try:
             for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                profiling.serve(i)
                 out = self.train_step(self.params, self.opt_state, self.model_state, batch, self.rng, brain_lr,
                                       w2v_lr, mask_total)
                 self.opt_state = out.opt_state
@@ -447,13 +475,15 @@ class Trainer:
                 pending = (out, host_batch, true_b, i)
         finally:
             stream.close()  # the prefetch worker, if any, has ended
+            profiling.serve(None)
         if pending is not None:
             process(*pending)
         dt_epoch = time.perf_counter() - t_epoch
         if epoch_samples:
             self.step_timer.add(dt_epoch, epoch_samples, steps=n)
-        results = evaluator.evaluate()
-        evaluator.clean_up()
+        with profiling.span("evaluator"):
+            results = evaluator.evaluate()
+            evaluator.clean_up()
         return results
 
     def _evaluate_epoch(self, mode: Literal["val", "test"]) -> SingleEpochHistory:
@@ -466,27 +496,32 @@ class Trainer:
 
         def process(outs, host_batch, true_b, i):
             loss, logits, logit_lens, pred_ids, metrics = outs
-            preds = {"loss": float(loss), "pred_ids": self._rows(pred_ids)[:true_b].cpu().numpy()}
-            if metrics:
-                preds["metrics"] = {k: float(v) for k, v in metrics.items()}
-            preds["logit_lens"] = self._rows(logit_lens)[:true_b].cpu().numpy()
-            if need_logits:
-                preds["logits"] = self._rows(logits)[:true_b].cpu().numpy()
-            self._track(evaluator, preds, host_batch, i, n)
+            with profiling.span("fetch", i):
+                preds = {"loss": float(loss), "pred_ids": self._rows(pred_ids)[:true_b].cpu().numpy()}
+                if metrics:
+                    preds["metrics"] = {k: float(v) for k, v in metrics.items()}
+                preds["logit_lens"] = self._rows(logit_lens)[:true_b].cpu().numpy()
+                if need_logits:
+                    preds["logits"] = self._rows(logits)[:true_b].cpu().numpy()
+            with profiling.span("evaluator", i):
+                self._track(evaluator, preds, host_batch, i, n)
 
         stream = self._stream_for(dataloader, mode, not need_logits)
         try:
             for i, (batch, true_b, mask_total, host_batch) in enumerate(stream):
+                profiling.serve(i)
                 outs = self.eval_step(self.params, self.model_state, batch, mask_total)
                 if pending is not None:
                     process(*pending)
                 pending = (outs, host_batch, true_b, i)
         finally:
             stream.close()
+            profiling.serve(None)
         if pending is not None:
             process(*pending)
-        results = evaluator.evaluate()
-        evaluator.clean_up()
+        with profiling.span("evaluator"):
+            results = evaluator.evaluate()
+            evaluator.clean_up()
         return results
 
     def _get_wandb_metrics(self, epoch_hist: SingleEpochHistory, prefix: str):
