@@ -41,7 +41,13 @@ Phases, each of which exits nonzero on failure:
      B=64, T' 89, 169 and 230, 32 classes (ragged lengths, a sample
      without an alignment, an empty target), also bitwise against itself
      over CTC_CALLS calls and against F.ctc_loss at f64 (within
-     F32_CLASS_FACTOR x the plain version's distance). Each row: max-abs
+     F32_CLASS_FACTOR x the plain version's distance); Adam (csrc/adam.cu,
+     no TPU kernel) at both train cells' full leaf sets (conformer-rope-
+     large and w2v-base-fft, f32 moments, the cells' weight decay, a dropped
+     encoder layer's leaves without gradients): one step through the kernel
+     bitwise the loop's (the plain version, `none`), "kernel" the device
+     time of a step's kernel and table copy, "call" one whole step alone
+     (the host's table included). Each row: max-abs
      error beside its tolerance; the kernel's
      device time with the queue kept full (`device_ms`: calls queued behind
      a spin kernel run back to back, so the host's launch overhead drops
@@ -377,11 +383,12 @@ REPLACES = {
     "layernorm": _PALLAS + "pallas_layernorm.py:100",
     "layernorm_bwd": _PALLAS + "pallas_layernorm.py:115",
     "ctc": "none: no TPU kernel (the JAX package runs optax.ctc_loss, wav2vec2forbrain_tpu/ops/ctc.py:43)",
+    "adam": "none: no TPU kernel (XLA fuses optax's update, wav2vec2forbrain_tpu/train/optim.py)",
 }
 SOURCES = {name: "wav2vec2forbrain_tpu_torch/csrc/{}.cu".format(name.split("_bwd")[0].replace("gru_dir", "gru"))
            for name in REPLACES}
-# the kernels each main path must launch (backward kernels only in training; "ctc" wherever a loss is taken,
-# serving too: one launch computes the loss and, in training, its gradient)
+# the kernels each main path must launch (backward kernels and "adam" only in training; "ctc" wherever a loss is
+# taken, serving too: one launch computes the loss and, in training, its gradient)
 PATH_KERNELS = {
     "conformer": ("preproc", "gru", "attention", "conv_glu", "layernorm", "ctc"),
     "w2v": ("preproc", "gru_dir", "attention", "layernorm", "ctc"),
@@ -429,6 +436,8 @@ ROW_LABELS = {
 }
 ROW_LABELS.update({f"{k}_bwd": v for k, v in list(ROW_LABELS.items())})
 ROW_LABELS["ctc"] = "B64 T'169 K32"  # phase 8's batch at its longest trials (700 frames)
+ROW_LABELS["adam"] = "conformer leaves f32 moments"  # the conformer.train cell's optimizer step
+ADAM_DROPPED = "/w2v/encoder/layers/1/"  # phase 2's Adam rows: the dropped encoder layer (no gradients)
 # phase 2's CTC rows: the NLL relative to its largest value (f32 sums of T' log-sum-exps taken in another
 # order); the gradient, a difference of probabilities (|g| <= 1), absolute: both f32 versions put sums of
 # magnitude |nll| (hundreds) in the exponent of each term, and each sits ~1e-4 off the f64 result at T' 169,
@@ -1092,6 +1101,78 @@ def kernel_phases(dev, results):
     # 10. the CTC loss and its gradient (csrc/ctc.cu; no TPU kernel) at the w2v-base CLI's batch, B=64:
     # F.ctc_loss forward and backward is the plain version and the library call
     ctc_rows(torch.Generator(device=dev).manual_seed(SEED + 6))
+    # 11. Adam (csrc/adam.cu; no TPU kernel) at both train cells' full leaf sets
+    for family in ("conformer", "w2v"):
+        adam_row(dev, family, results)
+
+
+def adam_row(dev, family, results):
+    """Phase 2's Adam row of one family (the module docstring): the bound
+    counts p, g, m and v read once and p, m and v written once (bytes at
+    3.35 TB/s), ~15 f32 operations an element."""
+    import torch
+
+    from wav2vec2forbrain_tpu_torch.models.assembly import init_model_params, param_labels
+    from wav2vec2forbrain_tpu_torch.ops import kernels, select
+    from wav2vec2forbrain_tpu_torch.profile_train import BRAIN_LR, FAMILIES, W2V_LR
+    from wav2vec2forbrain_tpu_torch.train.optim import AdamState, make_optimizer
+    from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map_with_path
+
+    spec, _ = _spec_and_batch(family)
+    params, _ = init_model_params(torch.Generator(device=dev).manual_seed(SEED + 7), spec, dev)
+    labels = param_labels(params, "brain_encoder+w2v")
+    opt = make_optimizer(labels, "adam", FAMILIES[family][1])
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    grads = tree_map_with_path(lambda path, p, lab: None if lab == "frozen" or path.startswith(ADAM_DROPPED) else
+                               torch.randn(p.shape, generator=gen, device=dev) * 1e-2, params, labels)
+    label = f"{'conformer' if family == 'conformer' else 'w2v-base'} leaves f32 moments"
+    leaves = opt.trained_leaves(params, grads, state, BRAIN_LR, W2V_LR)
+    elems = sum(t.p.numel() for t in leaves)
+    moved = sum(t.p.numel() * 8 + (0 if t.g is None else t.g.numel() * 4)
+                + 2 * (t.m.numel() * t.m.element_size() + t.v.numel() * t.v.element_size()) for t in leaves)
+    bound, bound_by = bound_ms(moved, [(15 * elems, "float32")])
+
+    out = [state]
+
+    def step_of(policy):
+        def step():
+            select.set_kernel_policy(policy)
+            out[0] = opt.step(params, grads, out[0], BRAIN_LR, W2V_LR)
+        return step
+
+    # one step each way from one state, bitwise
+    sides = {}
+    for policy in ("auto", "none"):
+        select.set_kernel_policy(policy)
+        p, st = _clone(params), AdamState(0, _clone(state.mu), _clone(state.nu))
+        before = kernels.LAUNCHES["adam"]
+        st = opt.step(p, grads, st, BRAIN_LR, W2V_LR)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["adam"] - before != (policy == "auto"):
+            fail(f"adam [{label}]: {kernels.LAUNCHES['adam'] - before} launches under {policy}")
+        sides[policy] = tree_leaves(p) + tree_leaves(st.mu) + tree_leaves(st.nu)
+    select.set_kernel_policy("auto")
+    err = max((a - b).abs().max().item() for a, b in zip(*sides.values()))
+    bitwise = all(torch.equal(a, b) for a, b in zip(*sides.values()))
+    del sides, p, st
+    ms, starved = device_ms(step_of("auto"))
+    prof_ms = profiler_ms(step_of("auto")) if starved else None
+    call_ms = timed_ms(step_of("auto"))
+    plain_ms = timed_ms(step_of("none"), iters=5, warmup=1)
+    select.set_kernel_policy("auto")
+    torch.cuda.synchronize()
+    mark = "" if prof_ms is None else f" [starved; profiler {prof_ms:.4f}]"
+    print(f"  {'adam':13s} {label:42s} max_abs_err {err:.3e} (bitwise {bitwise}) kernel {ms:.4f} ms{mark} "
+          f"(call {call_ms:.4f})  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({bound_by}; {len(leaves)} leaves, "
+          f"{elems / 1e6:.1f}M elements, {moved / 1e9:.2f} GB)  {'ok' if bitwise else 'MISMATCH'}")
+    if not bitwise:
+        fail(f"adam [{label}]: the kernel's step differs from the loop's (max-abs {err})")
+    results.append(dict(name="adam", label=label, err=err, ms=ms, profiler_ms=prof_ms, call_ms=call_ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None,
+                        library_profiler_ms=None))
+    del params, grads, state, out, opt
+    torch.cuda.empty_cache()
 
 
 def _spec_and_batch(family):
@@ -1108,7 +1189,7 @@ def _check_launches(launches, family, train):
     """Every kernel of the family's path launched, no other kernel did."""
     want = set(PATH_KERNELS[family])
     if train:
-        want |= {f"{k}_bwd" for k in want}
+        want |= {f"{k}_bwd" for k in want} | {"adam"}
     wrong = sorted(k for k, v in launches.items() if (v > 0) != (k in want))
     if wrong:
         fail(f"{family} {'training' if train else 'serving'}: kernels launched against the path: "
@@ -3475,7 +3556,8 @@ def main() -> None:
             fail(f"{name}: launched in no training run")
         for path in cli:
             family, training = CLI_PATHS[path]
-            want = name.split("_bwd")[0] in PATH_KERNELS[family] and (training or not name.endswith("_bwd"))
+            want = training if name == "adam" else (
+                name.split("_bwd")[0] in PATH_KERNELS[family] and (training or not name.endswith("_bwd")))
             if (by_path[path] > 0) != want:
                 fail(f"{name}: {by_path[path]} launches in the {path} run")
         timed = (lambda key: None) if at is None else at.get  # a partial run without phase 2: no times

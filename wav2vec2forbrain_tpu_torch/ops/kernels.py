@@ -42,6 +42,8 @@ LAUNCHES = {
     "layernorm": 0, "layernorm_bwd": 0,
     # the CTC loss and its gradient, one launch (ops/ctc.py::ctc_nll; no TPU kernel: optax's CTC in JAX)
     "ctc": 0,
+    # Adam's update, one launch a step for each pair of moment dtypes (ops/adam.py; no TPU kernel: XLA fuses optax's)
+    "adam": 0,
 }
 
 _vp = ctypes.c_void_p
@@ -80,6 +82,9 @@ _SIGNATURES = {
     "w2vb_layernorm_bwd_chunks": [_i] * 4,
     # lp, targets, in_lens, tgt_lens, alpha, nll, grad (or null), B, T, K, U, blank, stream
     "w2vb_ctc": [_vp] * 7 + [_i] * 5 + [_vp],
+    # table, n_entries, n_chunks, chunk, grid, m_bf16, v_bf16, stock, has_wd,
+    # wd, 1 - b1, 1 - b2, b1, b2, 1 / bc1, 1 / bc2, eps, stream
+    "w2vb_adam": [_vp] + [_i] * 8 + [_f] * 8 + [_vp],
 }
 
 _lib = None

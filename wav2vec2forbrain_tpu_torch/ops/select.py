@@ -8,6 +8,9 @@ Same kernel names and the same policy values as the JAX package:
 "ctc" is the port's own (csrc/ctc.cu, a fixed-order CTC loss and gradient
 that makes w2v-base training reproducible on the card); the JAX package
 has no such kernel (it runs optax's CTC), so its policies do not name it.
+"adam" is the port's own too (csrc/adam.cu, the optimizer's update of
+every trained leaf in one launch, train/optim.py); XLA fuses the JAX
+package's optax update.
 
 None of the JAX package's `auto` verdicts carry over: they were measured on a
 TPU (the JAX `auto` keeps "layernorm" on XLA after a TPU A/B). The port's
@@ -25,8 +28,8 @@ experiment, `predict.predict` and the chip scripts call it.
 
 import torch
 
-KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout", "ctc")
-PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm", "ctc")
+KERNELS = ("preproc", "gru", "attention", "conv_glu", "layernorm", "dropout", "ctc", "adam")
+PORTED = ("preproc", "gru", "attention", "conv_glu", "layernorm", "ctc", "adam")
 
 _policy = "auto"
 

@@ -28,14 +28,24 @@
   split leaves' squares over the model group and counts each whole leaf
   once, so clipping and the logged norm are the whole tree's.
 
-The update is a loop over the leaves in PyTorch ops, in place on the
-params: no finished optimizer kernel (the JAX package runs it as XLA).
+Adam updates the params and moments in place. Its CUDA leaves go to one
+multi-tensor kernel (ops/adam.py, csrc/adam.cu: a table of the leaves,
+one launch a step) while the "adam" kernel is enabled (ops/select.py); a
+CUDA leaf the kernel does not take raises. CPU leaves, and every leaf under
+`--pallas_kernels=none`, take the loop over the leaves in PyTorch ops: the
+plain version, whose arithmetic the kernel computes bit for bit. The loop
+divides by the bias corrections as PyTorch divides a CUDA tensor by a
+scalar, by a multiply with the f32 reciprocal, so the CPU computes the
+same bits. The JAX package runs the update as XLA. SGD is the loop on
+every device.
 """
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from wav2vec2forbrain_tpu_torch.ops import adam
+from wav2vec2forbrain_tpu_torch.ops.select import kernel_enabled
 from wav2vec2forbrain_tpu_torch.parallel.tensor import TensorShard, split_dims
 from wav2vec2forbrain_tpu_torch.tree import tree_leaves, tree_map
 
@@ -164,9 +174,9 @@ class Optimizer:
         """grads: tree like params; None at a leaf means a zero gradient
         (a parameter the forward did not reach, such as a layer that
         LayerDrop skipped)."""
-        lr_of = {"brain": float(brain_lr), "w2v": float(w2v_lr)}
         count = state.count + 1
         if self.kind == "sgd":
+            lr_of = {"brain": float(brain_lr), "w2v": float(w2v_lr)}
 
             def sgd_leaf(p, g, label):
                 if label == "frozen" or (g is None and self.weight_decay == 0.0):
@@ -178,32 +188,56 @@ class Optimizer:
 
             tree_map(sgd_leaf, params, grads, self.labels)
             return AdamState(count, None, None)
-        # the f32 bias corrections 1 - b ** count, held as python floats
-        # (exact f32 values, so no per-leaf device copies)
-        bc1 = float(1.0 - torch.tensor(B1) ** float(count))
-        bc2 = float(1.0 - torch.tensor(B2) ** float(count))
-
-        zero = self.zero
-
-        def leaf(p, g, label, m, v, md):
-            if label == "frozen":
-                return
-            if zero is not None:  # this rank's piece (the whole leaf where it is not split)
-                p = zero.local(p, md)
-                g = None if g is None else zero.local(g, md)
+        trained = self.trained_leaves(params, grads, state, brain_lr, w2v_lr)
+        scalars = self.scalars(count)
+        kernel = kernel_enabled("adam")
+        on_card = [t for t in trained if kernel and t.p.is_cuda]
+        if on_card:
+            adam.adam_update(on_card, scalars)
+        for p, g, m, v, lr in trained:
+            if kernel and p.is_cuda:
+                continue
             g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
             if self.weight_decay != 0.0:
                 g = g + self.weight_decay * p
             m32, v32 = self._moments(g, m, v)
-            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            p.add_((u * (-lr_of[label])).to(p.dtype))
+            u = (m32 * scalars.inv_bc1) / (torch.sqrt(v32 * scalars.inv_bc2) + self.eps)
+            p.add_((u * (-lr)).to(p.dtype))
             m.copy_(m32)
             v.copy_(v32)
-
-        tree_map(leaf, params, grads, self.labels, state.mu, state.nu, self._model_dims(params))
-        if zero is not None:
-            zero.gather_params(params, self.labels)
+        if self.zero is not None:
+            self.zero.gather_params(params, self.labels)
         return AdamState(count, state.mu, state.nu)
+
+    def trained_leaves(self, params, grads, state: AdamState, brain_lr: float, w2v_lr: float):
+        """[adam.AdamLeaf] of the trained leaves, in tree order: under
+        ZeRO-1 this rank's piece of each param and gradient (the whole leaf
+        where it is not split); frozen leaves left out."""
+        lr_of = {"brain": float(brain_lr), "w2v": float(w2v_lr)}
+        zero = self.zero
+        trained = []
+
+        def leaf(p, g, label, m, v, md=None):
+            if label == "frozen":
+                return
+            if zero is not None:
+                p = zero.local(p, md)
+                g = None if g is None else zero.local(g, md)
+            trained.append(adam.AdamLeaf(p, g, m, v, lr_of[label]))
+
+        if zero is None:  # no model-axis dims to walk
+            tree_map(leaf, params, grads, self.labels, state.mu, state.nu)
+        else:
+            tree_map(leaf, params, grads, self.labels, state.mu, state.nu, zero.model_dims(params))
+        return trained
+
+    def scalars(self, count: int) -> adam.AdamScalars:
+        """Step `count`'s scalars; the reciprocals of the f32 bias
+        corrections 1 - b ** count as python floats (exact f32 values, so
+        no per-leaf device copies)."""
+        return adam.AdamScalars(B1, B2, self.eps, self.weight_decay,
+                                _f32_reciprocal(1.0 - torch.tensor(B1) ** float(count)),
+                                _f32_reciprocal(1.0 - torch.tensor(B2) ** float(count)), self.nu_dtype is None)
 
     def _model_dims(self, params):
         """Each leaf's model-axis dim, which ZeRO-1's data-axis split skips."""
@@ -218,6 +252,12 @@ class Optimizer:
             m32 = B1 * m.float() + (1.0 - B1) * g
             v32 = B2 * v.float() + (1.0 - B2) * torch.square(g)
         return m32, v32
+
+
+def _f32_reciprocal(x: torch.Tensor) -> float:
+    """1 / x in f32 (x an f32 0-d tensor), as a python float: the factor
+    PyTorch's CUDA division of a tensor by the scalar x multiplies by."""
+    return float(torch.ones((), dtype=torch.float32) / x)
 
 
 def make_optimizer(labels, optimizer: str = "adam", weight_decay: float = 0.0, eps: float = 1e-8,
